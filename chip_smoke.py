@@ -5,17 +5,23 @@
 
 Phases, each of which raises (exit code != 0) when it fails:
   1. the card's name and power limit (nvidia-smi);
-  2. build of the CUDA kernels from x264_tpu_torch/csrc (nvcc, sm_90a);
+  2. build of the CUDA kernels from x264_tpu_torch/csrc (nvcc, sm_90a,
+     one process per source);
   3. each kernel against its plain PyTorch twin at 1080p on the card,
-     bit-exact, with both times (median of several runs after a warm-up):
-     ESA on a 1080p frame against a shifted, noised copy; the deblock
-     kernels on the recon planes and bS grids of an encoded P frame;
-  4. the main path: Encoder(device="cuda") encodes a 1080p clip of one IDR
-     and 9 P frames (bench.py's make_clip), with the kernels' launch counts
-     reset just before and read just after; fps, bytes and Y-PSNR, and,
-     where tools/avdec runs, a decode that must equal the encoder's recon;
-  5. a 352x288 stream encoded on the card must equal, byte for byte, the
-     stream the port encodes on the CPU (the kernels' plain twins).
+     bit-exact, with both times (CUDA events over several runs after a
+     warm-up) and the kernel's bound: the ESA kernels (16x16 and
+     partitions) on a 1080p frame against a shifted, noised copy, the
+     partition kernel's 16x16 unit against esa16; the deblock kernels on
+     the recon planes and bS grids of an encoded P frame;
+  4. the main paths, each with the kernels' launch counts reset just
+     before and read just after: Encoder(device="cuda") encodes a 1080p
+     clip of one IDR and 5 P frames (the clip formula of bench.py's
+     make_clip) with P16x16 only, then again with P8x8 partitions; fps,
+     bytes, Y-PSNR, the partition shapes chosen and, where tools/avdec
+     runs, a decode that must equal the encoder's recon;
+  5. 352x288 streams encoded on the card must equal, byte for byte, the
+     streams the port encodes on the CPU (the kernels' plain twins), with
+     and without partitions.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits 1.
@@ -23,7 +29,6 @@ and exits 1.
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -31,36 +36,103 @@ import time
 
 import numpy as np
 
-W, H, N_FRAMES, QP = 1920, 1080, 10, 26
+W, H, QP = 1920, 1080, 26
+N_FRAMES = 6                 # per 1080p run: one IDR, then P frames
+CLIP_FRAMES = 48             # bench.py's N_FRAMES: sets the texture pad
 CHECK_W, CHECK_H, CHECK_FRAMES = 352, 288, 4
 AVDEC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
                      "avdec")
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
+INT32_LANES_PER_SM = 64      # sm_90 integer add / min / sad per clock
+
+
+def make_clip(n: int):
+    """bench.py's make_clip (same seed and formula), first n frames:
+    panning detailed texture + slow luminance drift."""
+    rng = np.random.default_rng(20260816)
+    pad = 4 * CLIP_FRAMES
+    tex = rng.integers(-24, 25, (H + pad, W + pad)).astype(np.int16)
+    tex = (tex + np.roll(tex, 1, 0) + np.roll(tex, 1, 1)
+           + np.roll(tex, (1, 1), (0, 1))) // 4          # soften a touch
+    yy, xx = np.mgrid[0:H, 0:W]
+    frames = []
+    for t in range(n):
+        dx, dy = 3 * t, 2 * t
+        base = (128 + 60 * np.sin((xx + dx) / 41.0)
+                * np.cos((yy + dy) / 59.0))
+        y = np.clip(base + tex[dy:dy + H, dx:dx + W] + t, 0, 255
+                    ).astype(np.uint8)
+        u = (128 + 32 * np.sin((xx[::2, ::2] + dx) / 61.0)).astype(np.uint8)
+        v = (128 + 32 * np.cos((yy[::2, ::2] + dy) / 59.0)).astype(np.uint8)
+        frames.append((y, u, v))
+    return frames
+
+
+def split_motion_clip(w: int, h: int, n: int):
+    """Two motion fields at 8-px grain (tests/test_parts_e2e.py's content
+    idea): the top half of every MB row pans right, the bottom half pans
+    down, and in the right third the split is vertical instead, so 16x8,
+    8x16 and 8x8 partitions win in many MBs."""
+    rng = np.random.default_rng(9)
+    big = rng.integers(0, 256, (3 * h, 3 * w)).astype(np.int32)
+    big = (big[:-1, :-1] + big[1:, :-1] + big[:-1, 1:] + big[1:, 1:]) // 4
+    frames = []
+    for t in range(n):
+        a = big[8:8 + h, 8 + 3 * t:8 + 3 * t + w]     # pans right
+        b = big[8 + 2 * t:8 + 2 * t + h, 8:8 + w]     # pans down
+        y = a.copy()
+        for my in range(h // 16):
+            y[16 * my + 8:16 * my + 16] = b[16 * my + 8:16 * my + 16]
+        for mx in range(2 * (w // 16) // 3, w // 16):
+            y[:, 16 * mx:16 * mx + 8] = a[:, 16 * mx:16 * mx + 8]
+            y[:, 16 * mx + 8:16 * mx + 16] = b[:, 16 * mx + 8:16 * mx + 16]
+        u = big[1:1 + h // 2, 2:2 + w // 2] // 2 + 60
+        v = big[3:3 + h // 2, 5:5 + w // 2] // 2 + 70
+        frames.append(tuple(p.astype(np.uint8) for p in (y, u, v)))
+    return frames
+
+
+def _spy_shapes(enc) -> list:
+    """Record the partition shapes of every P frame ``enc`` encodes."""
+    shapes = []
+    run_core = enc._run_core
+
+    def spy(*a, **kw):
+        out, st = run_core(*a, **kw)
+        if "shape" in out:
+            shapes.append(out["shape"])
+        return out, st
+
+    enc._run_core = spy
+    return shapes
 
 
 def _time_ms(fn, reps: int) -> float:
-    """Median wall time of fn() on the card, synchronised, after a warm-up."""
+    """Mean time of fn() on the card over reps runs after a warm-up,
+    from CUDA events around the whole run."""
     import torch
     fn()
     torch.cuda.synchronize()
-    ts = []
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
     for _ in range(reps):
-        t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
-        ts.append(1000.0 * (time.perf_counter() - t0))
-    return statistics.median(ts)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
 
 
 def _max_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item())
 
 
-def _params(w: int, h: int):
+def _params(w: int, h: int, p8x8: bool):
     from x264_tpu_torch.api import EncoderParams
     return EncoderParams(width=w, height=h, qp=QP, me_range=16, subpel=2,
                          cabac=True, deblock=True, bframes=0, ref_frames=1,
                          keyint_max=250, scenecut_threshold=0,
-                         backend="device")
+                         backend="device", p8x8=p8x8)
 
 
 def _psnr(a, b) -> float:
@@ -103,28 +175,102 @@ def _decode(stream: bytes, w: int, h: int) -> list:
             for f in (data[i:i + fs] for i in range(0, len(data), fs))]
 
 
+def _smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _esa_bound_ms(src, ref_pad, r: int, units: int, out_words: int,
+                  int_ops_per_s: float) -> tuple:
+    """Least time of an exhaustive search: per MB and candidate, 64
+    __vsadu4 (4 absolute differences each) and, per unit, a cost add and
+    a running minimum, at the card's int32 issue rate; bytes: the source
+    and padded reference planes read once, the outputs (out_words int32
+    per MB) written once."""
+    n_mb = src.numel() // 256
+    ops = n_mb * (2 * r + 1) ** 2 * (64 + 2 * units)
+    nbytes = src.numel() + ref_pad.numel() + 4 * out_words * n_mb
+    t_ops, t_bytes = 1e3 * ops / int_ops_per_s, 1e3 * nbytes / HBM_BYTES_PER_S
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _run_1080p(label, clip, p8x8, records):
+    """One main-path run (counts reset just before, read just after);
+    adds its launches to the records and returns (launches, the shape of
+    every MB of every P frame when partitions are on)."""
+    import torch
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    enc = Encoder(_params(W, H, p8x8), device="cuda")
+    recons = []
+    enc.recon_hook = lambda d, rec: recons.append(rec)
+    shapes = _spy_shapes(enc)
+    stream, times = b"", []
+    x264_tpu_torch.reset_launch_counts()
+    for y, u, v in clip:
+        t0 = time.perf_counter()
+        stream += enc.encode(Frame420(y, u, v))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    stream += enc.flush()
+    torch.cuda.synchronize()
+    launches = x264_tpu_torch.launch_counts()
+    print(f"launches in the 1080p {label} run: {launches}")
+    for r in records:
+        r["launches"] += launches[r["name"]]
+    steady = times[2:]          # P frames after the first
+    fps = len(steady) / sum(steady)
+    psnr = [_psnr(rec.y[:H, :W].cpu().numpy(), f[0])
+            for rec, f in zip(recons, clip)]
+    print(f"{label} frame ms: " + " ".join(f"{1000 * t:.1f}" for t in times))
+    print(f"1080p {label}: {fps:.3f} fps steady state (P frames "
+          f"3-{len(clip)}), IDR {1000 * times[0]:.1f} ms, {len(stream)} "
+          f"bytes, {len(stream) * 8 / len(clip) / 1000:.1f} kbit/frame, "
+          f"mean Y-PSNR {np.mean(psnr):.3f} dB")
+    if len(recons) != len(clip) or not np.all(np.isfinite(psnr)) \
+            or min(psnr) < 30.0:
+        raise AssertionError(f"{label}: recon quality out of range: {psnr}")
+    if recons[-1] is not enc.last_recon:
+        raise AssertionError(f"{label}: last_recon is not the last recon")
+    if _avdec_available():
+        dec = _decode(stream, W, H)
+        if len(dec) != len(clip):
+            raise AssertionError(f"avdec decoded {len(dec)} frames")
+        for i, (rec, planes_d) in enumerate(zip(recons, dec)):
+            for p_rec, p_dec in zip((rec.y, rec.u, rec.v), planes_d):
+                hh, ww = p_dec.shape
+                if not np.array_equal(p_rec[:hh, :ww].cpu().numpy(), p_dec):
+                    raise AssertionError(f"frame {i}: decode != recon")
+        print(f"avdec: {len(dec)} frames decode bit-exact to the recon")
+    return launches, [s.cpu().numpy() for s in shapes]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from bench import make_clip
 
-    import x264_tpu_torch
-    from x264_tpu_torch.api import Encoder, Frame420, sad_lambda
-    from x264_tpu_torch.kernels import build, deblock as KD, esa16 as KE
+    from x264_tpu_torch.api import Encoder, Frame420
+    from x264_tpu_torch.kernels import build, deblock as KD
+    from x264_tpu_torch.kernels import esa16 as KE, esa_parts as KP
     from x264_tpu_torch.models.inter import p_frame_core
     from x264_tpu_torch.models.intra import i_frame_core
     from x264_tpu_torch.ops.deblock import deblock_frame, deblock_prep
     from x264_tpu_torch.ops.mc import pad_edge
+    from x264_tpu_torch.state import PAD, sad_lambda
 
+    # ---- 1. the card ----
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    print(_smi("name,power.limit"))
+    clk_mhz = float(_smi("clocks.max.sm").split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    int_ops_per_s = n_sm * INT32_LANES_PER_SM * clk_mhz * 1e6
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
+          f"device {torch.cuda.get_device_name(0)}, {n_sm} SMs, max SM "
+          f"clock {clk_mhz:.0f} MHz: {int_ops_per_s / 1e12:.2f} T int32 "
+          "ops/s")
 
     # ---- 2. build ----
     build.library()
@@ -134,18 +280,25 @@ def main() -> int:
 
     # ---- 3. kernels against their plain twins at 1080p ----
     t0 = time.perf_counter()
-    clip = make_clip()[:N_FRAMES]
+    clip = make_clip(N_FRAMES)
     print(f"clip: {len(clip)} frames {W}x{H} in "
           f"{time.perf_counter() - t0:.1f} s")
     mbw, mbh = (W + 15) // 16, (H + 15) // 16
+    n_mb = mbw * mbh
     records = []
+
+    def record(name, source, replaces, err, ms, plain_ms, bound):
+        records.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=0, max_abs_err=err,
+                            ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                            bound_by=bound[1], library_ms=None))
 
     src = _pad_to_mb(clip[0][0], 16)
     rng = np.random.default_rng(7)
     ref = np.clip(np.roll(src, (3, -5), (0, 1)).astype(np.int32)
                   + rng.integers(-4, 5, src.shape), 0, 255).astype(np.uint8)
     src_d = torch.from_numpy(src).to(dev)
-    ref_pad = pad_edge(torch.from_numpy(ref).to(dev), KE.PAD).contiguous()
+    ref_pad = pad_edge(torch.from_numpy(ref).to(dev), PAD).contiguous()
     lam = sad_lambda(QP)
     mv_k, cost_k = KE.full_search_16x16(src_d, ref_pad, lam, 16, mbw, mbh)
     mv_p, cost_p = KE.full_search_16x16_plain(src_d, ref_pad, lam, 16, mbw,
@@ -153,13 +306,34 @@ def main() -> int:
     err = max(_max_err(mv_k, mv_p), _max_err(cost_k, cost_p))
     if err:
         raise AssertionError(f"esa16 disagrees with its plain twin: {err}")
-    records.append(dict(
-        name="esa16", route="cuda", source="x264_tpu_torch/csrc/esa16.cu",
-        replaces="x264_tpu/ops/device/me_pallas.py:142", max_abs_err=err,
-        ms=_time_ms(lambda: KE.full_search_16x16(src_d, ref_pad, lam, 16,
-                                                 mbw, mbh), 10),
-        plain_ms=_time_ms(lambda: KE.full_search_16x16_plain(
-            src_d, ref_pad, lam, 16, mbw, mbh), 3)))
+    record("esa16", "x264_tpu_torch/csrc/esa16.cu",
+           "x264_tpu/ops/device/me_pallas.py:142", err,
+           _time_ms(lambda: KE.full_search_16x16(src_d, ref_pad, lam, 16,
+                                                 mbw, mbh), 20),
+           _time_ms(lambda: KE.full_search_16x16_plain(
+               src_d, ref_pad, lam, 16, mbw, mbh), 3),
+           _esa_bound_ms(src_d, ref_pad, 16, 1, 3, int_ops_per_s))
+
+    units_k = KP.full_search_parts(src_d, ref_pad, lam, 16, mbw, mbh)
+    units_p = KP.full_search_parts_plain(src_d, ref_pad, lam, 16, mbw, mbh)
+    err = max(_max_err(units_k[k], units_p[k]) for k in units_p)
+    if err:
+        raise AssertionError(f"esa_parts disagrees with its plain twin: "
+                             f"{err}")
+    if not (torch.equal(units_k["mv_f"], mv_k)
+            and torch.equal(units_k["cost_f"], cost_k)):
+        raise AssertionError("esa_parts' 16x16 unit != esa16")
+    n_split = int((units_k["mv_q"] != units_k["mv_f"][:, None]).any(2)
+                  .any(1).sum())
+    print(f"esa_parts: 16x16 unit == esa16 bit for bit; {n_split} of "
+          f"{n_mb} MBs have a quadrant mv apart from the 16x16 mv")
+    record("esa_parts", "x264_tpu_torch/csrc/esa_parts.cu",
+           "x264_tpu/ops/device/me_parts_pallas.py:148", err,
+           _time_ms(lambda: KP.full_search_parts(src_d, ref_pad, lam, 16,
+                                                 mbw, mbh), 20),
+           _time_ms(lambda: KP.full_search_parts_plain(
+               src_d, ref_pad, lam, 16, mbw, mbh), 3),
+           _esa_bound_ms(src_d, ref_pad, 16, 9, 27, int_ops_per_s))
 
     planes = [torch.from_numpy(_pad_to_mb(p, s)).to(dev)
               for p, s in zip(clip[0], (16, 8, 8))]
@@ -168,21 +342,47 @@ def main() -> int:
     ref_planes = deblock_frame(
         out_i["recon_y"], out_i["recon_u"], out_i["recon_v"],
         out_i["mb_class"], out_i["cbp_luma"], out_i["cbp_chroma"],
-        out_i["luma_nnz"], torch.zeros((mbw * mbh, 2), dtype=torch.int32,
+        out_i["luma_nnz"], torch.zeros((n_mb, 2), dtype=torch.int32,
                                        device=dev),
-        torch.zeros(mbw * mbh, dtype=torch.int32, device=dev),
+        torch.zeros(n_mb, dtype=torch.int32, device=dev),
         out_i["qp_mb"], 0, 0, mbw, mbh)
     planes = [torch.from_numpy(_pad_to_mb(p, s)).to(dev)
               for p, s in zip(clip[1], (16, 8, 8))]
     out_p = p_frame_core(*planes, *ref_planes, QP, lam, mbw=mbw, mbh=mbh,
-                         me_range=16, cqp_off=0, subpel=2, lv_cap=408)
+                         me_range=16, cqp_off=0, subpel=2, lv_cap=408,
+                         parts=True)
     bs_v, bs_h, qp_mb, qpc_mb = deblock_prep(
         out_p["mb_class"], out_p["cbp_luma"], out_p["cbp_chroma"],
-        out_p["nnz_deblock"], out_p["mv"], out_p["ref_mb"], out_p["qp_mb"],
+        out_p["nnz_deblock"], out_p["mv8"], out_p["ref8"], out_p["qp_mb"],
         mbw, mbh)
     ry, ru, rv = out_p["recon_y"], out_p["recon_u"], out_p["recon_v"]
     nz = (bs_v > 0).sum().item() + (bs_h > 0).sum().item()
-    print(f"deblock input: P frame, {nz} edges with bS > 0")
+    print(f"deblock input: P8x8 frame, {nz} edges with bS > 0")
+
+    # the deblock bound: its knight wavefront is a chain of dependent
+    # steps, each at least one kernel launch; the per-launch time is the
+    # card's, from a CUDA graph of one dependent one-element kernel per
+    # step (the graph takes the host's launch cost out)
+    steps = mbw + 2 * mbh - 2
+    tiny = torch.zeros(1, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tiny.add_(1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(steps):
+            tiny.add_(1)
+    launch_ms = _time_ms(graph.replay, 20) / steps
+    grid_bytes = 2 * 4 * (4 * mbh) * (4 * mbw) + 4 * n_mb
+    print(f"launch latency {1000 * launch_ms:.2f} us x {steps} knight steps")
+
+    def db_bound(plane_bytes):
+        t_chain = steps * launch_ms
+        t_bytes = 1e3 * (2 * plane_bytes + grid_bytes) / HBM_BYTES_PER_S
+        return ((t_chain, "operations") if t_chain >= t_bytes
+                else (t_bytes, "bytes"))
 
     def luma_kernel():
         y = ry.clone()
@@ -201,13 +401,12 @@ def main() -> int:
     if err or not changed:
         raise AssertionError(f"deblock_luma: max err {err}, "
                              f"{changed} pixels filtered")
-    records.append(dict(
-        name="deblock_luma", route="cuda",
-        source="x264_tpu_torch/csrc/deblock.cu",
-        replaces="x264_tpu/ops/device/deblock_pallas.py:302",
-        max_abs_err=err, ms=_time_ms(luma_kernel, 10),
-        plain_ms=_time_ms(lambda: KD.deblock_luma_plain(
-            ry, bs_v, bs_h, qp_mb, 0, 0, mbw, mbh), 3)))
+    record("deblock_luma", "x264_tpu_torch/csrc/deblock.cu",
+           "x264_tpu/ops/device/deblock_pallas.py:302", err,
+           _time_ms(luma_kernel, 10),
+           _time_ms(lambda: KD.deblock_luma_plain(
+               ry, bs_v, bs_h, qp_mb, 0, 0, mbw, mbh), 3),
+           db_bound(ry.numel()))
     u_k, v_k = chroma_kernel()
     u_p, v_p = KD.deblock_chroma_plain(ru, rv, bs_v, bs_h, qpc_mb, 0, 0,
                                        mbw, mbh)
@@ -216,76 +415,59 @@ def main() -> int:
     if err or not changed:
         raise AssertionError(f"deblock_chroma: max err {err}, "
                              f"{changed} pixels filtered")
-    records.append(dict(
-        name="deblock_chroma", route="cuda",
-        source="x264_tpu_torch/csrc/deblock.cu",
-        replaces="x264_tpu/ops/device/deblock_pallas.py:312",
-        max_abs_err=err, ms=_time_ms(chroma_kernel, 10),
-        plain_ms=_time_ms(lambda: KD.deblock_chroma_plain(
-            ru, rv, bs_v, bs_h, qpc_mb, 0, 0, mbw, mbh), 3)))
+    record("deblock_chroma", "x264_tpu_torch/csrc/deblock.cu",
+           "x264_tpu/ops/device/deblock_pallas.py:312", err,
+           _time_ms(chroma_kernel, 10),
+           _time_ms(lambda: KD.deblock_chroma_plain(
+               ru, rv, bs_v, bs_h, qpc_mb, 0, 0, mbw, mbh), 3),
+           db_bound(ru.numel() + rv.numel()))
     for r in records:
-        print(f"kernel {r['name']}: bit-exact, {r['ms']:.3f} ms "
-              f"(plain {r['plain_ms']:.3f} ms)")
+        print(f"kernel {r['name']}: bit-exact, {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']})")
 
-    # ---- 4. the main path: 1080p, 1 IDR + 9 P ----
-    enc = Encoder(_params(W, H), device="cuda")
-    recons = []
-    enc.recon_hook = lambda d, rec: recons.append(rec)
-    stream, times = b"", []
-    x264_tpu_torch.reset_launch_counts()
-    for y, u, v in clip:
-        t0 = time.perf_counter()
-        stream += enc.encode(Frame420(y, u, v))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    stream += enc.flush()
-    torch.cuda.synchronize()
-    launches = x264_tpu_torch.launch_counts()
+    # ---- 4. the main paths: 1080p, 1 IDR + 5 P, P16x16 then P8x8 ----
     n_p = N_FRAMES - 1
-    print(f"launches in the 1080p run: {launches}")
-    if not (launches["esa16"] >= n_p and launches["deblock_luma"] == N_FRAMES
+    launches, _ = _run_1080p("I/P16", clip, False, records)
+    if not (launches["esa16"] == n_p and launches["esa_parts"] == 0
+            and launches["deblock_luma"] == N_FRAMES
             and launches["deblock_chroma"] == N_FRAMES):
-        raise AssertionError(f"kernel launches {launches} do not match "
-                             f"{N_FRAMES} frames ({n_p} P)")
-    for r in records:
-        r["launches"] = launches[r["name"]]
-    steady = times[2:]          # P frames after the first
-    fps = len(steady) / sum(steady)
-    psnr = [_psnr(rec.y[:H, :W].cpu().numpy(), f[0])
-            for rec, f in zip(recons, clip)]
-    print("frame ms: " + " ".join(f"{1000 * t:.1f}" for t in times))
-    print(f"1080p I/P: {fps:.3f} fps steady state (P frames 3-{N_FRAMES}), "
-          f"IDR {1000 * times[0]:.1f} ms, {len(stream)} bytes, "
-          f"{len(stream) * 8 / N_FRAMES / 1000:.1f} kbit/frame, "
-          f"mean Y-PSNR {np.mean(psnr):.3f} dB")
-    if len(recons) != N_FRAMES or not np.all(np.isfinite(psnr)) \
-            or min(psnr) < 30.0:
-        raise AssertionError(f"recon quality out of range: {psnr}")
-    if _avdec_available():
-        dec = _decode(stream, W, H)
-        if len(dec) != N_FRAMES:
-            raise AssertionError(f"avdec decoded {len(dec)} frames")
-        for i, (rec, planes_d) in enumerate(zip(recons, dec)):
-            for p_rec, p_dec in zip((rec.y, rec.u, rec.v), planes_d):
-                hh, ww = p_dec.shape
-                if not np.array_equal(p_rec[:hh, :ww].cpu().numpy(), p_dec):
-                    raise AssertionError(f"frame {i}: decode != recon")
-        if recons[-1] is not enc.last_recon:
-            raise AssertionError("last_recon is not the last frame's recon")
-        print(f"avdec: {len(dec)} frames decode bit-exact to the recon")
+        raise AssertionError(f"I/P16 kernel launches {launches} do not "
+                             f"match {N_FRAMES} frames ({n_p} P)")
+    launches, shapes = _run_1080p("I/P8x8", clip, True, records)
+    if not (launches["esa_parts"] == n_p and launches["esa16"] == 0
+            and launches["deblock_luma"] == N_FRAMES
+            and launches["deblock_chroma"] == N_FRAMES):
+        raise AssertionError(f"I/P8x8 kernel launches {launches} do not "
+                             f"match {N_FRAMES} frames ({n_p} P)")
+    hist = np.bincount(np.concatenate(shapes), minlength=4)
+    print("1080p P8x8 shapes over the P frames (16x16, 16x8, 8x16, 8x8; "
+          "intra and skip MBs count as 16x16): "
+          + " ".join(str(int(c)) for c in hist))
+    if len(shapes) != n_p or hist.sum() != n_p * n_mb:
+        raise AssertionError(f"partition shapes of {len(shapes)} frames")
 
-    # ---- 5. card stream == CPU (plain twins) stream at 352x288 ----
-    small = [Frame420(y[:CHECK_H, :CHECK_W], u[:CHECK_H // 2, :CHECK_W // 2],
-                      v[:CHECK_H // 2, :CHECK_W // 2])
-             for y, u, v in clip[:CHECK_FRAMES]]
-    streams = {}
-    for d in ("cuda", "cpu"):
-        e = Encoder(_params(CHECK_W, CHECK_H), device=d)
-        streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
-    if streams["cuda"] != streams["cpu"]:
-        raise AssertionError("352x288: card stream != CPU stream")
-    print(f"{CHECK_W}x{CHECK_H} x{CHECK_FRAMES}: card stream == CPU stream "
-          f"({len(streams['cuda'])} bytes)")
+    # ---- 5. card streams == CPU (plain twins) streams at 352x288 ----
+    small = [Frame420(*f) for f in split_motion_clip(CHECK_W, CHECK_H,
+                                                     CHECK_FRAMES)]
+    for p8x8 in (False, True):
+        streams = {}
+        for d in ("cuda", "cpu"):
+            e = Encoder(_params(CHECK_W, CHECK_H, p8x8), device=d)
+            shapes = _spy_shapes(e)
+            streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
+        label = "P8x8" if p8x8 else "P16"
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"352x288 {label}: card stream != CPU "
+                                 "stream")
+        hist = np.bincount(torch.cat(shapes).cpu().numpy(), minlength=4) \
+            if p8x8 else None
+        if p8x8 and not (hist[1:] > 0).all():
+            raise AssertionError(f"352x288 P8x8: shapes {hist}")
+        print(f"{CHECK_W}x{CHECK_H} {label} x{CHECK_FRAMES}: card stream == "
+              f"CPU stream ({len(streams['cuda'])} bytes)"
+              + (f"; shapes {' '.join(str(int(c)) for c in hist)}"
+                 if p8x8 else ""))
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -3,24 +3,33 @@ kernels' plain twins) against ``x264_tpu.api.Encoder`` on the I/P CABAC
 slice: byte-identical Annex-B streams at QP 0, 26 and 51 and at the odd
 350x286 size, under ABR and CRF, and a real decoder (tools/avdec,
 libavcodec) decoding the port's stream bit-exact to its reconstruction.
-Also: the port runs with JAX blocked and starts no warm-up thread."""
+Each side gets its own package's ``EncoderParams`` with the same fields.
+Also: the port runs with both JAX and x264_tpu blocked and starts no
+thread."""
 
 import os
 import subprocess
 import sys
+import tempfile
 import textwrap
 
 import numpy as np
 import pytest
 import torch
 
+# a compile cache per xdist worker: the shared one has crashed a worker
+os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
+    tempfile.gettempdir(),
+    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 pytest.importorskip("jax")
 
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
-from x264_tpu.params import RC_ABR, RC_CRF, EncoderParams  # noqa: E402
+from x264_tpu.params import EncoderParams as RefParams  # noqa: E402
 from x264_tpu.utils.oracle import decode_annexb  # noqa: E402
-from x264_tpu.utils.yuv import Frame420  # noqa: E402
 from x264_tpu_torch.api import Encoder  # noqa: E402
+from x264_tpu_torch.params import RC_ABR, RC_CRF, EncoderParams  # noqa: E402
+from x264_tpu_torch.state import PAD  # noqa: E402
+from x264_tpu_torch.utils.yuv import Frame420  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,12 +54,13 @@ def _clip(w, h, n, seed=5):
     return frames
 
 
-def _params(w, h, qp, **kw):
+def _params(w, h, qp, ref=False, **kw):
+    """The port's params, or with ref=True the reference's, same fields."""
     base = dict(width=w, height=h, qp=qp, me_range=16, subpel=2, cabac=True,
                 deblock=True, bframes=0, ref_frames=1, keyint_max=250,
                 scenecut_threshold=0, backend="device")
     base.update(kw)
-    return EncoderParams(**base)
+    return (RefParams if ref else EncoderParams)(**base)
 
 
 def _encode(enc, frames):
@@ -64,9 +74,9 @@ def _encode(enc, frames):
                                     (64, 48, 51), (350, 286, 26)])
 def test_stream_matches_reference_and_decodes(w, h, qp):
     frames = _clip(w, h, 3)
-    p = _params(w, h, qp)
-    port_stream, recons = _encode(Encoder(p, device="cpu"), frames)
-    ref_stream, _ = _encode(RefEncoder(p), frames)
+    port_stream, recons = _encode(Encoder(_params(w, h, qp), device="cpu"),
+                                  frames)
+    ref_stream, _ = _encode(RefEncoder(_params(w, h, qp, ref=True)), frames)
     assert port_stream == ref_stream
     dec = decode_annexb(port_stream, w, h)
     assert len(dec) == len(frames) == len(recons)
@@ -81,12 +91,12 @@ def test_stream_matches_reference_and_decodes(w, h, qp):
 @pytest.mark.parametrize("rc", [dict(rc_method=RC_ABR, bitrate=300),
                                 dict(rc_method=RC_CRF, crf=24.0)])
 def test_rate_control_matches_reference(rc):
-    """The inherited ABR and CRF rate control picks the same frame QPs
-    from the port's bit counts and costs as from the reference's."""
+    """The port's copy of the ABR and CRF rate control picks the same
+    frame QPs from the port's bit counts and costs as the reference's."""
     frames = _clip(64, 48, 4)
-    p = _params(64, 48, 26, **rc)
-    assert _encode(Encoder(p, device="cpu"), frames)[0] == \
-        _encode(RefEncoder(p), frames)[0]
+    assert _encode(Encoder(_params(64, 48, 26, **rc), device="cpu"),
+                   frames)[0] == \
+        _encode(RefEncoder(_params(64, 48, 26, ref=True, **rc)), frames)[0]
 
 
 def test_scenecut_promotes_like_reference():
@@ -100,16 +110,22 @@ def test_scenecut_promotes_like_reference():
                                         dtype=np.uint8),
                            rng.integers(0, 256, (h // 2, w // 2),
                                         dtype=np.uint8)))
-    p = _params(w, h, 26, scenecut_threshold=40, keyint_min=1)
-    port = Encoder(p, device="cpu")
-    ref = RefEncoder(p)
+    kw = dict(scenecut_threshold=40, keyint_min=1)
+    port = Encoder(_params(w, h, 26, **kw), device="cpu")
+    ref = RefEncoder(_params(w, h, 26, ref=True, **kw))
     assert _encode(port, frames)[0] == _encode(ref, frames)[0]
     assert [s.frame_type for s in port.stats] == ["IDR", "P", "IDR"]
 
 
 def test_unported_settings_and_missing_card_raise():
     for kw in (dict(bframes=2), dict(cabac=False), dict(i4x4=True),
-               dict(subpel=0), dict(backend="reference")):
+               dict(subpel=0), dict(backend="reference"),
+               dict(p8x8=True, ref_frames=2), dict(p8x8=True, trellis=1),
+               dict(p8x8=True, transform_8x8=True),
+               dict(p8x8=True, aq_mode=1), dict(p8x8=True, weightp=1),
+               dict(slices=2), dict(mbtree=True), dict(me_range=PAD + 1),
+               dict(vbv_maxrate=500, vbv_bufsize=500,
+                    rc_method=RC_ABR, bitrate=500)):
         with pytest.raises(NotImplementedError):
             Encoder(_params(64, 48, 26, **kw), device="cpu")
     if not torch.cuda.is_available():
@@ -118,31 +134,36 @@ def test_unported_settings_and_missing_card_raise():
 
 
 def test_port_runs_without_jax():
-    """With ``jax`` blocked, the port imports, encodes three frames, and
-    a 1080p encoder starts no warm-up thread (the base class would start
-    one that encodes through JAX)."""
+    """With ``jax`` and ``x264_tpu`` both blocked, the port imports, takes
+    its own params and frames, encodes I/P16 and I/P8x8 frames, and a
+    1080p encoder starts no thread."""
     code = textwrap.dedent("""
         import sys, threading
         sys.modules["jax"] = None
+        sys.modules["x264_tpu"] = None
         import numpy as np
         import x264_tpu_torch
-        from x264_tpu.params import EncoderParams
-        from x264_tpu.utils.yuv import Frame420
         from x264_tpu_torch.api import Encoder
-        big = Encoder(EncoderParams(width=1920, height=1080, cabac=True),
-                      device="cpu")
-        assert big._warm_thread is None, "warm-up thread started"
+        from x264_tpu_torch.params import EncoderParams
+        from x264_tpu_torch.utils.yuv import Frame420
+        Encoder(EncoderParams(width=1920, height=1080, cabac=True),
+                device="cpu")
         assert threading.active_count() == 1
         rng = np.random.default_rng(1)
-        enc = Encoder(EncoderParams(width=48, height=32, cabac=True),
-                      device="cpu")
-        out = b"".join(enc.encode(Frame420(
-            rng.integers(0, 256, (32, 48), dtype=np.uint8),
-            rng.integers(0, 256, (16, 24), dtype=np.uint8),
-            rng.integers(0, 256, (16, 24), dtype=np.uint8)))
-            for _ in range(3)) + enc.flush()
-        assert out[:4] == b"\\x00\\x00\\x00\\x01" and len(enc.stats) == 3
-        assert sys.modules["jax"] is None
+        base = rng.integers(0, 256, (40, 56), dtype=np.uint8)
+        for p8x8 in (False, True):
+            enc = Encoder(EncoderParams(width=48, height=32, cabac=True,
+                                        me_range=4, p8x8=p8x8),
+                          device="cpu")
+            out = b"".join(enc.encode(Frame420(
+                np.ascontiguousarray(base[t:t + 32, 2 * t:2 * t + 48]),
+                rng.integers(0, 256, (16, 24), dtype=np.uint8),
+                rng.integers(0, 256, (16, 24), dtype=np.uint8)))
+                for t in range(3)) + enc.flush()
+            assert out[:4] == b"\\x00\\x00\\x00\\x01"
+            assert [s.frame_type for s in enc.stats] == ["IDR", "P", "P"]
+        assert sys.modules["jax"] is None and sys.modules["x264_tpu"] is None
+        assert not any(m.startswith("x264_tpu.") for m in sys.modules)
         assert threading.active_count() == 1
         print("OK", len(out))
     """)

@@ -1,0 +1,190 @@
+"""The port's own host layer against the reference's: every copied table,
+the parameter validation, the SPS/PPS/SEI bytes, the two-pass rate
+control, zones, forced frame types, the access-unit log and the close()
+summary are the same as in x264_tpu, and no module of the port (nor
+chip_smoke.py) imports x264_tpu."""
+
+import ast
+import dataclasses
+import os
+import tempfile
+
+import numpy as np
+import pytest
+
+# a compile cache per xdist worker: the shared one has crashed a worker
+os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
+    tempfile.gettempdir(),
+    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
+pytest.importorskip("jax")
+
+import x264_tpu.params as r_params  # noqa: E402
+from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
+from x264_tpu.bitstream import tables as r_tables  # noqa: E402
+from x264_tpu.models import inter_frame as r_inter  # noqa: E402
+from x264_tpu.ops.device import me_parts as r_me_parts  # noqa: E402
+from x264_tpu.ops.reference import deblock as r_deblock  # noqa: E402
+from x264_tpu.ops.reference import mc as r_mc  # noqa: E402
+from x264_tpu.utils.yuv import Frame420 as RefFrame  # noqa: E402
+import x264_tpu_torch.params as t_params  # noqa: E402
+from x264_tpu_torch import state  # noqa: E402
+from x264_tpu_torch.api import Encoder  # noqa: E402
+from x264_tpu_torch.ops import me_parts as t_me_parts  # noqa: E402
+from x264_tpu_torch.utils.yuv import Frame420  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+TABLES = [
+    ("CHROMA_QP_TABLE", r_tables, state),
+    ("QUANT4_MF", r_tables, state),
+    ("DEQUANT4", r_tables, state),
+    ("ZIGZAG_4x4", r_tables, state),
+    ("ALPHA", r_deblock, state),
+    ("BETA", r_deblock, state),
+    ("TC0", r_deblock, state),
+    ("QPEL_TWO_SAMPLE_TBL", r_mc, state),
+    ("PAD", r_inter, state),
+    ("PART_OF_QUAD", r_me_parts, t_me_parts),
+    ("FIRST_QUAD", r_me_parts, t_me_parts),
+    ("N_PARTS", r_me_parts, t_me_parts),
+    ("SHAPE_BITS", r_me_parts, t_me_parts),
+]
+
+
+@pytest.mark.parametrize("name,ref_mod,port_mod", TABLES,
+                         ids=[t[0] for t in TABLES])
+def test_copied_table_equals_reference(name, ref_mod, port_mod):
+    a, b = getattr(port_mod, name), getattr(ref_mod, name)
+    assert np.asarray(a).dtype == np.asarray(b).dtype
+    np.testing.assert_array_equal(a, b)
+
+
+def test_lambda_and_mv_bits_equal_reference():
+    for qp in range(52):
+        assert state.sad_lambda(qp) == r_inter.sad_lambda(qp)
+    for m in (4, 36, 64, 132):
+        np.testing.assert_array_equal(state.mv_bits_arr(m),
+                                      r_inter.mv_bits_arr(m))
+
+
+PARAMS = [
+    dict(cabac=True),
+    dict(cabac=True, p8x8=True, me_range=8),
+    dict(width=350, height=286, cabac=True, qp=40, deblock_alpha=-2,
+         deblock_beta=3, chroma_qp_offset=2),
+    dict(cabac=True, rc_method=r_params.RC_CRF, crf=20.0, keyint_max=60,
+         sar_width=16, sar_height=11, fullrange=True),
+    dict(cabac=True, p8x8=True, subpel=0),       # validate drops p8x8
+    dict(cabac=True, sei_version=False, deblock=False, level_idc=40),
+]
+
+
+@pytest.mark.parametrize("kw", PARAMS)
+def test_params_and_headers_equal_reference(kw):
+    """The port's validate() gives the same fields as the reference's, and
+    its encoder writes the same SPS, PPS and version SEI bytes."""
+    rp = r_params.EncoderParams(**kw).validate()
+    tp = t_params.EncoderParams(**kw).validate()
+    assert dataclasses.asdict(tp) == dataclasses.asdict(rp)
+    if tp.subpel >= 1:
+        assert Encoder(t_params.EncoderParams(**kw), device="cpu").headers() \
+            == RefEncoder(r_params.EncoderParams(**kw)).headers()
+
+
+@pytest.mark.parametrize("kw", [dict(p8x8=True, slices=2),
+                                dict(p8x8=True, backend="reference"),
+                                dict(i16x16=False),
+                                dict(nal_hrd=True)])
+def test_validate_rejects_like_reference(kw):
+    with pytest.raises(Exception) as ref_err:
+        r_params.EncoderParams(**kw).validate()
+    with pytest.raises(type(ref_err.value)) as port_err:
+        t_params.EncoderParams(**kw).validate()
+    assert str(port_err.value) == str(ref_err.value)
+
+
+def test_zones_parse_like_reference():
+    spec = "0,3,q=20/4,9,b=0.5"
+    assert t_params.parse_zones(spec) == r_params.parse_zones(spec)
+
+
+def _imports_of(path):
+    """Top-level package names imported by a Python file, plus any
+    importlib/__import__ call naming a module by a string."""
+    tree = ast.parse(open(path).read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+        elif isinstance(node, ast.Call) and node.args and \
+                isinstance(node.args[0], ast.Constant) and \
+                isinstance(node.args[0].value, str) and \
+                getattr(node.func, "attr", getattr(node.func, "id", "")) \
+                in ("import_module", "__import__"):
+            names.append(node.args[0].value)
+    return [n.split(".")[0] for n in names]
+
+
+def test_port_never_imports_the_reference_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, fs in os.walk(os.path.join(REPO, "x264_tpu_torch")):
+        files += [os.path.join(root, f) for f in fs if f.endswith(".py")]
+    assert len(files) > 20
+    bad = {f: sorted(set(m for m in _imports_of(f)
+                         if m in ("x264_tpu", "jax", "jaxlib", "bench")))
+           for f in files}
+    assert not {f: b for f, b in bad.items() if b}
+
+
+def _clip(n, w=64, h=48):
+    rng = np.random.default_rng(7)
+    tex = rng.integers(0, 256, (h + 2 * n, w + 3 * n)).astype(np.uint8)
+    return [(np.ascontiguousarray(tex[t:t + h, 2 * t:2 * t + w]),
+             np.ascontiguousarray(tex[::2, ::2][:h // 2, :w // 2]),
+             np.ascontiguousarray(tex[1::2, ::2][:h // 2, :w // 2]))
+            for t in range(n)]
+
+
+def test_two_pass_matches_reference(tmp_path):
+    """Pass 1 writes the same stats file, pass 2 reads it back into the
+    same QP plan and the same stream, in the port as in the reference."""
+    frames = _clip(4)
+    streams = {}
+    for side, (P, E, F) in dict(
+            port=(t_params, lambda p: Encoder(p, device="cpu"), Frame420),
+            ref=(r_params, RefEncoder, RefFrame)).items():
+        kw = dict(width=64, height=48, cabac=True, bframes=0,
+                  scenecut_threshold=0, rc_method=P.RC_ABR, bitrate=400)
+        stats = str(tmp_path / f"{side}.stats")
+        enc = E(P.EncoderParams(stats_write=stats, **kw))
+        first = b"".join(enc.encode(F(*f)) for f in frames)
+        enc.close()
+        enc = E(P.EncoderParams(stats_read=stats, **kw))
+        second = b"".join(enc.encode(F(*f)) for f in frames)
+        streams[side] = (first, open(stats).read(), second)
+    assert streams["port"] == streams["ref"]
+
+
+def test_host_paths_match_reference():
+    """Zones, forced frame types and QPs, the access-unit log and the
+    close() summary: the same in the port as in the reference."""
+    frames = _clip(4)
+    out = {}
+    for side, (P, E, F) in dict(
+            port=(t_params, lambda p: Encoder(p, device="cpu"), Frame420),
+            ref=(r_params, RefEncoder, RefFrame)).items():
+        enc = E(P.EncoderParams(width=64, height=48, cabac=True,
+                                bframes=0, scenecut_threshold=0,
+                                zones="0,1,q=30/2,3,b=0.5"))
+        stream = b"".join([enc.encode(F(*frames[0])),
+                           enc.encode(F(*frames[1]), qp=20),
+                           enc.encode(F(*frames[2]),
+                                      frame_type=P.TYPE_IDR),
+                           enc.encode(F(*frames[3]))]) + enc.flush()
+        out[side] = (stream, [s.frame_type for s in enc.stats],
+                     [s.qp for s in enc.stats], enc.drain_au_meta(),
+                     enc.close(), enc.summary_lines())
+    assert out["port"] == out["ref"]
+    assert out["port"][1] == ["IDR", "P", "IDR", "P"]

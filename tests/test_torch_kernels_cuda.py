@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch twins, on the
 card (they have no CPU mode, so these tests skip without one).  Imports
-no JAX, so the card's machine runs them as they are:
+only the port (no JAX, no x264_tpu), so the card's machine runs them as
+they are:
 
     python -m pytest -o addopts="" -m cuda tests/test_torch_kernels_cuda.py
 
@@ -10,14 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from x264_tpu.models.inter_frame import PAD
-from x264_tpu.params import EncoderParams
-from x264_tpu.utils.yuv import Frame420
 import x264_tpu_torch
 from x264_tpu_torch.api import Encoder
 from x264_tpu_torch.kernels import deblock as k_db
-from x264_tpu_torch.kernels import esa16
+from x264_tpu_torch.kernels import esa16, esa_parts
 from x264_tpu_torch.ops.deblock import bs_grids
+from x264_tpu_torch.params import EncoderParams
+from x264_tpu_torch.state import PAD
+from x264_tpu_torch.utils.yuv import Frame420
 
 pytestmark = pytest.mark.cuda
 
@@ -29,10 +30,13 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("mbw,mbh,me_range,lam",
-                         [(7, 5, 16, 14), (16, 9, 8, 4), (3, 2, 32, 90),
-                          (4, 4, 16, 0)])
-def test_esa16_kernel_matches_plain(cuda, mbw, mbh, me_range, lam):
+ESA_CASES = [(7, 5, 16, 14), (16, 9, 8, 4), (3, 2, 32, 90), (4, 4, 16, 0),
+             (1, 3, 32, 0)]
+
+
+def _esa_inputs(cuda, mbw, mbh, me_range, lam):
+    """A shifted, noised reference; flat planes (every candidate ties)
+    when lam is 0."""
     rng = np.random.default_rng(mbw * 100 + me_range)
     h, w = 16 * mbh, 16 * mbw
     src = rng.integers(0, 256, (h, w)).astype(np.uint8)
@@ -41,15 +45,40 @@ def test_esa16_kernel_matches_plain(cuda, mbw, mbh, me_range, lam):
     ref = np.clip(big + rng.integers(-6, 7, big.shape), 0, 255
                   ).astype(np.uint8)
     if lam == 0:
-        src[:] = 90          # flat: every candidate ties
+        src[:] = 90
         ref[:] = 90
-    s, r = torch.from_numpy(src).to(cuda), torch.from_numpy(ref).to(cuda)
+    return torch.from_numpy(src).to(cuda), torch.from_numpy(ref).to(cuda)
+
+
+@pytest.mark.parametrize("mbw,mbh,me_range,lam", ESA_CASES[:4])
+def test_esa16_kernel_matches_plain(cuda, mbw, mbh, me_range, lam):
+    s, r = _esa_inputs(cuda, mbw, mbh, me_range, lam)
     before = x264_tpu_torch.launch_counts()["esa16"]
     mv_k, c_k = esa16.full_search_16x16(s, r, lam, me_range, mbw, mbh)
     assert x264_tpu_torch.launch_counts()["esa16"] == before + 1
     mv_p, c_p = esa16.full_search_16x16_plain(s, r, lam, me_range, mbw, mbh)
     torch.cuda.synchronize()
     assert torch.equal(mv_k, mv_p) and torch.equal(c_k, c_p)
+
+
+@pytest.mark.parametrize("mbw,mbh,me_range,lam", ESA_CASES)
+def test_esa_parts_kernel_matches_plain(cuda, mbw, mbh, me_range, lam):
+    """All nine units bit-exact against the plain twin, and the 16x16
+    unit bit-exact against esa16 (one-MB-wide frames, range 32 and the
+    all-ties flat frame included)."""
+    s, r = _esa_inputs(cuda, mbw, mbh, me_range, lam)
+    before = x264_tpu_torch.launch_counts()["esa_parts"]
+    got = esa_parts.full_search_parts(s, r, lam, me_range, mbw, mbh)
+    assert x264_tpu_torch.launch_counts()["esa_parts"] == before + 1
+    want = esa_parts.full_search_parts_plain(s, r, lam, me_range, mbw, mbh)
+    mv16, c16 = esa16.full_search_16x16(s, r, lam, me_range, mbw, mbh)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["mv_f"], mv16) and torch.equal(got["cost_f"], c16)
+    if lam == 0:
+        assert (got["mv_q"] == -4 * me_range).all()
 
 
 @pytest.mark.parametrize("mbw,mbh", [(6, 4), (5, 7), (3, 2), (2, 2),
@@ -97,4 +126,23 @@ def test_encoder_on_card_matches_cpu(cuda):
         enc = Encoder(p, device=d)
         streams.append(b"".join(enc.encode(f) for f in frames) + enc.flush())
         assert enc.last_recon.y.device.type == torch.device(d).type
+    assert streams[0] == streams[1]
+
+
+def test_p8x8_encoder_on_card_matches_cpu(cuda):
+    """Split motion at 8-px grain, so that partitions are chosen."""
+    from chip_smoke import split_motion_clip
+    w, h = 96, 64
+    frames = [Frame420(*f) for f in split_motion_clip(w, h, 3)]
+    p = EncoderParams(width=w, height=h, qp=26, cabac=True, bframes=0,
+                      me_range=8, scenecut_threshold=0, backend="device",
+                      p8x8=True)
+    streams = []
+    for d in (cuda, "cpu"):
+        enc = Encoder(p, device=d)
+        x264_tpu_torch.reset_launch_counts()
+        streams.append(b"".join(enc.encode(f) for f in frames) + enc.flush())
+        if d is cuda:
+            n = x264_tpu_torch.launch_counts()
+            assert n["esa_parts"] == 2 and n["esa16"] == 0, n
     assert streams[0] == streams[1]

@@ -1,20 +1,26 @@
-"""x264_tpu_torch — the PyTorch + CUDA port of x264_tpu's device pipeline.
+"""x264_tpu_torch — the PyTorch + CUDA port of x264_tpu's encoder.
 
-The encoder's host layer (parameters, bitstream writers, the C CABAC
-coder, rate control, the NumPy reference tier) is imported from
-``x264_tpu`` and needs no JAX; this package replaces what ran on the TPU:
+The package stands alone: it imports neither JAX nor ``x264_tpu``.  Its
+host layer is its own copy of the reference's framework-free code, and
+what ran on the TPU runs on PyTorch tensors:
 
+  params.py, utils/, bitstream/, rc/
+            — host layer copied from x264_tpu: parameters, the frame
+              container, SPS/PPS/SEI/slice-header writers, rate control
+  native/   — the C CABAC coder (a copy of x264_tpu/native), built with
+              gcc at first use (ops/entropy_pack.py)
   ops/      — primitive ops on tensors (pixel, transform, predict, mc,
-              me, header, entropy_pack, deblock)
-  models/   — frame cores: the I16 wavefront (intra) and the P16
-              pipeline (inter), with their residual paths
+              me, me_parts, header, entropy_pack, deblock)
+  models/   — frame cores: the I16 wavefront (intra) and the P pipeline
+              (inter, P16x16 or P8x8 partitions), with their residual paths
   kernels/  — wrappers, plain twins and the nvcc build of the
               hand-written CUDA kernels in csrc/
-  state.py  — constant tables on a device, reference-output conversion
+  state.py  — constant tables (copied from x264_tpu) on a device,
+              reference-output conversion
   api.py    — ``Encoder(params, device)``
 
-It never imports JAX.  ``Encoder(..., device="cuda")`` raises when no
-CUDA device is present; ``device="cpu"`` runs the kernels' plain twins.
+``Encoder(..., device="cuda")`` raises when no CUDA device is present;
+``device="cpu"`` runs the kernels' plain twins.
 """
 
 from x264_tpu_torch.kernels import LAUNCHES

@@ -1,43 +1,54 @@
-"""Public encoder API of the PyTorch port: ``x264_tpu.api.Encoder`` with
-its device seams running on PyTorch tensors.
+"""Public encoder API of the PyTorch port: ``Encoder(params, device)``.
 
-Everything on the host — parameters, rate control, headers, the frame
-type decision, the CABAC coder (``native/cabac.c``) and the Annex-B
-assembly — is the reference's own code, inherited.  What runs on the
-device is replaced: the frame cores, the deblock and the upload.  The
-decoded picture buffer (``dpb``, ``last_recon``) holds torch tensors on
-the encoder's device.
+The host layer is the port's own copy of the reference's
+(``x264_tpu/api.py``): parameters, rate control, headers, the frame type
+decision, the Annex-B assembly and the C CABAC coder
+(``native/cabac.c``).  What ran on the TPU runs here on PyTorch tensors:
+the frame cores, the deblock and the upload.  The decoded picture buffer
+(``dpb``, ``last_recon``) holds torch tensors on the encoder's device.
 
     from x264_tpu_torch.api import Encoder, EncoderParams, Frame420
     enc = Encoder(EncoderParams(..., cabac=True, bframes=0), device="cuda")
     stream = b"".join(enc.encode(Frame420(y, u, v)) for ...) + enc.flush()
 
-``EncoderParams`` and ``Frame420`` are the reference's, re-exported here.
+The port runs the single-slice, single-reference I/P CABAC path, with or
+without P8x8 partitions; the settings in ``_NOT_PORTED`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from x264_tpu.api import Encoder as _ReferenceEncoder
-from x264_tpu.api import FrameStats, ReconFrame
-from x264_tpu.bitstream.bits import BitWriter
-from x264_tpu.bitstream.headers import (SLICE_I, SLICE_P, wrap_slice_nal,
-                                        write_slice_header)
-from x264_tpu.models.inter_frame import PAD, sad_lambda
-from x264_tpu.params import EncoderParams
-from x264_tpu.utils.yuv import Frame420  # noqa: F401  (re-exported)
+from x264_tpu_torch.bitstream.bits import BitWriter
+from x264_tpu_torch.bitstream.headers import (SLICE_I, SLICE_P,
+                                              sps_from_params,
+                                              wrap_slice_nal, write_pps,
+                                              write_slice_header, write_sps)
+from x264_tpu_torch.bitstream.sei import version_sei
 from x264_tpu_torch.models.inter import p_frame_core
 from x264_tpu_torch.models.intra import i_frame_core
 from x264_tpu_torch.ops.deblock import deblock_frame
 from x264_tpu_torch.ops.entropy_pack import blob_stride, write_slice_cabac
+from x264_tpu_torch.params import EncoderParams
+from x264_tpu_torch.rc import RateControl
+from x264_tpu_torch.state import PAD, sad_lambda
+from x264_tpu_torch.utils.yuv import Frame420, pad_to_mb
+
+__all__ = ["Encoder", "EncoderParams", "Frame420", "FrameStats",
+           "ReconFrame"]
+
+# MB classes (x264_tpu/models/syntax.py)
+MB_I16, MB_I4, MB_PSKIP = 0, 1, 3
 
 # parameters whose paths are not ported yet (ROADMAP queue A), with the
 # value the port runs
 _NOT_PORTED = dict(cabac=True, bframes=0, ref_frames=1, i4x4=False,
-                   p8x8=False, transform_8x8=False, trellis=0, weightp=0,
-                   aq_mode=0, mbtree=False, intra_refresh=False, slices=1,
+                   transform_8x8=False, trellis=0, weightp=0, aq_mode=0,
+                   mbtree=False, intra_refresh=False, slices=1,
                    vbv_maxrate=0, vbv_bufsize=0)
 
 
@@ -55,35 +66,97 @@ def _check_params(p: EncoderParams) -> None:
             f"x264_tpu_torch does not run these settings yet: {bad}")
 
 
-class Encoder(_ReferenceEncoder):
-    """The reference encoder with every device seam of the I/P CABAC path
-    on PyTorch: ``_run_core``, ``_submit_device``, ``_deblock_device`` and
-    ``_cab_rows``.  ``device`` is where the frames are encoded; a CUDA
-    device runs the hand-written kernels, the CPU their plain twins."""
+@dataclass
+class ReconFrame:
+    y: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    frame_num: int = 0
 
-    # _use_device() reads this: False while the base __init__ runs, so
-    # the base never starts its JAX compile warm-up thread
-    _device_ready = False
+
+@dataclass
+class FrameStats:
+    frame_type: str = "I"
+    bits: int = 0
+    qp: float = 0.0
+
+
+class Encoder:
+    """x264_encoder_open + x264_encoder_encode for the port's path: every
+    frame is one job — upload, frame core, deblock on ``device`` — then
+    the host CABAC coder and the Annex-B bytes.  ``device`` is where the
+    frames are encoded: a CUDA device runs the hand-written kernels, the
+    CPU their plain twins."""
 
     def __init__(self, params: EncoderParams, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Encoder(device='cuda'): no CUDA device")
-        super().__init__(params)
+        self.p = params.validate()
         _check_params(self.p)
-        self._device_ready = True
+        self.sps = sps_from_params(self.p)
+        self._sps_bytes = write_sps(self.sps, self.p)
+        self._pps_bytes = write_pps(self.p)
+        self.frame_idx = 0
+        self.frame_num = 0
+        self.idr_pic_id = 0
+        self.dpb: list[ReconFrame] = []
+        self.stats: list[FrameStats] = []
+        self.last_recon: ReconFrame | None = None
+        self.rc = RateControl(self.p)
+        self._pass2_qps = None
+        self._twopass_stats = []
+        if self.p.stats_read:
+            from x264_tpu_torch.rc.twopass import plan_pass2, read_stats
+            entries = read_stats(self.p.stats_read)
+            self._pass2_qps = plan_pass2(
+                entries, self.p.bitrate or 1000,
+                self.p.fps_num / max(1, self.p.fps_den),
+                qp_min=self.p.qp_min, qp_max=self.p.qp_max)
+        self._init_qp = self.p.qp      # PPS pic_init_qp base (frozen)
+        # display-order recon callback (disp_idx, ReconFrame), fired as
+        # each frame's reconstruction is final
+        self.recon_hook = None
+        self._zones = []
+        if self.p.zones:
+            from x264_tpu_torch.params import parse_zones
+            self._zones = parse_zones(self.p.zones)
 
-    def _use_device(self) -> bool:
-        return self._device_ready
+    # -- x264_encoder_headers ------------------------------------------------
+    def headers(self) -> bytes:
+        out = self._sps_bytes + self._pps_bytes
+        if self.p.sei_version:
+            out += version_sei(self.p)
+        return out
 
-    def _cab_rows(self, blob, n: int, is_b: bool = False,
-                  parts: bool = False, i4: bool = False):
+    # access-unit metadata log (container muxing: pts/dts/keyframe)
+    _au_meta: list = None
+    _cod_count = 0
+
+    def _note_au(self, nbytes: int, ftype: str):
+        if self._au_meta is None:
+            self._au_meta = []
+        # no B frames: display order is coding order
+        self._au_meta.append(dict(bytes=nbytes, pts=self._cod_count,
+                                  dts=self._cod_count,
+                                  key=ftype == "IDR"))
+        self._cod_count += 1
+
+    def drain_au_meta(self) -> list:
+        """Access units (sizes within the bytes returned so far, pts/dts
+        in frame units, keyframe flags) since the last drain — the
+        x264_picture_t out-fields analog for muxers."""
+        m = self._au_meta or []
+        self._au_meta = []
+        return m
+
+    def _cab_rows(self, blob, n: int, parts: bool = False):
         """Per-MB field rows of a flat CABAC blob (entropy_pack layout)."""
-        st = blob_stride()
+        st = blob_stride(parts)
         return np.asarray(blob).reshape(-1)[:n * st].reshape(n, st)
 
     def _run_core(self, yd, ud, vd, ref, idr: bool, base_qp: int, qp_arr,
-                  n_words: int, mbw: int, mbh: int, wts=None, pir=None):
+                  n_words: int, mbw: int, mbh: int):
         """Run the I or P core; ``host_blob`` comes back as a host numpy
         int32 array, the one device-to-host copy of a frame."""
         qp = torch.as_tensor(np.asarray(qp_arr, np.int32),
@@ -94,16 +167,60 @@ class Encoder(_ReferenceEncoder):
                                lv_cap=n_words)
             slice_type = SLICE_I
         else:
-            r = ref[0] if isinstance(ref, list) else ref
+            r = ref[0]
             out = p_frame_core(yd, ud, vd, r.y, r.u, r.v, qp,
                                sad_lambda(base_qp), mbw=mbw, mbh=mbh,
                                me_range=self.p.me_range,
                                cqp_off=self.p.chroma_qp_offset,
                                subpel=self.p.subpel, lv_cap=n_words,
+                               parts=self.p.p8x8,
                                decimate=self.p.dct_decimate)
             slice_type = SLICE_P
         out["host_blob"] = out["host_blob"].cpu().numpy()
         return out, slice_type
+
+    def _note_recon(self, disp, rec) -> None:
+        if self.recon_hook is not None and disp is not None:
+            self.recon_hook(disp, rec)
+
+    def _zone_qp(self, disp, qp: int) -> int:
+        """Per-range RC override (x264 --zones, ratecontrol.c:1346
+        zone_for_frame + rate_estimate_qscale's zone application):
+        q= forces the QP, b= scales bits (qp -= 6*log2(factor))."""
+        if not self._zones or disp is None:
+            return qp
+        for (s, e, (k, v)) in self._zones:
+            if s <= disp <= e:
+                if k == "q":
+                    return int(np.clip(v, 0, 51))
+                return int(np.clip(round(qp - 6.0 * np.log2(v)),
+                                   self.p.qp_min, self.p.qp_max))
+        return qp
+
+    def _requantize_idr(self, qp: int) -> int:
+        """Re-derive the frame QP when a P frame is promoted to IDR."""
+        return max(self.p.qp_min, qp - self.rc.IP_OFFSET)
+
+    # Entropy budget: the reference's fixed two-rung ladder of level-stream
+    # capacities (lv_cap K, levels per MB on average).  After an overflow
+    # the floor ratchets up and stays up; the bytes handed to the CABAC
+    # coder depend on K only through the overflow re-run.
+    _rung_floor = 0
+
+    def _ladder(self, qp: int) -> list:
+        full = [96, 408]
+        keep = [r for r in full if r >= self._rung_floor]
+        return keep if keep else full[-1:]
+
+    def _note_budget(self, observed: int):
+        """Record a frame's observed entropy size; ratchet the ladder
+        floor so a rung that overflowed once is never retried."""
+        for r in (96, 408):
+            if observed <= r:
+                if r > self._rung_floor:
+                    self._rung_floor = r
+                return
+        self._rung_floor = 408
 
     def _deblock_device(self, out, qp, mbw, mbh):
         ry, ru, rv = out["recon_y"], out["recon_u"], out["recon_v"]
@@ -111,18 +228,21 @@ class Encoder(_ReferenceEncoder):
             return ry, ru, rv
         n = mbw * mbh
         zeros = torch.zeros(n, dtype=torch.int32, device=self.device)
+        if "mv8" in out:
+            # quadrant-granular mvs/refs when partitions are active (the
+            # internal-edge mv-discontinuity bS rule needs them)
+            mv, ref = out["mv8"], out["ref8"]
+        else:
+            mv = out["mv"] if "mv" in out else zeros[:, None].expand(n, 2)
+            ref = out.get("ref_mb", zeros)
         return deblock_frame(
             ry, ru, rv, out["mb_class"], out["cbp_luma"], out["cbp_chroma"],
-            out.get("nnz_deblock", out["luma_nnz"]),
-            out["mv"] if "mv" in out else zeros[:, None].expand(n, 2),
-            out.get("ref_mb", zeros), out["qp_mb"],
+            out.get("nnz_deblock", out["luma_nnz"]), mv, ref, out["qp_mb"],
             self.p.deblock_alpha * 2, self.p.deblock_beta * 2, mbw=mbw,
             mbh=mbh, cqp_off=self.p.chroma_qp_offset)
 
     def _submit_device(self, y, u, v, ftype: str, qp: int) -> dict:
-        """Upload the frame, run its core and deblock, advance the DPB
-        (the reference's _submit_device on one slice, without AQ, MB-tree,
-        PIR or weighted prediction)."""
+        """Upload the frame, run its core and deblock, advance the DPB."""
         h, w = y.shape
         mbw, mbh = w // 16, h // 16
         idr = ftype == "IDR"
@@ -136,12 +256,12 @@ class Encoder(_ReferenceEncoder):
                                          n_words, mbw, mbh)
         if (ref is not None and self.p.scenecut_threshold > 0
                 and self.frame_idx - self._last_idr_idx
-                >= self.p.keyint_min
-                and self._pending is None):
+                >= self.p.keyint_min):
             # post-encode scenecut (x264 slicetype.c:1430 rule, no
             # lookahead): promote to IDR when inter is no cheaper than
             # intra, from the costs the P core already computed
-            rows = self._cab_rows(out["host_blob"], mbw * mbh)
+            rows = self._cab_rows(out["host_blob"], mbw * mbh,
+                                  parts=self.p.p8x8)
             p_cost = float(rows[:, 14 + 9].astype(np.int64).sum())
             i_cost = float(rows[:, 14 + 10].astype(np.int64).sum())
             if p_cost >= (1.0 - self.p.scenecut_threshold / 100.0) * i_cost:
@@ -163,7 +283,6 @@ class Encoder(_ReferenceEncoder):
                    planes=(yd, ud, vd), ref=ref)
         # advance encoder state now (dpb is list0 order, sliding window)
         new = ReconFrame(*recon, frame_num=self.frame_num)
-        job["rec"] = new
         self.dpb = ([new] + ([] if idr else self.dpb))[:self.p.ref_frames]
         self.last_recon = new
         if idr:
@@ -173,15 +292,19 @@ class Encoder(_ReferenceEncoder):
         self.frame_idx += 1
         return job
 
-    def _finalize_cabac(self, job: dict, blob: np.ndarray) -> bytes:
-        """The reference's _finalize_cabac for one I/P16 slice: re-run at
-        the next entropy rung when the level stream overflowed, then the
-        slice header and the C CABAC coder (``write_slice_cabac``)."""
+    def _finalize_cabac(self, job: dict) -> bytes:
+        """The frame's bytes (the reference's ``_finalize_device`` on its
+        CABAC branch): re-run the core at the next entropy rung when the
+        level stream overflowed, then the slice header and the C CABAC
+        coder (``write_slice_cabac``)."""
+        blob = job["blob"]
         K = job["n_words"]
         n = job["mbw"] * job["mbh"]
-        rows = self._cab_rows(blob, n)
+        parts = self.p.p8x8 and job["slice_type"] == SLICE_P
+        rows = self._cab_rows(blob, n, parts=parts)
         total = int(rows[:, 14 + 8].astype(np.int64).sum())
         if total > n * K:
+            # frame-level stream overflow: re-run at the next capacity
             yd, ud, vd = job["planes"]
             for K in job["ladder"][1:]:
                 job["n_words"] = K
@@ -189,11 +312,12 @@ class Encoder(_ReferenceEncoder):
                                         job["qp"], job["qp_arr"], K,
                                         job["mbw"], job["mbh"])
                 blob = out["host_blob"]
-                rows = self._cab_rows(blob, n)
+                rows = self._cab_rows(blob, n, parts=parts)
                 total = int(rows[:, 14 + 8].astype(np.int64).sum())
                 if total <= n * K:
                     break
-        self._note_budget(True, -(-total // n))
+        self._note_budget(-(-total // n))
+        mb_class = rows[:, 14]
 
         out_bytes = b""
         if job["ftype"] == "IDR" and self.p.repeat_headers:
@@ -209,7 +333,7 @@ class Encoder(_ReferenceEncoder):
             bs.put(pad, (1 << pad) - 1)    # cabac_alignment_one_bit
         kind = 0 if job["slice_type"] == SLICE_I else 1
         payload = write_slice_cabac(blob, job["mbw"], job["mbh"], kind,
-                                    job["slice_qp"], K)
+                                    job["slice_qp"], K, parts=parts)
         out_bytes += wrap_slice_nal(bs.to_bytes_aligned() + payload,
                                     job["idr"])
         cost = int(rows[:, 14 + 9].astype(np.int64).sum())
@@ -217,6 +341,156 @@ class Encoder(_ReferenceEncoder):
                                      job["qp"]))
         self.rc.update(job["ftype"], len(out_bytes) * 8, cost)
         self._record_stats(job["ftype"], job["qp"], len(out_bytes) * 8,
-                           cost, rows[:, 14])
-        self._note_au(len(out_bytes), job["ftype"], 0)
+                           cost, mb_class)
+        self._note_au(len(out_bytes), job["ftype"])
         return out_bytes
+
+    def flush(self) -> bytes:
+        """Every frame's bytes leave ``encode`` at once (no B frames, no
+        lookahead, no pipelining), so nothing is buffered."""
+        return b""
+
+    def _pad(self, fr: Frame420):
+        y = pad_to_mb(fr.y, 16)
+        u = pad_to_mb(fr.u, 8)
+        v = pad_to_mb(fr.v, 8)
+        return y, u, v
+
+    _enc_idx = 0       # encode-order frame counter
+
+    def _qp_for_frame(self, ftype: str) -> int:
+        """One call per encoded frame, in encode order — the pass-2 plan
+        is indexed per encoded frame, matching the stats file."""
+        i = self._enc_idx
+        self._enc_idx += 1
+        if self._pass2_qps is not None:
+            return self._pass2_qps[min(i, len(self._pass2_qps) - 1)]
+        return self.rc.frame_qp(ftype)
+
+    # per-type aggregates for the close() summary
+    # (x264 encoder_close stat block, encoder/encoder.c:4196)
+    _agg = None
+
+    def _record_stats(self, ftype, qp, bits, cost, mb_class):
+        from x264_tpu_torch.rc.twopass import FrameStat
+        imb = int(np.isin(mb_class, (MB_I16, MB_I4)).sum())
+        smb = int((mb_class == MB_PSKIP).sum())
+        pmb = len(mb_class) - imb - smb
+        if self._agg is None:
+            self._agg = {}
+        t = "I" if ftype == "IDR" else ftype
+        a = self._agg.setdefault(
+            t, dict(n=0, bits=0, qp=0.0, imb=0, pmb=0, smb=0))
+        a["n"] += 1
+        a["bits"] += bits
+        a["qp"] += qp
+        a["imb"] += imb
+        a["pmb"] += pmb
+        a["smb"] += smb
+        if self.p.stats_write:
+            self._twopass_stats.append(FrameStat(
+                idx=len(self._twopass_stats),
+                ftype="I" if ftype == "IDR" else ftype,
+                qp=qp, bits=bits, cost=cost,
+                imb=imb, pmb=pmb, smb=smb))
+
+    # scenecut may not promote within keyint_min of the last keyframe
+    # (x264's min-keyint rule, slicetype.c:1438)
+    _last_idr_idx = 0
+
+    def _decide_type(self) -> str:
+        if self.frame_idx == 0 or (self.p.keyint_max > 0
+                                   and self.frame_idx % self.p.keyint_max == 0):
+            self._last_idr_idx = self.frame_idx
+            return "IDR"
+        return "P"
+
+    # per-frame overrides (x264_picture_t.i_type / i_qplus1 analog):
+    # display idx -> (forced ftype or None, forced qp or None)
+    _force: dict = None
+    _in_disp = 0
+
+    def _forced_for(self, d: int):
+        if not self._force:
+            return (None, None)
+        return self._force.pop(d, (None, None))
+
+    def encode(self, fr: Frame420, frame_type: int = 0,
+               qp: int | None = None) -> bytes:
+        """frame_type: TYPE_AUTO/IDR/I/P (params enums) to force this
+        frame's type; qp: force this frame's QP — the --qpfile hooks
+        (reference x264.c:1801 parse_qpfile -> pic.i_type/i_qpplus1)."""
+        if frame_type or qp is not None:
+            from x264_tpu_torch.params import (TYPE_B, TYPE_BREF, TYPE_I,
+                                               TYPE_IDR, TYPE_P)
+            tmap = {TYPE_IDR: "IDR", TYPE_I: "IDR", TYPE_P: "P",
+                    TYPE_B: "B", TYPE_BREF: "B"}
+            if self._force is None:
+                self._force = {}
+            self._force[self._in_disp] = (tmap.get(frame_type), qp)
+        self._in_disp += 1
+        return self._encode_now(fr, disp=self._in_disp - 1)
+
+    def _encode_now(self, fr: Frame420, disp: int | None = None) -> bytes:
+        y, u, v = self._pad(fr)
+        f_type, f_qp = (self._forced_for(disp) if disp is not None
+                        else (None, None))
+        if f_type in ("IDR", "P"):
+            ftype = f_type
+            if f_type == "IDR":
+                self._last_idr_idx = self.frame_idx
+        else:
+            ftype = self._decide_type()
+        qp = self._zone_qp(disp, self._qp_for_frame(ftype))
+        if f_qp is not None:
+            qp = int(np.clip(f_qp, self.p.qp_min, self.p.qp_max))
+        if ftype == "IDR":
+            self.frame_num = 0
+        job = self._submit_device(y, u, v, ftype, qp)
+        self._note_recon(disp, self.dpb[0])
+        return self._finalize_cabac(job)
+
+    def close(self) -> dict:
+        """Summary stats (analog of encoder_close's log summary); writes
+        the 2-pass stats file if requested."""
+        if self.p.stats_write and self._twopass_stats:
+            from x264_tpu_torch.rc.twopass import write_stats
+            write_stats(self.p.stats_write, self._twopass_stats,
+                        f"qp={self.p.qp} rc={self.p.rc_method}")
+        if not self.stats:
+            return {}
+        bits = sum(s.bits for s in self.stats)
+        fps = self.p.fps_num / max(1, self.p.fps_den)
+        out = {
+            "frames": len(self.stats),
+            "kbps": bits * fps / max(1, len(self.stats)) / 1000.0,
+            "avg_qp": float(np.mean([s.qp for s in self.stats])),
+            "frame_types": {},
+            "mb_mix": {},
+        }
+        for t, a in (self._agg or {}).items():
+            out["frame_types"][t] = dict(
+                count=a["n"], avg_qp=a["qp"] / a["n"],
+                avg_bytes=a["bits"] / 8.0 / a["n"])
+            nmb = a["imb"] + a["pmb"] + a["smb"]
+            out["mb_mix"][t] = dict(
+                intra=a["imb"] / max(1, nmb), inter=a["pmb"] / max(1, nmb),
+                skip=a["smb"] / max(1, nmb))
+        return out
+
+    def summary_lines(self) -> list:
+        """x264 encoder_close-style log lines (frame type counts, avg QP,
+        avg size, MB type mix) — the CLI prints these at log_level>=2."""
+        out = []
+        for t in ("I", "P", "B"):
+            a = (self._agg or {}).get(t)
+            if not a:
+                continue
+            nmb = max(1, a["imb"] + a["pmb"] + a["smb"])
+            out.append(
+                f"frame {t}:{a['n']:<5d} Avg QP:{a['qp'] / a['n']:6.2f}"
+                f"  size:{a['bits'] / 8.0 / a['n']:9.1f}"
+                f"  mb I:{100.0 * a['imb'] / nmb:5.1f}%"
+                f" P:{100.0 * a['pmb'] / nmb:5.1f}%"
+                f" skip:{100.0 * a['smb'] / nmb:5.1f}%")
+        return out

@@ -1,7 +1,8 @@
 """Build and load the kernels' shared library.
 
 The sources in ``x264_tpu_torch/csrc`` are compiled with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, at first
+``sm_90a`` — one ``nvcc`` process per source, all started together —
+and linked into one shared library with a plain C interface, at first
 use, into ``x264_tpu_torch/build`` (git-ignored).  The library's name
 carries a hash of the sources, so an edited source is rebuilt and a
 current build is reused.  Loading goes through ``ctypes``: pointers and
@@ -22,13 +23,15 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (see the extern "C" blocks in csrc/*.cu)
 SIGNATURES = {
     "esa16_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "esa_parts_launch": [_P] * 11 + [_I] * 5 + [_P],
     "deblock_luma_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P],
     "deblock_chroma_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -75,12 +78,25 @@ def library() -> ctypes.CDLL:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         if not os.path.exists(so):
             cu = [s for s in srcs if s.endswith(".cu")]
-            tmp = so + ".tmp"
-            r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                               capture_output=True, text=True)
-            log = r.stdout + r.stderr
-            if r.returncode != 0:
+            objs = [so[:-3] + "_" + os.path.basename(s)[:-3] + ".o"
+                    for s in cu]
+            procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", s, "-o", o],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for s, o in zip(cu, objs)]
+            failed = False
+            for s, p in zip(cu, procs):
+                out = p.communicate()[0]
+                log += f"== {os.path.basename(s)}\n{out}"
+                failed |= p.returncode != 0
+            if failed:
                 raise RuntimeError(f"nvcc failed:\n{log}")
+            tmp = so + ".tmp"
+            r = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", tmp, *objs],
+                               capture_output=True, text=True)
+            log += r.stdout + r.stderr
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc link failed:\n{log}")
             os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     for name, argtypes in SIGNATURES.items():

@@ -8,15 +8,15 @@ from __future__ import annotations
 
 import torch
 
-from x264_tpu.models.inter_frame import PAD
 from x264_tpu_torch.kernels import LAUNCHES
 from x264_tpu_torch.kernels.build import check, library
-from x264_tpu_torch.state import mv_bits
+from x264_tpu_torch.state import PAD, mv_bits_table
 
 _I32 = torch.int32
 
 
-def _check_args(src_y, ref_pad, me_range: int, mbw: int, mbh: int):
+def _check_args(src_y, ref_pad, me_range: int, mbw: int, mbh: int,
+                name: str = "full_search_16x16"):
     if me_range > PAD:
         # the search window's dx/dy slices assume |d| <= PAD
         raise ValueError(f"me_range {me_range} exceeds the reference "
@@ -24,7 +24,7 @@ def _check_args(src_y, ref_pad, me_range: int, mbw: int, mbh: int):
     h, w = 16 * mbh, 16 * mbw
     if tuple(src_y.shape) != (h, w) or \
             tuple(ref_pad.shape) != (h + 2 * PAD, w + 2 * PAD):
-        raise ValueError(f"full_search_16x16: src {tuple(src_y.shape)} / "
+        raise ValueError(f"{name}: src {tuple(src_y.shape)} / "
                          f"ref {tuple(ref_pad.shape)} do not fit "
                          f"{mbw}x{mbh} MBs with padding {PAD}")
 
@@ -40,7 +40,7 @@ def full_search_16x16_plain(src_y, ref_pad, lam: int, me_range: int,
     dev = src_y.device
     src = src_y.to(_I32)
     ref = ref_pad.to(_I32)
-    bits = mv_bits(dev, 4 * r)
+    bits = mv_bits_table(dev, 4 * r)
     best = torch.full((n,), 1 << 30, dtype=_I32, device=dev)
     best_mv = torch.zeros((n, 2), dtype=_I32, device=dev)
     d = torch.arange(-4 * r, 4 * r + 1, 4, dtype=_I32, device=dev)
@@ -80,7 +80,7 @@ def full_search_16x16(src_y, ref_pad, lam: int, me_range: int, mbw: int,
         raise ValueError("full_search_16x16: planes must be contiguous "
                          "uint8")
     n = mbw * mbh
-    bits = mv_bits(dev, 4 * me_range)
+    bits = mv_bits_table(dev, 4 * me_range)
     mv = torch.empty((n, 2), dtype=_I32, device=dev)
     cost = torch.empty((n,), dtype=_I32, device=dev)
     with torch.cuda.device(dev):

@@ -2,15 +2,16 @@
 ME, subpel refinement, luma/chroma MC, residual, reconstruction,
 intra-in-P, P_Skip/MVP classification and the CABAC blob — over all MBs
 at once (port of x264_tpu/models/inter_device.py: ``p_frame_pipeline``
-on the single-reference, P16x16, no-PIR, no-weights path, the CABAC
-branch of ``p_entropy_tail`` and ``p_frame_core``)."""
+on the single-reference, no-PIR, no-weights path, P16x16 only or with
+P8x8 partitions, the CABAC branch of ``p_entropy_tail`` and
+``p_frame_core``).  The reference runs the partition path as two device
+programs to dodge a TPU miscompile; here it is one eager pass."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from x264_tpu.models.inter_frame import PAD
 from x264_tpu_torch.models.intra import pick_mode, qp_per_mb
 from x264_tpu_torch.models.residual import (encode_chroma, encode_i16_luma,
                                             encode_p_luma)
@@ -18,10 +19,13 @@ from x264_tpu_torch.ops import pixel as P
 from x264_tpu_torch.ops import predict as PR
 from x264_tpu_torch.ops import transform as T
 from x264_tpu_torch.ops.entropy_pack import cabac_blob
-from x264_tpu_torch.ops.header import MB_PSKIP_D, shifted, classify_p
-from x264_tpu_torch.ops.mc import mc_chroma_uv, pad_edge
+from x264_tpu_torch.ops.header import (MB_PSKIP_D, classify_p,
+                                       classify_p_parts, shifted)
+from x264_tpu_torch.ops.mc import mc_chroma_uv, mc_chroma_uv_quad, pad_edge
 from x264_tpu_torch.ops.me import full_search_16x16, subpel_refine
-from x264_tpu_torch.state import tables
+from x264_tpu_torch.ops.me_parts import (choose_shape, full_search_parts,
+                                         subpel_refine_parts)
+from x264_tpu_torch.state import PAD, tables
 
 _I32 = torch.int32
 _BIG = 1 << 30
@@ -42,11 +46,12 @@ def _neigh(plane, s: int, mbw: int, mbh: int):
 def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
                      lam: int, mbw: int, mbh: int, me_range: int,
                      cqp_off: int, subpel: int, lv_cap: int,
-                     decimate: bool = True):
+                     parts: bool = False, decimate: bool = True):
     """P-frame pipeline on pre-padded reference planes (PAD luma, PAD//2
-    chroma).  y/u/v uint8 source planes; qp int or per-MB (N,); lam int.
-    Returns the per-MB syntax tensors, pre-deblock recon planes and the
-    CABAC ``host_blob``."""
+    chroma).  y/u/v uint8 source planes; qp int or per-MB (N,); lam int;
+    parts: P8x8 partitions (16x16/16x8/8x16/8x8 per MB).  Returns the
+    per-MB syntax tensors, pre-deblock recon planes and the CABAC
+    ``host_blob``; with partitions also shape, mv8, ref8 and mvd_part."""
     if subpel < 1:
         raise NotImplementedError("the fullpel-only P path (subpel=0) is "
                                   "not ported")
@@ -56,17 +61,32 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     qpc = tables(dev).chroma_qp[(qp + cqp_off).clamp(0, 51).long()]
     src_mbs = T.plane_to_mbs(y.to(_I32), mbh, mbw, 16)
 
-    mv, _ = full_search_16x16(y, ref_y_pad, lam, me_range, mbw, mbh)
     ref = torch.zeros(n, dtype=_I32, device=dev)
-    mv, mb_cost, pred = subpel_refine(src_mbs, ref_y_pad, mv, lam,
-                                      me_range, subpel, mbw, mbh,
-                                      return_pred=True)
+    if parts:
+        # one exhaustive pass gives all nine unit argmins; the shape is
+        # decided at fullpel and the subpel refine runs at quadrant
+        # granularity with partition-pooled costs (ops/me_parts.py)
+        units = full_search_parts(y, ref_y_pad, lam, me_range, mbw, mbh)
+        shape, mv8, _ = choose_shape(units, lam)
+        mv8, part_costs, pred = subpel_refine_parts(
+            src_mbs, mv8, shape, lam, me_range, subpel, mbw, mbh, ref_y_pad)
+        mb_cost = part_costs.sum(1, dtype=_I32)
+        mv = mv8[:, 0]
+    else:
+        mv, _ = full_search_16x16(y, ref_y_pad, lam, me_range, mbw, mbh)
+        mv, mb_cost, pred = subpel_refine(src_mbs, ref_y_pad, mv, lam,
+                                          me_range, subpel, mbw, mbh,
+                                          return_pred=True)
     recon_y_mbs, ac_zz, nnz, cbp_l = encode_p_luma(src_mbs, pred, qp,
                                                    decimate=decimate)
     nnz_deblock = nnz
 
-    pred_u, pred_v = mc_chroma_uv(ref_u_pad, ref_v_pad, mv, mbw, mbh,
-                                  PAD // 2)
+    if parts:
+        pred_u, pred_v = mc_chroma_uv_quad(ref_u_pad, ref_v_pad, mv8, mbw,
+                                           mbh, PAD // 2)
+    else:
+        pred_u, pred_v = mc_chroma_uv(ref_u_pad, ref_v_pad, mv, mbw, mbh,
+                                      PAD // 2)
     src_u = T.plane_to_mbs(u.to(_I32), mbh, mbw, 8)
     src_v = T.plane_to_mbs(v.to(_I32), mbh, mbw, 8)
     ru_mbs, rv_mbs, cdc, cac, cnnz, cbp_c = encode_chroma(
@@ -142,10 +162,17 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     rv_mbs = torch.where(mk2, icr_v, rv_mbs)
 
     # classification + entropy blob (p_entropy_tail's CABAC branch)
-    mb_class, mvd = classify_p(mv, cbp_l, cbp_c, mbw, mbh,
-                               intra=intra_mask)
+    if parts:
+        mb_class, mvd_part, _ = classify_p_parts(
+            mv8, ref[:, None].expand(n, 4), shape, cbp_l, cbp_c, mbw, mbh,
+            intra=intra_mask)
+        mvd = mvd_part[:, 0]
+        shape = torch.where(intra_mask | (mb_class == MB_PSKIP_D), 0, shape)
+    else:
+        mb_class, mvd = classify_p(mv, cbp_l, cbp_c, mbw, mbh,
+                                   intra=intra_mask)
     ref = torch.where(mb_class == MB_PSKIP_D, 0, ref)
-    return dict(
+    out = dict(
         mb_cost=mb_cost, qp_mb=qp, icost=icost, mv=mv, ref_mb=ref,
         i16_mode=i16_mode, chroma_mode=chroma_mode, luma_dc=luma_dc,
         luma_ac=ac_zz, luma_nnz=nnz, nnz_deblock=nnz_deblock,
@@ -154,19 +181,27 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
         recon_y=T.mbs_to_plane(recon_y_mbs, mbh, mbw, 16).to(torch.uint8),
         recon_u=T.mbs_to_plane(ru_mbs, mbh, mbw, 8).to(torch.uint8),
         recon_v=T.mbs_to_plane(rv_mbs, mbh, mbw, 8).to(torch.uint8),
-        mb_class=mb_class, mvd=mvd,
-        host_blob=cabac_blob(luma_dc, ac_zz, cdc, cac, mb_class, mvd,
-                             i16_mode, chroma_mode, cbp_l, cbp_c, qp,
-                             mb_cost, icost, K=lv_cap))
+        mb_class=mb_class, mvd=mvd)
+    blob_parts = {}
+    if parts:
+        # quadrant-granular motion for the deblock strengths (intra MBs'
+        # mvs are never consulted: the intra bS rules win)
+        ref8 = ref[:, None].expand(n, 4)
+        out.update(shape=shape, mv8=mv8, ref8=ref8, mvd_part=mvd_part)
+        blob_parts = dict(shape=shape, mvd_part=mvd_part, ref_part=ref8)
+    out["host_blob"] = cabac_blob(luma_dc, ac_zz, cdc, cac, mb_class, mvd,
+                                  i16_mode, chroma_mode, cbp_l, cbp_c, qp,
+                                  mb_cost, icost, K=lv_cap, **blob_parts)
+    return out
 
 
 def p_frame_core(y, u, v, ref_y, ref_u, ref_v, qp, lam: int, mbw: int,
                  mbh: int, me_range: int, cqp_off: int, subpel: int,
-                 lv_cap: int, decimate: bool = True):
+                 lv_cap: int, parts: bool = False, decimate: bool = True):
     """Single-reference entry: edge-pad the reference planes (PAD luma,
     PAD//2 chroma), then run ``p_frame_pipeline``."""
     return p_frame_pipeline(y, u, v, pad_edge(ref_y, PAD),
                             pad_edge(ref_u, PAD // 2),
                             pad_edge(ref_v, PAD // 2), qp, lam, mbw, mbh,
                             me_range, cqp_off, subpel, lv_cap,
-                            decimate=decimate)
+                            parts=parts, decimate=decimate)

@@ -1,5 +1,6 @@
 """In-loop deblocking (spec 8.7; port of x264_tpu/ops/device/deblock.py
-for I and P16 frames; parity: reference common/deblock.c).
+for I and P frames, per-MB or per-quadrant motion; parity: reference
+common/deblock.c).
 
 Boundary strengths are a pure function of (MB class, nnz, mv, ref) and
 are computed for every edge at once (``bs_grids``); the pixel filter has
@@ -36,15 +37,25 @@ def _shift_in(g, axis: int):
 def bs_grids(mb_intra, luma_nnz, mv, ref, mbw: int, mbh: int):
     """Boundary strengths for every 4-px edge.
 
-    mb_intra (N,) bool; luma_nnz (N,16) raster-block; mv (N,2); ref (N,).
+    mb_intra (N,) bool; luma_nnz (N,16) raster-block; mv (N,2) per MB or
+    (N,4,2) per quadrant (partitioned P frames: internal 8x8 edges then
+    get the mv-discontinuity bS=1 rule, 8.7.2.1); ref (N,) or (N,4).
     Returns (bs_v, bs_h) (4*mbh, 4*mbw) int32: bs_v[gy,gx] = strength of
     the vertical edge left of block (gy,gx); frame-boundary edges are 0."""
     gh, gw = 4 * mbh, 4 * mbw
     nnz = (luma_nnz.reshape(mbh, mbw, 4, 4).permute(0, 2, 1, 3)
            .reshape(gh, gw))
     intra_g = _rep4(mb_intra.reshape(mbh, mbw))
-    mv_g = _rep4(mv.reshape(mbh, mbw, 2))
-    ref_g = _rep4(ref.reshape(mbh, mbw))
+    if mv.dim() == 3:        # quadrant-granular (q = 2*qy + qx)
+        mv_g = (mv.reshape(mbh, mbw, 2, 2, 2).repeat_interleave(2, 2)
+                .repeat_interleave(2, 3).permute(0, 2, 1, 3, 4)
+                .reshape(gh, gw, 2))
+        ref_g = (ref.reshape(mbh, mbw, 2, 2).repeat_interleave(2, 2)
+                 .repeat_interleave(2, 3).permute(0, 2, 1, 3)
+                 .reshape(gh, gw))
+    else:
+        mv_g = _rep4(mv.reshape(mbh, mbw, 2))
+        ref_g = _rep4(ref.reshape(mbh, mbw))
     col = torch.arange(gw, device=mv.device)[None, :]
     row = torch.arange(gh, device=mv.device)[:, None]
 

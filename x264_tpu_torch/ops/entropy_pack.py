@@ -1,31 +1,84 @@
 """Compact syntax blob for the host CABAC coder (port of
-x264_tpu/ops/device/entropy_pack.py for I and single-reference P16
-frames).  ``native/cabac.c`` reads the blob, so it must come out as the
-same int32 words.
+x264_tpu/ops/device/entropy_pack.py for I and single-reference P
+frames, with or without P partitions), and the host coder itself: the C
+source ``native/cabac.c`` (a copy of x264_tpu/native/cabac.c), built
+with gcc at first use and called through ctypes.  The coder reads the
+blob, so it must come out as the same int32 words as the reference's.
 
-Layout (one flat int32 array): per MB a row of ``blob_stride()`` words —
-the 408-bit significance bitmap in 13 words, the exclusive prefix of the
-MB's nonzero count, then the fields mb_class, mvd_x, mvd_y, i16_mode,
-chroma_mode, cbp_luma, cbp_chroma, qp, nnz_total, mb_cost, icost, ref,
-t8 — followed by the frame-global stream of nonzero levels as int16
-pairs (lo | hi << 16), n*K levels, zero-filled or cut at that cap."""
+Layout (one flat int32 array): per MB a row of ``blob_stride(parts)``
+words — the 408-bit significance bitmap in 13 words, the exclusive
+prefix of the MB's nonzero count, then the fields mb_class, mvd_x,
+mvd_y, i16_mode, chroma_mode, cbp_luma, cbp_chroma, qp, nnz_total,
+mb_cost, icost, ref, t8 and, with partitions, shape, the mvds of
+partition slots 1-3 (x, y) and their refs — followed by the
+frame-global stream of nonzero levels as int16 pairs (lo | hi << 16),
+n*K levels, zero-filled or cut at that cap."""
 
 from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import subprocess
 
 import numpy as np
 import torch
 
-from x264_tpu.bitstream import cabac_host
-
 N_VALS = 408        # luma_dc 16 | luma_ac 16x16 | chroma_dc 2x4 | ac 2x4x16
 N_BITMAP = 13
 FIELDS_P = 13
+FIELDS_PARTS = 10   # shape, mvd slots 1-3 (x, y), ref slots 1-3
 
 _I32 = torch.int32
 
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NATIVE = os.path.join(_PKG, "native")
+BUILD = os.path.join(_PKG, "build")
+_LIB = None
 
-def blob_stride() -> int:
-    return N_BITMAP + 1 + FIELDS_P
+
+def _lib() -> ctypes.CDLL:
+    """The host CABAC coder, built from ``native/cabac.c`` on first use
+    into ``build/`` (the library's name carries a hash of the sources, so
+    an edited source is rebuilt); an flock keeps parallel processes from
+    racing the build."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    src = os.path.join(NATIVE, "cabac.c")
+    digest = hashlib.sha256()
+    for name in ("cabac.c", "cabac_tables.h"):
+        with open(os.path.join(NATIVE, name), "rb") as f:
+            digest.update(f.read())
+    os.makedirs(BUILD, exist_ok=True)
+    so = os.path.join(BUILD, f"libx264tpu_cabac_{digest.hexdigest()[:16]}.so")
+    with open(os.path.join(BUILD, "cabac.lock"), "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        if not os.path.exists(so):
+            tmp = so + ".tmp"
+            subprocess.run(["gcc", "-O2", "-shared", "-fPIC", src, "-o", tmp],
+                           check=True, capture_output=True)
+            os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.encode_slice_cabac_packed.restype = ctypes.c_long
+    lib.encode_slice_cabac_packed.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int,
+        i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int,                   # parts (P partition fields)
+        ctypes.c_int,                   # i4 (I_NxN pred-mode fields)
+        u8p, ctypes.c_long,
+        ctypes.c_void_p,                # state_out (1024) or NULL
+    ]
+    _LIB = lib
+    return lib
+
+
+def blob_stride(parts: bool = False) -> int:
+    return N_BITMAP + 1 + FIELDS_P + (FIELDS_PARTS if parts else 0)
 
 
 def _wrap_i32(x):
@@ -36,9 +89,11 @@ def _wrap_i32(x):
 
 def cabac_blob(luma_dc, luma_ac, chroma_dc, chroma_ac, mb_class, mvd,
                i16_mode, chroma_mode, cbp_luma, cbp_chroma, qp, mb_cost,
-               icost, K: int):
-    """All inputs per-MB int32 tensors; K even.  Returns the flat int32
-    blob: n*stride row words + n*K/2 stream words."""
+               icost, K: int, shape=None, mvd_part=None, ref_part=None):
+    """All inputs per-MB int32 tensors; K even.  With partitions, shape
+    (N,), mvd_part (N,4,2) and ref_part (N,4) add the 10 partition
+    fields.  Returns the flat int32 blob: n*stride row words + n*K/2
+    stream words."""
     n = mb_class.shape[0]
     dev = mb_class.device
     flat = torch.cat([luma_dc.reshape(n, 16), luma_ac.reshape(n, 256),
@@ -70,27 +125,36 @@ def cabac_blob(luma_dc, luma_ac, chroma_dc, chroma_ac, mb_class, mvd,
     zeros = torch.zeros(n, dtype=_I32, device=dev)
     fields = [prefix, mb_class, mvd[:, 0], mvd[:, 1], i16_mode,
               chroma_mode, cbp_luma, cbp_chroma, qp, nnz_mb, mb_cost,
-              icost, zeros, zeros]             # ref 0, then t8 0 (last)
+              icost, zeros, zeros]             # ref 0, then t8 0
+    if shape is not None:
+        # P partitions: shape code, mvd of partition slots 1-3 (slot 0
+        # travels in the base mvd fields), refs of slots 1-3
+        fields += [shape,
+                   mvd_part[:, 1, 0], mvd_part[:, 1, 1],
+                   mvd_part[:, 2, 0], mvd_part[:, 2, 1],
+                   mvd_part[:, 3, 0], mvd_part[:, 3, 1],
+                   ref_part[:, 1], ref_part[:, 2], ref_part[:, 3]]
     rows = torch.cat([bitmap] + [f.to(_I32)[:, None] for f in fields],
                      dim=1)
     return torch.cat([rows.reshape(-1), stream])
 
 
 def write_slice_cabac(blob: np.ndarray, mbw: int, mbh: int, slice_kind: int,
-                      slice_qp: int, K: int):
+                      slice_qp: int, K: int, parts: bool = False):
     """CABAC-code one slice from the host copy of the blob with
     ``native/cabac.c`` (the reference's
-    ``cabac_host.write_slice_cabac_packed`` for I/P16 slices, whose
-    stride lookup imports a JAX module).  slice_kind 0 = I, 1 = P.
+    ``cabac_host.write_slice_cabac_packed`` for single-reference I/P
+    slices without the 8x8 transform or I4x4).  slice_kind 0 = I, 1 = P;
+    parts: the blob carries the partition fields (P slices with p8x8).
     Returns the slice_data() payload bytes."""
     n = mbw * mbh
     cap = 1024 + n * 512
     out = np.zeros(cap, np.uint8)
     blob = np.ascontiguousarray(blob.reshape(-1).astype(np.int32,
                                                         copy=False))
-    sz = cabac_host._lib().encode_slice_cabac_packed(
-        mbw, mbh, slice_kind, int(slice_qp), 0, blob, K, blob_stride(),
-        0, 1, 0, 0, out, cap, None)
+    sz = _lib().encode_slice_cabac_packed(
+        mbw, mbh, slice_kind, int(slice_qp), 0, blob, K, blob_stride(parts),
+        0, 1, int(parts), 0, out, cap, None)
     if sz < 0:
         raise OverflowError("CABAC level cap or buffer overflow")
     return out[:sz].tobytes()

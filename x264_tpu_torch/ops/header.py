@@ -1,11 +1,12 @@
-"""P16x16 skip / MV-prediction classification (port of
-x264_tpu/ops/device/header.py::classify_p for one reference; parity:
-reference common/mvpred.c x264_mb_predict_mv / x264_mb_predict_mv_pskip).
-"""
+"""P skip / MV-prediction classification (port of
+x264_tpu/ops/device/header.py: ``classify_p`` for one reference and
+``classify_p_parts`` for partitioned MBs; parity: reference
+common/mvpred.c x264_mb_predict_mv / x264_mb_predict_mv_pskip)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 MB_P16_D, MB_PSKIP_D = 2, 3   # match models.syntax MB_P16 / MB_PSKIP
 MB_I16_D = 0
@@ -89,3 +90,171 @@ def classify_p(mv, cbp_luma, cbp_chroma, mbw: int, mbh: int, intra=None):
         mb_class = torch.where(intra, MB_I16_D, mb_class).to(_I32)
     mvd = torch.where(is_skip[:, None], 0, flat_mv - mvp.reshape(-1, 2))
     return mb_class, mvd.to(_I32)
+
+
+# (shape, part) -> (lbx, lby, pw, ph) in 4x4-block units (7.4.5.2 order)
+_PART_GEOM = {
+    (0, 0): (0, 0, 4, 4),
+    (1, 0): (0, 0, 4, 2), (1, 1): (0, 2, 4, 2),
+    (2, 0): (0, 0, 2, 4), (2, 1): (2, 0, 2, 4),
+    (3, 0): (0, 0, 2, 2), (3, 1): (2, 0, 2, 2),
+    (3, 2): (0, 2, 2, 2), (3, 3): (2, 2, 2, 2),
+}
+# (shape, part) -> first member quad
+_FIRST_Q = {(0, 0): 0, (1, 0): 0, (1, 1): 2, (2, 0): 0, (2, 1): 1,
+            (3, 0): 0, (3, 1): 1, (3, 2): 2, (3, 3): 3}
+
+
+def classify_p_parts(mv8, ref8, shape, cbp_luma, cbp_chroma, mbw: int,
+                     mbh: int, intra=None):
+    """Partition-aware P classification: P_Skip + normative per-partition
+    MVP/mvd (8.4.1.3), fully parallel (port of
+    x264_tpu/ops/device/header.py::classify_p_parts).  Every decoded 4x4
+    block's (mv, ref) equals the encoder's chosen value, so partition MVPs
+    are functions of the chosen 4x4-grain field; decode-order
+    availability (e.g. the C neighbour of a 16x8 bottom partition lies in
+    the not-yet-decoded right MB) is static per (shape, part).
+
+    mv8 (N,4,2) per-quadrant chosen mvs (q = 2*qy+qx); ref8 (N,4);
+    shape (N,) in {0:16x16, 1:16x8, 2:8x16, 3:8x8}; intra (N,) bool or
+    None.  Returns (mb_class (N,), mvd_part (N,4,2) partition-slot
+    order, is_skip (N,))."""
+    n = mbw * mbh
+    h4, w4 = 4 * mbh, 4 * mbw
+    dev = mv8.device
+    mv8 = mv8.to(_I32)
+    ref8 = ref8.to(_I32)
+    # 4x4-grain chosen grids (quad -> 2x2 blocks)
+    mvq = mv8.reshape(mbh, mbw, 2, 2, 2)       # (my, mx, qy, qx, 2)
+    mv4 = (mvq.repeat_interleave(2, 2).repeat_interleave(2, 3)
+           .permute(0, 2, 1, 3, 4).reshape(h4, w4, 2))
+    refq = ref8.reshape(mbh, mbw, 2, 2)
+    ref4 = (refq.repeat_interleave(2, 2).repeat_interleave(2, 3)
+            .permute(0, 2, 1, 3).reshape(h4, w4))
+    if intra is not None:
+        ig = (intra.reshape(mbh, mbw).repeat_interleave(4, 0)
+              .repeat_interleave(4, 1))
+        mv4 = torch.where(ig[..., None], 0, mv4)
+        ref4 = torch.where(ig, -1, ref4)
+
+    # pad 4 blocks on every side so any (oy, ox) in [-1, 4] resolves
+    mv4p = F.pad(mv4, (0, 0, 4, 4, 4, 4))
+    ref4p = F.pad(ref4, (4, 4, 4, 4), value=-1)
+
+    def samp(oy: int, ox: int):
+        """Grid values at (4*my + oy, 4*mx + ox) for all MBs -> flat
+        (mv (N,2), ref (N,))."""
+        def pick(a):
+            return a[oy + 4::4][:mbh, ox + 4::4][:, :mbw]
+        return pick(mv4p).reshape(n, 2), pick(ref4p).reshape(n)
+
+    mb = torch.arange(n, device=dev)
+    mbyv, mbxv = torch.div(mb, mbw, rounding_mode="floor"), mb % mbw
+    true = torch.ones(n, dtype=torch.bool, device=dev)
+    at = mbyv > 0
+    al = mbxv > 0
+    ar = mbxv < (mbw - 1)
+
+    def neigh(oy, ox, avail):
+        mv, rf = samp(oy, ox)
+        mv = torch.where(avail[:, None], mv, 0)
+        rf = torch.where(avail, rf, -1)
+        return mv, rf, avail
+
+    def median3(a, b, c):
+        return torch.maximum(torch.minimum(a, b),
+                             torch.minimum(torch.maximum(a, b), c))
+
+    def mvp_of(A, B, C, cur_ref, directional=None):
+        """8.4.1.3 / 8.4.1.3.1 from neighbour triples (mv, ref, avail)."""
+        mva, ra, av_a = A
+        mvb, rb, av_b = B
+        mvc, rc, av_c = C
+        sa, sb, sc = ra == cur_ref, rb == cur_ref, rc == cur_ref
+        one = (sa.to(_I32) + sb.to(_I32) + sc.to(_I32)) == 1
+        one_mv = (mva * sa[:, None] + mvb * sb[:, None]
+                  + mvc * sc[:, None])
+        med = median3(mva, mvb, mvc)
+        only_a = av_a & ~av_b & ~av_c
+        mvp = torch.where(only_a[:, None], mva,
+                          torch.where(one[:, None], one_mv, med))
+        if directional is not None:
+            dmv, dref = directional
+            mvp = torch.where((dref == cur_ref)[:, None], dmv, mvp)
+        return mvp
+
+    # per-combo MVPs; combo key (shape, part)
+    mvp_combo = {}
+    skip_parts = {}
+    for (sh, p), (lbx, lby, pw, ph) in _PART_GEOM.items():
+        A = neigh(lby, lbx - 1, true if lbx > 0 else al)
+        B = neigh(lby - 1, lbx, true if lby > 0 else at)
+        # C availability / D substitution (static decode-order rules)
+        cy, cx = lby - 1, lbx + pw
+        if (sh, p) in ((1, 1), (3, 3)):
+            c_av = torch.zeros(n, dtype=torch.bool, device=dev)
+        elif cy >= 0 and cx < 4:
+            c_av = true                          # same MB, earlier part
+        elif cy < 0 and cx >= 4:
+            c_av = at & ar                       # above-right MB
+        elif cy < 0:
+            c_av = at                            # above MB
+        else:
+            c_av = true
+        dy_, dx_ = lby - 1, lbx - 1
+        if dy_ >= 0 and dx_ >= 0:
+            d_av = true                          # same MB, earlier part
+        elif dy_ >= 0:
+            d_av = al                            # left MB
+        elif dx_ >= 0:
+            d_av = at                            # above MB
+        else:
+            d_av = at & al                       # above-left MB
+        Cmv, Cr = samp(cy, cx)
+        Dmv, Dr = samp(dy_, dx_)
+        use_d = ~c_av
+        Cn = (torch.where(use_d[:, None],
+                          torch.where(d_av[:, None], Dmv, 0),
+                          torch.where(c_av[:, None], Cmv, 0)),
+              torch.where(use_d, torch.where(d_av, Dr, -1),
+                          torch.where(c_av, Cr, -1)),
+              torch.where(use_d, d_av, c_av))
+
+        q = (lby // 2) * 2 + (lbx // 2)
+        cur_ref = ref8[:, q]
+        directional = None
+        if sh == 1:
+            directional = (B[0], B[1]) if p == 0 else (A[0], A[1])
+        elif sh == 2:
+            directional = (A[0], A[1]) if p == 0 else (Cn[0], Cn[1])
+        mvp_combo[(sh, p)] = mvp_of(A, B, Cn, cur_ref, directional)
+        if (sh, p) == (0, 0):
+            # P_Skip pieces (8.4.1.1): zero-mv A/B shortcut + ref-0 MVP
+            mvp0 = mvp_of(A, B, Cn, torch.zeros(n, dtype=_I32, device=dev))
+            a_zero = A[2] & (A[1] == 0) & (A[0] == 0).all(-1)
+            b_zero = B[2] & (B[1] == 0) & (B[0] == 0).all(-1)
+            edge = ~at | ~al
+            skip_parts = dict(mvp0=mvp0, zero=edge | a_zero | b_zero)
+
+    skip_mv = torch.where(skip_parts["zero"][:, None], 0,
+                          skip_parts["mvp0"])
+    is_skip = ((shape == 0) & (cbp_luma == 0) & (cbp_chroma == 0)
+               & (ref8[:, 0] == 0) & (mv8[:, 0] == skip_mv).all(-1))
+    if intra is not None:
+        is_skip = is_skip & ~intra
+
+    # mvd per partition slot, selected by the MB's shape
+    mvd_part = torch.zeros((n, 4, 2), dtype=_I32, device=dev)
+    for (sh, p), mvp in mvp_combo.items():
+        sel = shape == sh
+        mvd_part[:, p] = torch.where(sel[:, None],
+                                     mv8[:, _FIRST_Q[(sh, p)]] - mvp,
+                                     mvd_part[:, p])
+    mvd_part = torch.where(is_skip[:, None, None], 0, mvd_part)
+    if intra is not None:
+        mvd_part = torch.where(intra[:, None, None], 0, mvd_part)
+
+    mb_class = torch.where(is_skip, MB_PSKIP_D, MB_P16_D).to(_I32)
+    if intra is not None:
+        mb_class = torch.where(intra, MB_I16_D, mb_class).to(_I32)
+    return mb_class, mvd_part.to(_I32), is_skip

@@ -84,3 +84,38 @@ def mc_chroma_uv(ref_u_pad, ref_v_pad, mv, mbw: int, mbh: int,
                                 mbw, mbh, pad_c)
     pred = _bilinear(a, fx[None], fy[None])
     return pred[0], pred[1]
+
+
+def mc_chroma_uv_quad(ref_u_pad, ref_v_pad, mv8, mbw: int, mbh: int,
+                      pad_c: int):
+    """Per-quadrant chroma MC (port of x264_tpu/ops/device/mc.py
+    ``mc_chroma_uv_quad``, one reference): mv8 (N,4,2) luma qpel mvs
+    (quadrant q = 2*qy + qx) -> each 4x4 chroma block interpolated at its
+    own mv (8.4.2.2.2, the partitioned-MB case).  Returns (pred_u,
+    pred_v) (N,8,8) int32; equals mc_chroma_uv when all quads share one
+    mv."""
+    n = mbw * mbh
+    m = 4 * n
+    dev = mv8.device
+    mvf = mv8.reshape(m, 2)
+    mb = torch.arange(n, dtype=_I32, device=dev)
+    mby, mbx = torch.div(mb, mbw, rounding_mode="floor"), mb % mbw
+    qy = torch.tensor([0, 0, 1, 1], dtype=_I32, device=dev)
+    qx = torch.tensor([0, 1, 0, 1], dtype=_I32, device=dev)
+    cy = (mby[:, None] * 8 + qy[None, :] * 4).reshape(m)
+    cx = (mbx[:, None] * 8 + qx[None, :] * 4).reshape(m)
+    y0 = pad_c + cy + (mvf[:, 1] >> 3)
+    x0 = pad_c + cx + (mvf[:, 0] >> 3)
+    r5 = torch.arange(5, dtype=_I32, device=dev)
+    yi = (y0[:, None, None] + r5[None, :, None]).long()
+    xi = (x0[:, None, None] + r5[None, None, :]).long()
+    a = torch.stack([ref_u_pad, ref_v_pad])[:, yi, xi].to(_I32)  # (2,M,5,5)
+    fx = (mvf[:, 0] & 7)[None, :, None, None]
+    fy = (mvf[:, 1] & 7)[None, :, None, None]
+    p00, p01 = a[:, :, :4, :4], a[:, :, :4, 1:]
+    p10, p11 = a[:, :, 1:, :4], a[:, :, 1:, 1:]
+    pred = ((8 - fx) * (8 - fy) * p00 + fx * (8 - fy) * p01
+            + (8 - fx) * fy * p10 + fx * fy * p11 + 32) >> 6
+    pred = (pred.reshape(2, n, 2, 2, 4, 4).permute(0, 1, 2, 4, 3, 5)
+            .reshape(2, n, 8, 8))
+    return pred[0], pred[1]

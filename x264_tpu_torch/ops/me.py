@@ -10,12 +10,10 @@ from __future__ import annotations
 
 import torch
 
-from x264_tpu.models.inter_frame import PAD
-from x264_tpu.ops.reference.mc import QPEL_TWO_SAMPLE_TBL
 from x264_tpu_torch.kernels.esa16 import full_search_16x16  # noqa: F401
 from x264_tpu_torch.ops.mc import filt6
 from x264_tpu_torch.ops.pixel import satd
-from x264_tpu_torch.state import mv_bits
+from x264_tpu_torch.state import PAD, QPEL_TWO_SAMPLE_TBL, mv_bits_table
 
 _I32 = torch.int32
 
@@ -60,7 +58,7 @@ def subpel_refine(src_mbs, ref_pad, mv0, lam: int, me_range: int,
     n = mbw * mbh
     dev = src_mbs.device
     off = 4 * me_range + 4
-    bits = mv_bits(dev, off)
+    bits = mv_bits_table(dev, off)
 
     mb = torch.arange(n, dtype=_I32, device=dev)
     mby, mbx = torch.div(mb, mbw, rounding_mode="floor"), mb % mbw
