@@ -11,8 +11,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      bit-exact, with both times (CUDA events over several runs after a
      warm-up) and the kernel's bound: the ESA kernels (16x16 and
      partitions) on a 1080p frame against a shifted, noised copy, the
-     partition kernel's 16x16 unit against esa16; the deblock kernels on
-     the recon planes and bS grids of an encoded P frame;
+     partition kernel's 16x16 unit against esa16; the deblock kernel (one
+     launch for Y, Cb and Cr) on the recon planes and bS grids of an
+     encoded P8x8 frame, with both terms of its bound (bytes, and the
+     dependent chain timed by a probe kernel);
   4. the main paths, each with the kernels' launch counts reset just
      before and read just after: Encoder(device="cuda") encodes a 1080p
      clip of one IDR and 5 P frames (the clip formula of bench.py's
@@ -195,6 +197,87 @@ def _esa_bound_ms(src, ref_pad, r: int, units: int, out_words: int,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _deblock_chain_passes(mbw: int, mbh: int) -> int:
+    """The longest chain of dependent edge passes in the deblock filter,
+    an edge pass (4 vertical, then 4 horizontal per MB; one MB edge over
+    all its lines) taken as one step.  Vertical edge 0 of MB (x, y) follows
+    the last horizontal edge of MB (x-1, y); each edge follows the one
+    before it in its MB; horizontal edge 0 also follows the last
+    horizontal edge of MB (x, y-1) and vertical edge 0 of MB (x+1, y-1),
+    which changes columns 13-15 of the lines above it.  (The knight order,
+    which waits for whole MBs, takes 8 * (mbw + 2*mbh - 2) steps.)"""
+    h3_above = v0_above = None
+    for y in range(mbh):
+        h3_row, v0_row, left = [0] * mbw, [0] * mbw, 0
+        for x in range(mbw):
+            v0_row[x] = left + 1
+            h0 = v0_row[x] + 4
+            if y:
+                h0 = max(h0, h3_above[x] + 1,
+                         v0_above[x + 1] + 1 if x + 1 < mbw else 0)
+            h3_row[x] = left = h0 + 3
+        h3_above, v0_above = h3_row, v0_row
+    return h3_above[-1]
+
+
+def _deblock_bound_ms(lib, planes, grids, mbw: int, mbh: int) -> tuple:
+    """Least time of the deblock filter: the larger of
+    - bytes: the Y, U and V planes read once and written once, both bS
+      grids and both QP vectors read once, over the HBM rate;
+    - chain: the _deblock_chain_passes dependent luma edge passes (the
+      chroma edges ride beside them), each at the time one warp takes for
+      a pass on a tile already in shared memory (the probe
+      deblock_chain_probe in csrc/deblock.cu: no global memory, no other
+      block), weighted by the share of this frame's (MB, pass) pairs with
+      an edge of bS > 0 (a pass without one skips the filter)."""
+    import torch
+    from x264_tpu_torch.kernels.build import check
+    from x264_tpu_torch.state import tables
+    steps = mbw + 2 * mbh - 2       # the probe runs 8 passes per step
+    t_bytes = 1e3 * (2 * sum(p.numel() for p in planes)
+                     + sum(4 * g.numel() for g in grids)) / HBM_BYTES_PER_S
+    tb = tables(planes[0].device)
+    out = torch.empty(20 * 20 + 2 * 12 * 12, dtype=torch.uint8,   # tiles
+                      device=planes[0].device)
+
+    def probe(bs):
+        check(lib.deblock_chain_probe_launch(
+            out.data_ptr(), tb.alpha.data_ptr(), tb.beta.data_ptr(),
+            tb.tc0.data_ptr(), steps, bs,
+            torch.cuda.current_stream().cuda_stream), "deblock_chain_probe")
+
+    us_filter = 1e3 * _time_ms(lambda: probe(2), 20) / (8 * steps)
+    us_skip = 1e3 * _time_ms(lambda: probe(0), 20) / (8 * steps)
+    bs_v, bs_h = grids[0], grids[1]
+    active = (int((bs_v.reshape(mbh, 4, mbw, 4) > 0).any(1).sum())
+              + int((bs_h.reshape(mbh, 4, mbw, 4) > 0).any(3).sum()))
+    share = active / (8 * mbw * mbh)
+    passes = _deblock_chain_passes(mbw, mbh)
+    t_chain = 1e-3 * passes * (share * us_filter + (1 - share) * us_skip)
+    print(f"deblock bound: bytes {t_bytes:.4f} ms; chain {passes} dependent "
+          f"passes (knight order {8 * steps}) x (share {share:.4f} filtering"
+          f" at {us_filter:.4f} us + the rest skipping at {us_skip:.4f} us;"
+          f" probe of {8 * steps} passes) = {t_chain:.4f} ms")
+    return ((t_chain, "operations") if t_chain >= t_bytes
+            else (t_bytes, "bytes"))
+
+
+def _deblock_kernel_only_ms(KD, ry, ru, rv, bs_v, bs_h, qp_mb, qpc_mb,
+                            mbw: int, mbh: int, reps: int) -> float:
+    """Mean time of the deblock kernel's launch alone, CUDA events around
+    each launch on a fresh copy of the planes."""
+    import torch
+    copies = [[p.clone() for p in (ry, ru, rv)] for _ in range(reps + 1)]
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in copies]
+    for (e0, e1), planes in zip(ev, copies):
+        e0.record()
+        KD.deblock_(*planes, bs_v, bs_h, qp_mb, qpc_mb, 0, 0, mbw, mbh)
+        e1.record()
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in ev[1:]) / reps
+
+
 def _run_1080p(label, clip, p8x8, records):
     """One main-path run (counts reset just before, read just after);
     adds its launches to the records and returns (launches, the shape of
@@ -359,68 +442,30 @@ def main() -> int:
     nz = (bs_v > 0).sum().item() + (bs_h > 0).sum().item()
     print(f"deblock input: P8x8 frame, {nz} edges with bS > 0")
 
-    # the deblock bound: its knight wavefront is a chain of dependent
-    # steps, each at least one kernel launch; the per-launch time is the
-    # card's, from a CUDA graph of one dependent one-element kernel per
-    # step (the graph takes the host's launch cost out)
-    steps = mbw + 2 * mbh - 2
-    tiny = torch.zeros(1, device=dev)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        tiny.add_(1)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(steps):
-            tiny.add_(1)
-    launch_ms = _time_ms(graph.replay, 20) / steps
-    grid_bytes = 2 * 4 * (4 * mbh) * (4 * mbw) + 4 * n_mb
-    print(f"launch latency {1000 * launch_ms:.2f} us x {steps} knight steps")
+    # the deblock kernel: one launch filters Y, Cb and Cr
+    def db_kernel():
+        return KD.deblock_filter(ry, ru, rv, bs_v, bs_h, qp_mb, qpc_mb, 0, 0,
+                                 mbw, mbh)
 
-    def db_bound(plane_bytes):
-        t_chain = steps * launch_ms
-        t_bytes = 1e3 * (2 * plane_bytes + grid_bytes) / HBM_BYTES_PER_S
-        return ((t_chain, "operations") if t_chain >= t_bytes
-                else (t_bytes, "bytes"))
-
-    def luma_kernel():
-        y = ry.clone()
-        KD.deblock_luma_(y, bs_v, bs_h, qp_mb, 0, 0, mbw, mbh)
-        return y
-
-    def chroma_kernel():
-        u, v = ru.clone(), rv.clone()
-        KD.deblock_chroma_(u, v, bs_v, bs_h, qpc_mb, 0, 0, mbw, mbh)
-        return u, v
-
-    y_k = luma_kernel()
-    y_p = KD.deblock_luma_plain(ry, bs_v, bs_h, qp_mb, 0, 0, mbw, mbh)
-    err = _max_err(y_k, y_p)
-    changed = (y_p != ry).sum().item()
+    out_k = db_kernel()
+    out_p = KD.deblock_filter_plain(ry, ru, rv, bs_v, bs_h, qp_mb, qpc_mb, 0,
+                                    0, mbw, mbh)
+    err = max(_max_err(a, b) for a, b in zip(out_k, out_p))
+    changed = sum((a != b).sum().item() for a, b in zip(out_p, (ry, ru, rv)))
     if err or not changed:
-        raise AssertionError(f"deblock_luma: max err {err}, "
-                             f"{changed} pixels filtered")
-    record("deblock_luma", "x264_tpu_torch/csrc/deblock.cu",
-           "x264_tpu/ops/device/deblock_pallas.py:302", err,
-           _time_ms(luma_kernel, 10),
-           _time_ms(lambda: KD.deblock_luma_plain(
-               ry, bs_v, bs_h, qp_mb, 0, 0, mbw, mbh), 3),
-           db_bound(ry.numel()))
-    u_k, v_k = chroma_kernel()
-    u_p, v_p = KD.deblock_chroma_plain(ru, rv, bs_v, bs_h, qpc_mb, 0, 0,
-                                       mbw, mbh)
-    err = max(_max_err(u_k, u_p), _max_err(v_k, v_p))
-    changed = (u_p != ru).sum().item() + (v_p != rv).sum().item()
-    if err or not changed:
-        raise AssertionError(f"deblock_chroma: max err {err}, "
-                             f"{changed} pixels filtered")
-    record("deblock_chroma", "x264_tpu_torch/csrc/deblock.cu",
-           "x264_tpu/ops/device/deblock_pallas.py:312", err,
-           _time_ms(chroma_kernel, 10),
-           _time_ms(lambda: KD.deblock_chroma_plain(
-               ru, rv, bs_v, bs_h, qpc_mb, 0, 0, mbw, mbh), 3),
-           db_bound(ru.numel() + rv.numel()))
+        raise AssertionError(f"deblock: max err {err}, {changed} pixels "
+                             "filtered")
+    record("deblock", "x264_tpu_torch/csrc/deblock.cu",
+           "x264_tpu/ops/device/deblock_pallas.py:302,312", err,
+           _time_ms(db_kernel, 20),
+           _time_ms(lambda: KD.deblock_filter_plain(
+               ry, ru, rv, bs_v, bs_h, qp_mb, qpc_mb, 0, 0, mbw, mbh), 3),
+           _deblock_bound_ms(build.library(), (ry, ru, rv),
+                             (bs_v, bs_h, qp_mb, qpc_mb), mbw, mbh))
+    alone = _deblock_kernel_only_ms(KD, ry, ru, rv, bs_v, bs_h, qp_mb,
+                                    qpc_mb, mbw, mbh, 20)
+    print(f"deblock kernel alone (without the wrapper's clones and counter "
+          f"zeroing): {alone:.4f} ms")
     for r in records:
         print(f"kernel {r['name']}: bit-exact, {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
@@ -430,14 +475,12 @@ def main() -> int:
     n_p = N_FRAMES - 1
     launches, _ = _run_1080p("I/P16", clip, False, records)
     if not (launches["esa16"] == n_p and launches["esa_parts"] == 0
-            and launches["deblock_luma"] == N_FRAMES
-            and launches["deblock_chroma"] == N_FRAMES):
+            and launches["deblock"] == N_FRAMES):
         raise AssertionError(f"I/P16 kernel launches {launches} do not "
                              f"match {N_FRAMES} frames ({n_p} P)")
     launches, shapes = _run_1080p("I/P8x8", clip, True, records)
     if not (launches["esa_parts"] == n_p and launches["esa16"] == 0
-            and launches["deblock_luma"] == N_FRAMES
-            and launches["deblock_chroma"] == N_FRAMES):
+            and launches["deblock"] == N_FRAMES):
         raise AssertionError(f"I/P8x8 kernel launches {launches} do not "
                              f"match {N_FRAMES} frames ({n_p} P)")
     hist = np.bincount(np.concatenate(shapes), minlength=4)

@@ -81,9 +81,10 @@ def test_esa_parts_kernel_matches_plain(cuda, mbw, mbh, me_range, lam):
         assert (got["mv_q"] == -4 * me_range).all()
 
 
-@pytest.mark.parametrize("mbw,mbh", [(6, 4), (5, 7), (3, 2), (2, 2),
-                                     (1, 3), (120, 68)])
-def test_deblock_kernels_match_plain(cuda, mbw, mbh):
+def _deblock_inputs(dev, mbw, mbh, mode="mixed"):
+    """Smooth planes (most edges pass the alpha/beta tests), strengths
+    from random MB syntax (mode "intra": every MB intra, so every MB edge
+    has bS 4; "zero": every bS 0), random QPs."""
     rng = np.random.default_rng(mbw * 10 + mbh)
     n, h, w = mbw * mbh, 16 * mbh, 16 * mbw
     base = rng.integers(60, 200, (mbh * 4 + 1, mbw * 4 + 1))
@@ -91,24 +92,87 @@ def test_deblock_kernels_match_plain(cuda, mbw, mbh):
                 + rng.integers(-6, 7, (h, w)), 0, 255).astype(np.uint8)
     u = np.ascontiguousarray(y[::2, ::2])
     v = np.ascontiguousarray(255 - y[1::2, 1::2])
+    intra = rng.random(n) < (1.0 if mode == "intra" else 0.2)
     bs_v, bs_h = bs_grids(
-        torch.from_numpy(rng.random(n) < 0.2).to(cuda),
+        torch.from_numpy(intra).to(dev),
         torch.from_numpy((rng.random((n, 16)) < 0.4).astype(np.int32)
-                         ).to(cuda),
+                         ).to(dev),
         torch.from_numpy(rng.integers(-32, 33, (n, 2)).astype(np.int32)
-                         ).to(cuda),
-        torch.zeros(n, dtype=torch.int32, device=cuda), mbw, mbh)
-    qp = torch.from_numpy(rng.integers(10, 46, n).astype(np.int32)).to(cuda)
+                         ).to(dev),
+        torch.zeros(n, dtype=torch.int32, device=dev), mbw, mbh)
+    if mode == "zero":
+        bs_v.zero_()
+        bs_h.zero_()
+    qp = torch.from_numpy(rng.integers(10, 46, n).astype(np.int32)).to(dev)
     qpc = (qp - 3).clamp(0, 51)
-    planes = [torch.from_numpy(p).to(cuda) for p in (y, u, v)]
-    out_k = k_db.deblock_filter(*planes, bs_v, bs_h, qp, qpc, 2, -2, mbw,
+    planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
+    return planes, bs_v, bs_h, qp, qpc
+
+
+def _deblock_check(cuda, mbw, mbh, mode="mixed", off=(2, -2)):
+    planes, bs_v, bs_h, qp, qpc = _deblock_inputs(cuda, mbw, mbh, mode)
+    before = x264_tpu_torch.launch_counts()["deblock"]
+    out_k = k_db.deblock_filter(*planes, bs_v, bs_h, qp, qpc, *off, mbw,
                                 mbh)
-    out_p = k_db.deblock_filter_plain(*planes, bs_v, bs_h, qp, qpc, 2, -2,
+    assert x264_tpu_torch.launch_counts()["deblock"] == before + 1
+    out_p = k_db.deblock_filter_plain(*planes, bs_v, bs_h, qp, qpc, *off,
                                       mbw, mbh)
     torch.cuda.synchronize()
     for a, b in zip(out_k, out_p):
         assert torch.equal(a, b)
+    return planes, out_k
+
+
+@pytest.mark.parametrize("mbw,mbh", [(6, 4), (5, 7), (3, 2), (2, 2),
+                                     (1, 3), (120, 68), (7, 1)])
+def test_deblock_kernels_match_plain(cuda, mbw, mbh):
+    planes, out_k = _deblock_check(cuda, mbw, mbh)
     assert not torch.equal(out_k[0], planes[0])
+
+
+@pytest.mark.parametrize("mode", ["intra", "zero"])
+def test_deblock_kernel_strength_extremes(cuda, mode):
+    """Every MB edge at bS 4 (the strong filters), or nothing to filter."""
+    planes, out_k = _deblock_check(cuda, 9, 6, mode)
+    assert torch.equal(out_k[0], planes[0]) == (mode == "zero")
+
+
+@pytest.mark.parametrize("off", [(12, 12), (-12, -12), (12, -12),
+                                 (-12, 12)])
+def test_deblock_kernel_offsets(cuda, off):
+    """off_a / off_b (twice the slice's alpha / beta offsets) at +-12:
+    the table indices clip at 0 and 51."""
+    _deblock_check(cuda, 5, 7, off=off)
+
+
+def test_deblock_kernel_more_rows_than_resident(cuda):
+    """A one-MB-wide frame of 4400 rows: more one-warp blocks than the card
+    keeps resident (at most 32 blocks per SM, 132 SMs: 4224), so rows wait
+    on rows whose blocks started earlier, never on blocks still queued.
+    Against the plain twin on the CPU copy."""
+    mbw, mbh = 1, 4400
+    planes, bs_v, bs_h, qp, qpc = _deblock_inputs(cuda, mbw, mbh)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert mbh > 32 * n_sm
+    out_k = k_db.deblock_filter(*planes, bs_v, bs_h, qp, qpc, 2, -2, mbw,
+                                mbh)
+    out_p = k_db.deblock_filter_plain(
+        *(t.cpu() for t in (*planes, bs_v, bs_h, qp, qpc)), 2, -2, mbw, mbh)
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_deblock_kernel_repeatable(cuda):
+    """20 launches on a 1080p-sized frame give the same planes: a race
+    between the rows would show as drift from run to run."""
+    planes, bs_v, bs_h, qp, qpc = _deblock_inputs(cuda, 120, 68)
+    first = k_db.deblock_filter(*planes, bs_v, bs_h, qp, qpc, 2, -2, 120,
+                                68)
+    for _ in range(19):
+        out = k_db.deblock_filter(*planes, bs_v, bs_h, qp, qpc, 2, -2, 120,
+                                  68)
+        for a, b in zip(out, first):
+            assert torch.equal(a, b)
 
 
 def test_encoder_on_card_matches_cpu(cuda):

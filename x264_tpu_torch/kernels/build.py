@@ -32,10 +32,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "esa16_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "esa_parts_launch": [_P] * 11 + [_I] * 5 + [_P],
-    "deblock_luma_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _P],
-    "deblock_chroma_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _P],
+    "deblock_launch": [_P] * 11 + [_I] * 4 + [_P],
+    "deblock_chain_probe_launch": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -4,10 +4,10 @@ common/deblock.c).
 
 Boundary strengths are a pure function of (MB class, nnz, mv, ref) and
 are computed for every edge at once (``bs_grids``); the pixel filter has
-the MB wavefront dependency and runs in ``kernels/deblock`` (CUDA kernels
-K3/K4 on the card, the plain diagonal-batched twin on the CPU).  The edge
-arithmetic below is shared by that twin and mirrors the reference's
-``_luma_filter_params`` / ``_chroma_filter_params``."""
+the MB wavefront dependency and runs in ``kernels/deblock`` (one CUDA
+kernel for Y, Cb and Cr on the card, the plain diagonal-batched twin on
+the CPU).  The edge arithmetic below is shared by that twin and mirrors
+the reference's ``_luma_filter_params`` / ``_chroma_filter_params``."""
 
 from __future__ import annotations
 
