@@ -10,11 +10,14 @@ Phases, each of which raises (exit code != 0) when it fails:
   3. each kernel against its plain PyTorch twin at 1080p on the card,
      bit-exact, with both times (CUDA events over several runs after a
      warm-up) and the kernel's bound: the ESA kernels (16x16 and
-     partitions) on a 1080p frame against a shifted, noised copy, the
-     partition kernel's 16x16 unit against esa16; the deblock kernel (one
-     launch for Y, Cb and Cr) on the recon planes and bS grids of an
-     encoded P8x8 frame, with both terms of its bound (bytes, and the
-     dependent chain timed by a probe kernel);
+     partitions, with their registers and spills from the build log) on a
+     1080p frame against a shifted, noised copy at range 8 (lookahead's)
+     and 16 (the main path's, the one recorded), the partition kernel's
+     16x16 unit against esa16, their bound's operation rate the lower of
+     the nominal one and the one the probe esa_sad_probe measures; the
+     deblock kernel (one launch for Y, Cb and Cr) on the recon planes and
+     bS grids of an encoded P8x8 frame, with both terms of its bound
+     (bytes, and the dependent chain timed by a probe kernel);
   4. the main paths, each with the kernels' launch counts reset just
      before and read just after: Encoder(device="cuda") encodes a 1080p
      clip of one IDR and 5 P frames (the clip formula of bench.py's
@@ -186,8 +189,8 @@ def _smi(query: str) -> str:
 def _esa_bound_ms(src, ref_pad, r: int, units: int, out_words: int,
                   int_ops_per_s: float) -> tuple:
     """Least time of an exhaustive search: per MB and candidate, 64
-    __vsadu4 (4 absolute differences each) and, per unit, a cost add and
-    a running minimum, at the card's int32 issue rate; bytes: the source
+    vabsdiff4 (4 absolute differences each) and, per unit, a cost add and
+    a running minimum, at int_ops_per_s; bytes: the source
     and padded reference planes read once, the outputs (out_words int32
     per MB) written once."""
     n_mb = src.numel() // 256
@@ -195,6 +198,32 @@ def _esa_bound_ms(src, ref_pad, r: int, units: int, out_words: int,
     nbytes = src.numel() + ref_pad.numel() + 4 * out_words * n_mb
     t_ops, t_bytes = 1e3 * ops / int_ops_per_s, 1e3 * nbytes / HBM_BYTES_PER_S
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _esa_probe_rate(lib, n_sm: int) -> float:
+    """vabsdiff4 per second on the whole card, from the probe
+    esa_sad_probe in csrc/esa16.cu: eight independent chains per thread,
+    eight 256-thread blocks per SM, no memory traffic."""
+    import torch
+    from x264_tpu_torch.kernels.build import check
+    blocks, iters = 8 * n_sm, 4096
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def probe():
+        check(lib.esa_sad_probe_launch(
+            out.data_ptr(), blocks, iters,
+            torch.cuda.current_stream().cuda_stream), "esa_sad_probe")
+
+    return blocks * 256 * iters * 8 * 16 / (1e-3 * _time_ms(probe, 5))
+
+
+def _print_esa_resources(log: str) -> None:
+    """Registers and spills of the ESA kernels, from ptxas's report."""
+    from x264_tpu_torch.kernels.build import kernel_resources
+    for name, (regs, st, ld) in sorted(kernel_resources(log).items()):
+        if "search_kernel" in name or "esa" in name:
+            print(f"ptxas {name}: {regs} registers, spill stores {st} "
+                  f"bytes, spill loads {ld} bytes")
 
 
 def _deblock_chain_passes(mbw: int, mbh: int) -> int:
@@ -360,6 +389,13 @@ def main() -> int:
     print(f"kernel build: {build.build_info['seconds']:.3f} s "
           f"({build.build_info['path']})")
     print(build.build_info["log"], file=sys.stderr)
+    _print_esa_resources(build.build_info["log"])
+    probe_rate = _esa_probe_rate(build.library(), n_sm)
+    print(f"esa_sad_probe: {probe_rate / 1e12:.3f} T vabsdiff4/s, "
+          f"{probe_rate / (n_sm * clk_mhz * 1e6):.2f} per SM per clock at "
+          f"the max clock (nominal {INT32_LANES_PER_SM}); the ESA bound "
+          "takes the lower rate")
+    esa_rate = min(int_ops_per_s, probe_rate)
 
     # ---- 3. kernels against their plain twins at 1080p ----
     t0 = time.perf_counter()
@@ -383,40 +419,61 @@ def main() -> int:
     src_d = torch.from_numpy(src).to(dev)
     ref_pad = pad_edge(torch.from_numpy(ref).to(dev), PAD).contiguous()
     lam = sad_lambda(QP)
-    mv_k, cost_k = KE.full_search_16x16(src_d, ref_pad, lam, 16, mbw, mbh)
-    mv_p, cost_p = KE.full_search_16x16_plain(src_d, ref_pad, lam, 16, mbw,
-                                              mbh)
-    err = max(_max_err(mv_k, mv_p), _max_err(cost_k, cost_p))
-    if err:
-        raise AssertionError(f"esa16 disagrees with its plain twin: {err}")
+    for me_range in (8, 16):     # lookahead's range, then the main path's
+        mv_k, cost_k = KE.full_search_16x16(src_d, ref_pad, lam, me_range,
+                                            mbw, mbh)
+        mv_p, cost_p = KE.full_search_16x16_plain(src_d, ref_pad, lam,
+                                                  me_range, mbw, mbh)
+        err16 = max(_max_err(mv_k, mv_p), _max_err(cost_k, cost_p))
+        if err16:
+            raise AssertionError(f"esa16 disagrees with its plain twin at "
+                                 f"r = {me_range}: {err16}")
+        units_k = KP.full_search_parts(src_d, ref_pad, lam, me_range, mbw,
+                                       mbh)
+        units_p = KP.full_search_parts_plain(src_d, ref_pad, lam, me_range,
+                                             mbw, mbh)
+        err = max(_max_err(units_k[k], units_p[k]) for k in units_p)
+        if err:
+            raise AssertionError(f"esa_parts disagrees with its plain twin "
+                                 f"at r = {me_range}: {err}")
+        if not (torch.equal(units_k["mv_f"], mv_k)
+                and torch.equal(units_k["cost_f"], cost_k)):
+            raise AssertionError(f"esa_parts' 16x16 unit != esa16 at r = "
+                                 f"{me_range}")
+        n_split = int((units_k["mv_q"] != units_k["mv_f"][:, None]).any(2)
+                      .any(1).sum())
+        times = {
+            "esa16": _time_ms(lambda: KE.full_search_16x16(
+                src_d, ref_pad, lam, me_range, mbw, mbh), 20),
+            "esa_parts": _time_ms(lambda: KP.full_search_parts(
+                src_d, ref_pad, lam, me_range, mbw, mbh), 20)}
+        # a diagnostic: the wrappers' launch alone, on outputs allocated
+        # once (KE.esa_launcher, through which the wrappers launch)
+        alone = {name: _time_ms(KE.esa_launcher(
+            name, shapes, src_d, ref_pad, lam, me_range, mbw, mbh)[0], 50)
+            for name, shapes in (("esa16", KE.OUT_SHAPES),
+                                 ("esa_parts", KP.OUT_SHAPES))}
+        bounds = {"esa16": _esa_bound_ms(src_d, ref_pad, me_range, 1, 3,
+                                         esa_rate),
+                  "esa_parts": _esa_bound_ms(src_d, ref_pad, me_range, 9, 27,
+                                             esa_rate)}
+        for name in times:
+            print(f"{name} at r = {me_range}: bit-exact, {times[name]:.4f} "
+                  f"ms through the wrapper (its launch alone "
+                  f"{alone[name]:.4f} ms), bound {bounds[name][0]:.4f} ms "
+                  f"by {bounds[name][1]}")
+        print(f"esa_parts at r = {me_range}: 16x16 unit == esa16 bit for "
+              f"bit; {n_split} of {n_mb} MBs have a quadrant mv apart from "
+              "the 16x16 mv")
     record("esa16", "x264_tpu_torch/csrc/esa16.cu",
-           "x264_tpu/ops/device/me_pallas.py:142", err,
-           _time_ms(lambda: KE.full_search_16x16(src_d, ref_pad, lam, 16,
-                                                 mbw, mbh), 20),
+           "x264_tpu/ops/device/me_pallas.py:142", err16, times["esa16"],
            _time_ms(lambda: KE.full_search_16x16_plain(
-               src_d, ref_pad, lam, 16, mbw, mbh), 3),
-           _esa_bound_ms(src_d, ref_pad, 16, 1, 3, int_ops_per_s))
-
-    units_k = KP.full_search_parts(src_d, ref_pad, lam, 16, mbw, mbh)
-    units_p = KP.full_search_parts_plain(src_d, ref_pad, lam, 16, mbw, mbh)
-    err = max(_max_err(units_k[k], units_p[k]) for k in units_p)
-    if err:
-        raise AssertionError(f"esa_parts disagrees with its plain twin: "
-                             f"{err}")
-    if not (torch.equal(units_k["mv_f"], mv_k)
-            and torch.equal(units_k["cost_f"], cost_k)):
-        raise AssertionError("esa_parts' 16x16 unit != esa16")
-    n_split = int((units_k["mv_q"] != units_k["mv_f"][:, None]).any(2)
-                  .any(1).sum())
-    print(f"esa_parts: 16x16 unit == esa16 bit for bit; {n_split} of "
-          f"{n_mb} MBs have a quadrant mv apart from the 16x16 mv")
+               src_d, ref_pad, lam, 16, mbw, mbh), 3), bounds["esa16"])
     record("esa_parts", "x264_tpu_torch/csrc/esa_parts.cu",
            "x264_tpu/ops/device/me_parts_pallas.py:148", err,
-           _time_ms(lambda: KP.full_search_parts(src_d, ref_pad, lam, 16,
-                                                 mbw, mbh), 20),
+           times["esa_parts"],
            _time_ms(lambda: KP.full_search_parts_plain(
-               src_d, ref_pad, lam, 16, mbw, mbh), 3),
-           _esa_bound_ms(src_d, ref_pad, 16, 9, 27, int_ops_per_s))
+               src_d, ref_pad, lam, 16, mbw, mbh), 3), bounds["esa_parts"])
 
     planes = [torch.from_numpy(_pad_to_mb(p, s)).to(dev)
               for p, s in zip(clip[0], (16, 8, 8))]

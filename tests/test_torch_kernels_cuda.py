@@ -81,6 +81,109 @@ def test_esa_parts_kernel_matches_plain(cuda, mbw, mbh, me_range, lam):
         assert (got["mv_q"] == -4 * me_range).all()
 
 
+def _esa_check(s, r, lam, me_range, mbw, mbh):
+    """Both ESA kernels against their plain twins, and esa_parts' 16x16
+    unit against esa16; returns the kernels' (mv, cost) and units."""
+    mv_k, c_k = esa16.full_search_16x16(s, r, lam, me_range, mbw, mbh)
+    mv_p, c_p = esa16.full_search_16x16_plain(s, r, lam, me_range, mbw, mbh)
+    got = esa_parts.full_search_parts(s, r, lam, me_range, mbw, mbh)
+    want = esa_parts.full_search_parts_plain(s, r, lam, me_range, mbw, mbh)
+    torch.cuda.synchronize()
+    assert torch.equal(mv_k, mv_p) and torch.equal(c_k, c_p)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["mv_f"], mv_k) and torch.equal(got["cost_f"], c_k)
+    return (mv_k, c_k), got
+
+
+@pytest.mark.parametrize("me_range", [1, 4, 7, 8, 16, 24, 32])
+def test_esa_kernels_every_range(cuda, me_range):
+    """7x5 MBs: 35 MBs leave the last CTA part-filled at every range (3 MBs
+    per CTA at r = 16, 10 at r = 8); r = 7 starts the window off a 4-byte
+    boundary, r = 24 and 32 beyond the Pallas kernel's key cap."""
+    s, r = _esa_inputs(cuda, 7, 5, me_range, 4)
+    _esa_check(s, r, 4, me_range, 7, 5)
+
+
+@pytest.mark.parametrize("mbw,mbh,me_range", [(1, 9, 16), (9, 1, 8),
+                                              (1, 1, 32), (1, 4, 7)])
+def test_esa_kernels_thin_frames(cuda, mbw, mbh, me_range):
+    """One-MB-wide and one-MB-tall frames."""
+    s, r = _esa_inputs(cuda, mbw, mbh, me_range, 9)
+    _esa_check(s, r, 9, me_range, mbw, mbh)
+
+
+def test_esa_kernels_largest_key(cuda):
+    """src all 255, ref all 0, r = 32, lambda 91 (QP 51): every SAD is
+    65280, the largest cost 65280 + 91 * 34 fits the key, and the least
+    bias (dx = dy = 0) wins."""
+    mbw, mbh, me_range, lam = 3, 2, 32, 91
+    s = torch.full((16 * mbh, 16 * mbw), 255, dtype=torch.uint8, device=cuda)
+    r = torch.zeros((16 * mbh + 2 * PAD, 16 * mbw + 2 * PAD),
+                    dtype=torch.uint8, device=cuda)
+    (mv, cost), units = _esa_check(s, r, lam, me_range, mbw, mbh)
+    assert (mv == 0).all() and (cost == 65280 + 2 * lam).all()
+    assert (units["cost_q"] == 16320 + 2 * lam).all()
+
+
+def test_esa_kernels_repeatable(cuda):
+    """20 launches of each kernel at 120x68 MBs give equal outputs."""
+    s, r = _esa_inputs(cuda, 120, 68, 16, 4)
+    first = (esa16.full_search_16x16(s, r, 4, 16, 120, 68),
+             esa_parts.full_search_parts(s, r, 4, 16, 120, 68))
+    for _ in range(19):
+        mv, cost = esa16.full_search_16x16(s, r, 4, 16, 120, 68)
+        units = esa_parts.full_search_parts(s, r, 4, 16, 120, 68)
+        assert torch.equal(mv, first[0][0]) and torch.equal(cost, first[0][1])
+        for k, v in units.items():
+            assert torch.equal(v, first[1][k]), k
+
+
+def test_esa_geometry_matches_mirror(cuda):
+    """The tile height and launch geometry that each ESA kernel computes
+    (esa_geom_query), at every range 0-32, equal the CPU tests' mirror
+    of esa_core.cuh (tests/test_torch_esa_keys.py)."""
+    import ctypes
+    from test_torch_esa_keys import _geom, tile_rows
+    from x264_tpu_torch.kernels.build import library
+    fields = ("r", "span", "win", "off", "g0", "ngx", "ngy", "tiles",
+              "chunks", "stride", "rows", "per_mb", "copies", "mbs")
+    out = (ctypes.c_int * (1 + len(fields)))()
+    for units in (1, 9):
+        for r in range(PAD + 1):
+            assert library().esa_geom_query(units, r, PAD, out) == 0
+            ty = tile_rows(units, r)
+            want = dict(_geom(r, PAD, ty), r=r)
+            assert list(out) == [ty] + [want[f] for f in fields], (units, r)
+    assert library().esa_geom_query(2, 16, PAD, out) != 0
+
+
+def test_esa_bad_launches_raise(cuda):
+    """A plane off a 16-byte boundary, a lambda whose costs overflow the
+    key, and a range the C entry point refuses all raise; nothing falls
+    back to the plain twin."""
+    from x264_tpu_torch.kernels.build import check, library
+    s, r = _esa_inputs(cuda, 2, 2, 8, 4)
+    flat = torch.empty(r.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = flat[1:].view(r.shape)
+    shifted.copy_(r)
+    before = dict(x264_tpu_torch.launch_counts())
+    for fn in (esa16.full_search_16x16, esa_parts.full_search_parts):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(s, shifted, 4, 8, 2, 2)
+        with pytest.raises(ValueError, match="key"):
+            fn(s, r, 1 << 16, 8, 2, 2)
+    assert x264_tpu_torch.launch_counts() == before
+    out = torch.empty(8, dtype=torch.int32, device=cuda)
+    bits = torch.zeros(8 * PAD + 9, dtype=torch.int32, device=cuda)
+    err = library().esa16_launch(
+        s.data_ptr(), r.data_ptr(), bits.data_ptr(), out.data_ptr(),
+        out.data_ptr(), 2, 2, PAD + 1, 4, PAD,
+        torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="esa16"):
+        check(err, "esa16")
+
+
 def _deblock_inputs(dev, mbw, mbh, mode="mixed"):
     """Smooth planes (most edges pass the alpha/beta tests), strengths
     from random MB syntax (mode "intra": every MB intra, so every MB edge

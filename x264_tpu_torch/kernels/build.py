@@ -16,6 +16,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,6 +33,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "esa16_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "esa_parts_launch": [_P] * 11 + [_I] * 5 + [_P],
+    "esa_sad_probe_launch": [_P, _I, _I, _P],
+    "esa_geom_query": [_I, _I, _I, _P],
     "deblock_launch": [_P] * 11 + [_I] * 4 + [_P],
     "deblock_chain_probe_launch": [_P, _P, _P, _P, _I, _I, _P],
 }
@@ -106,6 +109,27 @@ def library() -> ctypes.CDLL:
     build_info.update(seconds=time.perf_counter() - t0, path=so, log=log)
     _lib = lib
     return lib
+
+
+def kernel_resources(log: str) -> dict:
+    """ptxas's report in a build log (``-Xptxas -v``) -> {mangled kernel
+    name: (registers, spill store bytes, spill load bytes)}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$.]+)'?", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            regs = out.get(name, (0,))[0]
+            out[name] = (regs, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            spills = out.get(name, (0, 0, 0))[1:]
+            out[name] = (int(m.group(1)), *spills)
+    return out
 
 
 def check(err: int, name: str) -> None:

@@ -1,6 +1,6 @@
 """Exhaustive fullpel partition search, all nine units at once: the
-wrapper of the CUDA kernel ``csrc/esa_parts.cu`` and its plain PyTorch
-twin.
+wrapper of the CUDA kernel ``csrc/esa_parts.cu`` (the search of
+``csrc/esa_core.cuh`` with nine units) and its plain PyTorch twin.
 
 Replaces x264_tpu/ops/device/me_parts_pallas.py::full_search_parts_pallas;
 the plain twin copies the loop of
@@ -15,8 +15,7 @@ from __future__ import annotations
 import torch
 
 from x264_tpu_torch.kernels import LAUNCHES
-from x264_tpu_torch.kernels.build import check, library
-from x264_tpu_torch.kernels.esa16 import _check_args
+from x264_tpu_torch.kernels.esa16 import _check_args, esa_launcher
 from x264_tpu_torch.state import PAD, mv_bits_table
 
 _I32 = torch.int32
@@ -25,6 +24,7 @@ _I32 = torch.int32
 UNITS = (("cost_q", (4,)), ("mv_q", (4, 2)), ("cost_h", (2,)),
          ("mv_h", (2, 2)), ("cost_v", (2,)), ("mv_v", (2, 2)),
          ("cost_f", ()), ("mv_f", (2,)))
+OUT_SHAPES = tuple(s for _, s in UNITS)
 
 
 def _quad_sads(ad, mbw: int, mbh: int):
@@ -99,25 +99,8 @@ def full_search_parts(src_y, ref_pad, lam: int, me_range: int, mbw: int,
     if src_y.device.type == "cpu":
         return full_search_parts_plain(src_y, ref_pad, lam, me_range, mbw,
                                        mbh)
-    _check_args(src_y, ref_pad, me_range, mbw, mbh, "full_search_parts")
-    dev = src_y.device
-    if dev.type != "cuda" or ref_pad.device != dev:
-        raise ValueError(f"full_search_parts: tensors on {dev} and "
-                         f"{ref_pad.device}; the kernel needs one CUDA "
-                         "device")
-    if src_y.dtype != torch.uint8 or ref_pad.dtype != torch.uint8 or \
-            not (src_y.is_contiguous() and ref_pad.is_contiguous()):
-        raise ValueError("full_search_parts: planes must be contiguous "
-                         "uint8")
-    n = mbw * mbh
-    bits = mv_bits_table(dev, 4 * me_range)
-    out = {k: torch.empty((n,) + s, dtype=_I32, device=dev)
-           for k, s in UNITS}
-    with torch.cuda.device(dev):
-        err = library().esa_parts_launch(
-            src_y.data_ptr(), ref_pad.data_ptr(), bits.data_ptr(),
-            *(out[k].data_ptr() for k, _ in UNITS), mbw, mbh, me_range,
-            lam, PAD, torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "esa_parts")
+    launch, outs = esa_launcher("esa_parts", OUT_SHAPES, src_y, ref_pad,
+                                lam, me_range, mbw, mbh)
+    launch()
     LAUNCHES["esa_parts"] += 1
-    return out
+    return dict(zip((k for k, _ in UNITS), outs))
