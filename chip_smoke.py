@@ -21,12 +21,16 @@ Phases, each of which raises (exit code != 0) when it fails:
   4. the main paths, each with the kernels' launch counts reset just
      before and read just after: Encoder(device="cuda") encodes a 1080p
      clip of one IDR and 5 P frames (the clip formula of bench.py's
-     make_clip) with P16x16 only, then again with P8x8 partitions; fps,
-     bytes, Y-PSNR, the partition shapes chosen and, where tools/avdec
-     runs, a decode that must equal the encoder's recon;
+     make_clip) with P16x16 only, then again with P8x8 partitions, then
+     10 frames as bench.py's GOP (IDR + 3 x (B B P): bframes=2,
+     full_recon off, P8x8 anchors); fps, bytes, Y-PSNR, the partition
+     shapes chosen, per-frame ms by frame type and, where tools/avdec
+     runs, a decode that must equal the encoder's recon (keyed by display
+     index: B frames are final after their anchor);
   5. 352x288 streams encoded on the card must equal, byte for byte, the
      streams the port encodes on the CPU (the kernels' plain twins), with
-     and without partitions.
+     and without partitions, and with B frames (one pair, one single tail
+     B, full_recon on).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits 1.
@@ -42,9 +46,11 @@ import time
 import numpy as np
 
 W, H, QP = 1920, 1080, 26
-N_FRAMES = 6                 # per 1080p run: one IDR, then P frames
+N_FRAMES = 6                 # per 1080p I/P run: one IDR, then P frames
+B_FRAMES = 10                # the 1080p B-GOP run: IDR + 3 x (B B P)
 CLIP_FRAMES = 48             # bench.py's N_FRAMES: sets the texture pad
 CHECK_W, CHECK_H, CHECK_FRAMES = 352, 288, 4
+CHECK_B_FRAMES = 6           # IDR, B B P, then B + P at flush
 AVDEC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
                      "avdec")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
@@ -132,12 +138,17 @@ def _max_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item())
 
 
-def _params(w: int, h: int, p8x8: bool):
+def _params(w: int, h: int, p8x8: bool, **kw):
+    """bench.py's settings the port runs (CQP 26, me_range 16, subpel 2,
+    CABAC, deblock, one reference, no scenecut); I/P unless ``kw`` sets
+    bframes."""
     from x264_tpu_torch.api import EncoderParams
-    return EncoderParams(width=w, height=h, qp=QP, me_range=16, subpel=2,
-                         cabac=True, deblock=True, bframes=0, ref_frames=1,
-                         keyint_max=250, scenecut_threshold=0,
-                         backend="device", p8x8=p8x8)
+    base = dict(width=w, height=h, qp=QP, me_range=16, subpel=2,
+                cabac=True, deblock=True, bframes=0, ref_frames=1,
+                keyint_max=250, scenecut_threshold=0, backend="device",
+                p8x8=p8x8)
+    base.update(kw)
+    return EncoderParams(**base)
 
 
 def _psnr(a, b) -> float:
@@ -315,8 +326,8 @@ def _run_1080p(label, clip, p8x8, records):
     import x264_tpu_torch
     from x264_tpu_torch.api import Encoder, Frame420
     enc = Encoder(_params(W, H, p8x8), device="cuda")
-    recons = []
-    enc.recon_hook = lambda d, rec: recons.append(rec)
+    recons = {}
+    enc.recon_hook = recons.__setitem__       # keyed by display index
     shapes = _spy_shapes(enc)
     stream, times = b"", []
     x264_tpu_torch.reset_launch_counts()
@@ -333,29 +344,173 @@ def _run_1080p(label, clip, p8x8, records):
         r["launches"] += launches[r["name"]]
     steady = times[2:]          # P frames after the first
     fps = len(steady) / sum(steady)
-    psnr = [_psnr(rec.y[:H, :W].cpu().numpy(), f[0])
-            for rec, f in zip(recons, clip)]
     print(f"{label} frame ms: " + " ".join(f"{1000 * t:.1f}" for t in times))
     print(f"1080p {label}: {fps:.3f} fps steady state (P frames "
           f"3-{len(clip)}), IDR {1000 * times[0]:.1f} ms, {len(stream)} "
           f"bytes, {len(stream) * 8 / len(clip) / 1000:.1f} kbit/frame, "
-          f"mean Y-PSNR {np.mean(psnr):.3f} dB")
-    if len(recons) != len(clip) or not np.all(np.isfinite(psnr)) \
-            or min(psnr) < 30.0:
-        raise AssertionError(f"{label}: recon quality out of range: {psnr}")
-    if recons[-1] is not enc.last_recon:
+          f"mean Y-PSNR {_check_recon(label, stream, recons, clip):.3f} dB")
+    if recons[len(clip) - 1] is not enc.last_recon:
         raise AssertionError(f"{label}: last_recon is not the last recon")
+    return launches, [s.cpu().numpy() for s in shapes]
+
+
+def _check_recon(label, stream, recons, clip, decoded=None) -> float:
+    """Every frame's recon (keyed by display index) has a Y-PSNR of at
+    least 30 dB against its source and, where avdec runs, equals the
+    decoded frame (only the display indices in ``decoded`` when given:
+    with full_recon off a B frame's recon is not deblocked).  Returns the
+    mean Y-PSNR."""
+    if sorted(recons) != list(range(len(clip))):
+        raise AssertionError(f"{label}: recons of display indices "
+                             f"{sorted(recons)}")
+    psnr = [_psnr(recons[d].y[:H, :W].cpu().numpy(), f[0])
+            for d, f in enumerate(clip)]
+    if not np.all(np.isfinite(psnr)) or min(psnr) < 30.0:
+        raise AssertionError(f"{label}: recon quality out of range: {psnr}")
     if _avdec_available():
         dec = _decode(stream, W, H)
         if len(dec) != len(clip):
             raise AssertionError(f"avdec decoded {len(dec)} frames")
-        for i, (rec, planes_d) in enumerate(zip(recons, dec)):
+        for d, planes_d in enumerate(dec):
+            if decoded is not None and d not in decoded:
+                continue
+            rec = recons[d]
             for p_rec, p_dec in zip((rec.y, rec.u, rec.v), planes_d):
                 hh, ww = p_dec.shape
                 if not np.array_equal(p_rec[:hh, :ww].cpu().numpy(), p_dec):
-                    raise AssertionError(f"frame {i}: decode != recon")
-        print(f"avdec: {len(dec)} frames decode bit-exact to the recon")
-    return launches, [s.cpu().numpy() for s in shapes]
+                    raise AssertionError(f"display {d}: decode != recon")
+        print(f"avdec: {len(dec)} frames decoded, "
+              f"{len(dec) if decoded is None else len(decoded)} of them "
+              "checked bit-exact to the recon")
+    return float(np.mean(psnr))
+
+
+def _timed_stages(enc, times: dict) -> None:
+    """Wrap the encoder's submit and finalize stages so each call's wall
+    time, with the card synchronised before and after, is appended to
+    times[(stage, frame type)]."""
+    import torch
+
+    def wrap(name, ftype_of):
+        fn = getattr(enc, name)
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault((name, ftype_of(a)), []).append(
+                1000 * (time.perf_counter() - t0))
+            return out
+        setattr(enc, name, run)
+
+    wrap("_submit_anchor", lambda a: a[2])
+    wrap("_finalize_cabac", lambda a: a[0]["ftype"])
+    wrap("_submit_b_pair", lambda a: "B")
+    wrap("_submit_b", lambda a: "B")
+    wrap("_finalize_b", lambda a: "B")
+
+
+def _run_1080p_b(clip, records):
+    """The B-GOP main path (counts reset just before, read just after):
+    bench.py's GOP shape, IDR + 3 x (B B P), P8x8 anchors, full_recon
+    off.  Prints each encode() call's ms, fps over the calls after the
+    IDR's (display frames 1-9, flush included), and, from a second run with the card
+    synchronised around each stage, the ms per I, P and B frame."""
+    import torch
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    kw = dict(bframes=2, full_recon=False)
+    enc = Encoder(_params(W, H, True, **kw), device="cuda")
+    recons = {}
+    enc.recon_hook = recons.__setitem__
+    stream, times = b"", []
+    torch.cuda.synchronize()
+    x264_tpu_torch.reset_launch_counts()
+    for y, u, v in clip:
+        t0 = time.perf_counter()
+        stream += enc.encode(Frame420(y, u, v))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    stream += enc.flush()
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+    launches = x264_tpu_torch.launch_counts()
+    print(f"launches in the 1080p I/B/P8x8 run: {launches}")
+    for r in records:
+        r["launches"] += launches[r["name"]]
+    types = [s.frame_type for s in enc.stats]
+    n_b = types.count("B")
+    if types != ["IDR"] + ["P", "B", "B"] * 3 or \
+            launches != {"esa16": 4 * n_b // 2, "esa_parts": 3,
+                         "deblock": 4}:
+        raise AssertionError(f"I/B/P8x8: frame types {types}, launches "
+                             f"{launches} (expected esa16 12, esa_parts 3, "
+                             "deblock 4: B frames are not deblocked with "
+                             "full_recon off)")
+    # the IDR is coded whole inside its own encode() call; every later
+    # call up to flush() holds only the stages of display frames 1-9
+    tail = times[1:]
+    n_pairs = n_b // 2
+    n_anchors = len(types) - n_b
+    print("I/B/P8x8 encode() ms (display 0-9, then flush): "
+          + " ".join(f"{1000 * t:.1f}" for t in times))
+    print(f"1080p I/B/P8x8: {(len(clip) - 1) / sum(tail):.3f} fps over "
+          f"display frames 1-{len(clip) - 1} (the calls after the IDR's, "
+          f"flush included), {len(stream)} bytes, "
+          f"{len(stream) * 8 / len(clip) / 1000:.1f} kbit/frame, mean "
+          f"Y-PSNR {_check_recon('I/B/P8x8', stream, recons, clip, range(0, len(clip), 3)):.3f} dB,"
+          f" launches per B pair: esa16 {launches['esa16'] / n_pairs:g},"
+          f" deblock {(launches['deblock'] - n_anchors) / n_pairs:g}")
+    stage = {}
+    enc = Encoder(_params(W, H, True, **kw), device="cuda")
+    _timed_stages(enc, stage)
+    for y, u, v in clip:
+        enc.encode(Frame420(y, u, v))
+    enc.flush()
+
+    def ms(ftype, *names):
+        calls = [t for nm in names for t in stage.get((nm, ftype), [])]
+        n = types.count(ftype)
+        return sum(calls) / n
+    print(f"1080p I/B/P8x8 ms per frame (second run, the card synchronised "
+          f"around each stage): I {ms('IDR', '_submit_anchor', '_finalize_cabac'):.1f}"
+          f", P {ms('P', '_submit_anchor', '_finalize_cabac'):.1f}, B "
+          f"{ms('B', '_submit_b_pair', '_submit_b', '_finalize_b'):.1f} "
+          "(B pair submit "
+          + " ".join(f"{t:.1f}" for t in stage[("_submit_b_pair", "B")])
+          + "; B finalize "
+          + " ".join(f"{t:.1f}" for t in stage[("_finalize_b", "B")]) + ")")
+    return launches
+
+
+def _check_small_b() -> None:
+    """352x288 with B frames (one pair, one single tail B, full_recon on,
+    P8x8 anchors): the card stream equals the CPU stream, with one
+    deblock launch per frame and four esa16 launches for the pair and
+    two for the single B."""
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    small = [Frame420(*f) for f in split_motion_clip(CHECK_W, CHECK_H,
+                                                     CHECK_B_FRAMES)]
+    streams = {}
+    for d in ("cuda", "cpu"):
+        e = Encoder(_params(CHECK_W, CHECK_H, True, bframes=2,
+                            full_recon=True), device=d)
+        x264_tpu_torch.reset_launch_counts()
+        streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
+        if d == "cuda":
+            launches = x264_tpu_torch.launch_counts()
+            types = [s.frame_type for s in e.stats]
+    if streams["cuda"] != streams["cpu"]:
+        raise AssertionError("352x288 B: card stream != CPU stream")
+    if types != ["IDR", "P", "B", "B", "P", "B"] or launches != {
+            "esa16": 6, "esa_parts": 2, "deblock": CHECK_B_FRAMES}:
+        raise AssertionError(f"352x288 B: frame types {types}, launches "
+                             f"{launches}")
+    print(f"{CHECK_W}x{CHECK_H} I/B/P8x8 x{CHECK_B_FRAMES}: card stream == "
+          f"CPU stream ({len(streams['cuda'])} bytes), launches {launches}")
 
 
 def main() -> int:
@@ -546,6 +701,7 @@ def main() -> int:
           + " ".join(str(int(c)) for c in hist))
     if len(shapes) != n_p or hist.sum() != n_p * n_mb:
         raise AssertionError(f"partition shapes of {len(shapes)} frames")
+    _run_1080p_b(make_clip(B_FRAMES), records)
 
     # ---- 5. card streams == CPU (plain twins) streams at 352x288 ----
     small = [Frame420(*f) for f in split_motion_clip(CHECK_W, CHECK_H,
@@ -568,6 +724,7 @@ def main() -> int:
               f"CPU stream ({len(streams['cuda'])} bytes)"
               + (f"; shapes {' '.join(str(int(c)) for c in hist)}"
                  if p8x8 else ""))
+    _check_small_b()
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

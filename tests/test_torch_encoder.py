@@ -118,7 +118,9 @@ def test_scenecut_promotes_like_reference():
 
 
 def test_unported_settings_and_missing_card_raise():
-    for kw in (dict(bframes=2), dict(cabac=False), dict(i4x4=True),
+    for kw in (dict(bframes=2, b_adapt=1),
+               dict(bframes=2, scenecut_threshold=40),
+               dict(cabac=False), dict(i4x4=True),
                dict(subpel=0), dict(backend="reference"),
                dict(p8x8=True, ref_frames=2), dict(p8x8=True, trellis=1),
                dict(p8x8=True, transform_8x8=True),

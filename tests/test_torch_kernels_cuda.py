@@ -313,3 +313,29 @@ def test_p8x8_encoder_on_card_matches_cpu(cuda):
             n = x264_tpu_torch.launch_counts()
             assert n["esa_parts"] == 2 and n["esa16"] == 0, n
     assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("bframes,p8x8", [(1, False), (2, True), (3, False)])
+def test_b_encoder_on_card_matches_cpu(cuda, bframes, p8x8):
+    """B frames (pairs and single Bs, full_recon on): the card stream
+    equals the CPU stream; esa16 runs twice per B frame and deblock once
+    per frame."""
+    from chip_smoke import split_motion_clip
+    w, h, n = 96, 64, 7
+    frames = [Frame420(*f) for f in split_motion_clip(w, h, n)]
+    p = EncoderParams(width=w, height=h, qp=26, cabac=True,
+                      bframes=bframes, me_range=8, scenecut_threshold=0,
+                      backend="device", p8x8=p8x8, full_recon=True)
+    streams = []
+    for d in (cuda, "cpu"):
+        enc = Encoder(p, device=d)
+        x264_tpu_torch.reset_launch_counts()
+        streams.append(b"".join(enc.encode(f) for f in frames) + enc.flush())
+        if d is cuda:
+            c = x264_tpu_torch.launch_counts()
+            n_b = [s.frame_type for s in enc.stats].count("B")
+            n_p = n - 1 - n_b
+            assert n_b and c["deblock"] == n and c["esa16"] == 2 * n_b + (
+                0 if p8x8 else n_p) and c["esa_parts"] == (
+                n_p if p8x8 else 0), c
+    assert streams[0] == streams[1]

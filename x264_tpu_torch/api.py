@@ -11,9 +11,10 @@ the frame cores, the deblock and the upload.  The decoded picture buffer
     enc = Encoder(EncoderParams(..., cabac=True, bframes=0), device="cuda")
     stream = b"".join(enc.encode(Frame420(y, u, v)) for ...) + enc.flush()
 
-The port runs the single-slice, single-reference I/P CABAC path, with or
-without P8x8 partitions; the settings in ``_NOT_PORTED`` raise
-``NotImplementedError``.
+The port runs the single-slice, single-reference CABAC path: I and P
+frames, with or without P8x8 partitions, and B frames in fixed mini-GOPs
+(``bframes`` > 0, temporal direct); the settings in ``_NOT_PORTED`` and
+``_NOT_PORTED_B`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,14 +25,15 @@ import numpy as np
 import torch
 
 from x264_tpu_torch.bitstream.bits import BitWriter
-from x264_tpu_torch.bitstream.headers import (SLICE_I, SLICE_P,
+from x264_tpu_torch.bitstream.headers import (SLICE_B, SLICE_I, SLICE_P,
                                               sps_from_params,
                                               wrap_slice_nal, write_pps,
                                               write_slice_header, write_sps)
 from x264_tpu_torch.bitstream.sei import version_sei
+from x264_tpu_torch.models.b_frame import b_frame_core, b_pair_core
 from x264_tpu_torch.models.inter import p_frame_core
 from x264_tpu_torch.models.intra import i_frame_core
-from x264_tpu_torch.ops.deblock import deblock_frame
+from x264_tpu_torch.ops.deblock import deblock_frame, deblock_frame_b
 from x264_tpu_torch.ops.entropy_pack import blob_stride, write_slice_cabac
 from x264_tpu_torch.params import EncoderParams
 from x264_tpu_torch.rc import RateControl
@@ -46,20 +48,30 @@ MB_I16, MB_I4, MB_PSKIP = 0, 1, 3
 
 # parameters whose paths are not ported yet (ROADMAP queue A), with the
 # value the port runs
-_NOT_PORTED = dict(cabac=True, bframes=0, ref_frames=1, i4x4=False,
+_NOT_PORTED = dict(cabac=True, ref_frames=1, i4x4=False,
                    transform_8x8=False, trellis=0, weightp=0, aq_mode=0,
                    mbtree=False, intra_refresh=False, slices=1,
                    vbv_maxrate=0, vbv_bufsize=0)
+# with B frames: the adaptive mini-GOP and the pre-encode lowres
+# scenecut need the lookahead (ROADMAP A13)
+_NOT_PORTED_B = dict(b_adapt=0, scenecut_threshold=0)
 
 
 def _check_params(p: EncoderParams) -> None:
     bad = {k: getattr(p, k) for k, want in _NOT_PORTED.items()
            if getattr(p, k) != want}
+    if p.bframes > 0:
+        bad.update({k: getattr(p, k) for k, want in _NOT_PORTED_B.items()
+                    if getattr(p, k) != want})
     if p.backend not in ("auto", "device"):
         bad["backend"] = p.backend
     if p.subpel < 1:
         bad["subpel"] = p.subpel
-    if p.me_range > PAD:
+    # the reference gathers P16 and B windows from 80-row bands, which
+    # hold every window only up to me_range PAD - 1: at PAD its streams
+    # stop decoding to its recon (ROADMAP C)
+    if p.me_range > PAD or (p.me_range == PAD
+                            and (p.bframes > 0 or not p.p8x8)):
         bad["me_range"] = p.me_range
     if bad:
         raise NotImplementedError(
@@ -72,6 +84,34 @@ class ReconFrame:
     u: torch.Tensor
     v: torch.Tensor
     frame_num: int = 0
+    poc: int = 0
+    # an anchor's colocated motion field for temporal direct: quadrant
+    # mvs (N,4,2), intra MBs (N,), quadrant ref_idx (N,4) or None
+    col_mv: torch.Tensor | None = None
+    col_intra: torch.Tensor | None = None
+    col_ref: torch.Tensor | None = None
+
+
+class _HostCopy:
+    """A device tensor's copy to host memory, started without blocking
+    the host: pinned memory, a non-blocking copy on the tensor's stream
+    and an event that ``numpy()`` waits on.  A CPU tensor is its own
+    copy."""
+
+    def __init__(self, t: torch.Tensor):
+        self._ev = None
+        if t.device.type == "cuda":
+            self._buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._buf.copy_(t, non_blocking=True)
+            self._ev = torch.cuda.Event()
+            self._ev.record(torch.cuda.current_stream(t.device))
+        else:
+            self._buf = t
+
+    def numpy(self) -> np.ndarray:
+        if self._ev is not None:
+            self._ev.synchronize()
+        return self._buf.numpy()
 
 
 @dataclass
@@ -114,8 +154,9 @@ class Encoder:
                 self.p.fps_num / max(1, self.p.fps_den),
                 qp_min=self.p.qp_min, qp_max=self.p.qp_max)
         self._init_qp = self.p.qp      # PPS pic_init_qp base (frozen)
-        # display-order recon callback (disp_idx, ReconFrame), fired as
-        # each frame's reconstruction is final
+        # recon callback (display index, ReconFrame), fired as each
+        # frame's reconstruction is final: an anchor at its submit, a B
+        # frame at its finalize, so not in display order with B frames
         self.recon_hook = None
         self._zones = []
         if self.p.zones:
@@ -133,11 +174,12 @@ class Encoder:
     _au_meta: list = None
     _cod_count = 0
 
-    def _note_au(self, nbytes: int, ftype: str):
+    def _note_au(self, nbytes: int, ftype: str, poc_lsb: int):
         if self._au_meta is None:
             self._au_meta = []
-        # no B frames: display order is coding order
-        self._au_meta.append(dict(bytes=nbytes, pts=self._cod_count,
+        disp = (self._idr_disp + poc_lsb // 2 if self.p.bframes
+                else self._cod_count)
+        self._au_meta.append(dict(bytes=nbytes, pts=disp,
                                   dts=self._cod_count,
                                   key=ftype == "IDR"))
         self._cod_count += 1
@@ -150,15 +192,16 @@ class Encoder:
         self._au_meta = []
         return m
 
-    def _cab_rows(self, blob, n: int, parts: bool = False):
+    def _cab_rows(self, blob, n: int, is_b: bool = False,
+                  parts: bool = False):
         """Per-MB field rows of a flat CABAC blob (entropy_pack layout)."""
-        st = blob_stride(parts)
+        st = blob_stride(is_b, parts)
         return np.asarray(blob).reshape(-1)[:n * st].reshape(n, st)
 
     def _run_core(self, yd, ud, vd, ref, idr: bool, base_qp: int, qp_arr,
                   n_words: int, mbw: int, mbh: int):
-        """Run the I or P core; ``host_blob`` comes back as a host numpy
-        int32 array, the one device-to-host copy of a frame."""
+        """Run the I or P core; ``host_blob`` comes back as a
+        ``_HostCopy``, the one device-to-host copy of a frame."""
         qp = torch.as_tensor(np.asarray(qp_arr, np.int32),
                              device=self.device)
         if idr or ref is None:
@@ -176,7 +219,7 @@ class Encoder:
                                parts=self.p.p8x8,
                                decimate=self.p.dct_decimate)
             slice_type = SLICE_P
-        out["host_blob"] = out["host_blob"].cpu().numpy()
+        out["host_blob"] = _HostCopy(out["host_blob"])
         return out, slice_type
 
     def _note_recon(self, disp, rec) -> None:
@@ -248,8 +291,7 @@ class Encoder:
         idr = ftype == "IDR"
         ladder = self._ladder(qp)
         n_words = ladder[0]
-        yd, ud, vd = (torch.from_numpy(np.ascontiguousarray(p))
-                      .to(self.device) for p in (y, u, v))
+        yd, ud, vd = self._upload((y, u, v))
         qp_arr = np.int32(qp)
         ref = None if (idr or not self.dpb) else self.dpb
         out, slice_type = self._run_core(yd, ud, vd, ref, idr, qp, qp_arr,
@@ -260,7 +302,7 @@ class Encoder:
             # post-encode scenecut (x264 slicetype.c:1430 rule, no
             # lookahead): promote to IDR when inter is no cheaper than
             # intra, from the costs the P core already computed
-            rows = self._cab_rows(out["host_blob"], mbw * mbh,
+            rows = self._cab_rows(out["host_blob"].numpy(), mbw * mbh,
                                   parts=self.p.p8x8)
             p_cost = float(rows[:, 14 + 9].astype(np.int64).sum())
             i_cost = float(rows[:, 14 + 10].astype(np.int64).sum())
@@ -297,7 +339,7 @@ class Encoder:
         CABAC branch): re-run the core at the next entropy rung when the
         level stream overflowed, then the slice header and the C CABAC
         coder (``write_slice_cabac``)."""
-        blob = job["blob"]
+        blob = job["blob"].numpy()
         K = job["n_words"]
         n = job["mbw"] * job["mbh"]
         parts = self.p.p8x8 and job["slice_type"] == SLICE_P
@@ -311,7 +353,7 @@ class Encoder:
                 out, _ = self._run_core(yd, ud, vd, job["ref"], job["idr"],
                                         job["qp"], job["qp_arr"], K,
                                         job["mbw"], job["mbh"])
-                blob = out["host_blob"]
+                blob = out["host_blob"].numpy()
                 rows = self._cab_rows(blob, n, parts=parts)
                 total = int(rows[:, 14 + 8].astype(np.int64).sum())
                 if total <= n * K:
@@ -327,7 +369,8 @@ class Encoder:
                            slice_type=job["slice_type"], idr=job["idr"],
                            frame_num=job["frame_num"],
                            idr_pic_id=job["idr_pic_id"], qp=job["slice_qp"],
-                           num_ref=job["num_ref"], poc_lsb=0)
+                           num_ref=job["num_ref"],
+                           poc_lsb=job.get("poc_lsb", 0))
         pad = (-bs.bit_length) % 8
         if pad:
             bs.put(pad, (1 << pad) - 1)    # cabac_alignment_one_bit
@@ -342,13 +385,252 @@ class Encoder:
         self.rc.update(job["ftype"], len(out_bytes) * 8, cost)
         self._record_stats(job["ftype"], job["qp"], len(out_bytes) * 8,
                            cost, mb_class)
-        self._note_au(len(out_bytes), job["ftype"])
+        self._note_au(len(out_bytes), job["ftype"], job.get("poc_lsb", 0))
         return out_bytes
 
+    # ---- B-frame mini-GOPs (I/P anchors, B frames between them, temporal
+    # direct; the reference's device fast path without VBV) ----
+    _bq: list = None          # pending (frame, display index)
+    _disp_idx = 0
+    _idr_disp = 0
+    # deferred finalize queue [("a" | "b", job), ...]: mini-GOP k's device
+    # work runs while the host codes mini-GOP k-1, so bytes come out one
+    # mini-GOP late; flush() and IDR boundaries drain it
+    _gop_q: list = None
+
+    def _poc_lsb(self, disp: int) -> int:
+        """Unwrapped POC 2*(disp - idr_disp): temporal direct's tb/td take
+        the unwrapped values (8.4.1.2.3); write_slice_header masks."""
+        return 2 * (disp - self._idr_disp)
+
+    def _dist_scale(self, disp: int, prev: ReconFrame,
+                    nxt: ReconFrame) -> tuple:
+        """(POC, DistScaleFactor) of the B frame at ``disp`` between the
+        anchors ``prev`` and ``nxt`` (8.4.1.2.3, host integer math)."""
+        poc_cur = self._poc_lsb(disp)
+        tb = int(np.clip(poc_cur - prev.poc, -128, 127))
+        td = int(np.clip(nxt.poc - prev.poc, -128, 127)) or 1
+        tx = (16384 + abs(td) // 2) // td
+        return poc_cur, int(np.clip((tb * tx + 32) >> 6, -1024, 1023))
+
+    def _encode_bgop(self, fr: Frame420) -> bytes:
+        if self._bq is None:
+            self._bq = []
+        d = self._disp_idx
+        self._disp_idx += 1
+        out = b""
+        f_type = self._force.get(d, (None, None))[0] if self._force \
+            else None
+        if d == 0 or f_type == "IDR" or (self.p.keyint_max > 0
+                                         and d % self.p.keyint_max == 0):
+            out += self._flush_rest()     # close the open mini-GOP
+            self._idr_disp = d
+            return out + self._encode_anchor(fr, d, "IDR")
+        self._bq.append((fr, d))
+        if f_type == "P" or len(self._bq) == self.p.bframes + 1:
+            out += self._flush_bq()
+        return out
+
+    def _drain_gop_q(self) -> bytes:
+        out = b""
+        for kind, job in (self._gop_q or []):
+            out += (self._finalize_cabac(job) if kind == "a"
+                    else self._finalize_b(job))
+        self._gop_q = []
+        return out
+
+    def _flush_bq(self) -> bytes:
+        """Submit the queued mini-GOP (its last frame as the P anchor, the
+        rest as B frames, a pair in one core), then finalize the previous
+        mini-GOP."""
+        pend, self._bq = self._bq, []
+        if not pend:
+            return b""
+        anchor, ad = pend[-1]
+        prev = self.dpb[0]
+        ajob = self._submit_anchor(anchor, ad, "P")
+        nxt = self.dpb[0]
+        bs = pend[:-1]
+        if len(bs) == 2:
+            jobs = self._submit_b_pair(bs[0], bs[1], prev, nxt)
+        else:
+            jobs = [self._submit_b(bf, bd, prev, nxt) for (bf, bd) in bs]
+        out = self._drain_gop_q()
+        self._gop_q = [("a", ajob)] + [("b", j) for j in jobs]
+        return out
+
+    def _encode_anchor(self, fr: Frame420, disp: int, ftype: str) -> bytes:
+        return self._finalize_cabac(self._submit_anchor(fr, disp, ftype))
+
+    def _frame_qp_at(self, disp: int, ftype: str) -> int:
+        """The QP of the frame at ``disp``: rate control, zones, then a
+        forced QP."""
+        qp = self._zone_qp(disp, self._qp_for_frame(ftype))
+        f_qp = self._forced_for(disp)[1]
+        if f_qp is not None:
+            qp = int(np.clip(f_qp, self.p.qp_min, self.p.qp_max))
+        return qp
+
+    def _submit_anchor(self, fr: Frame420, disp: int, ftype: str) -> dict:
+        """Enqueue an anchor's device work and advance the DPB, with the
+        colocated motion field temporal direct reads."""
+        y, u, v = self._pad(fr)
+        if ftype == "IDR":
+            self.frame_num = 0
+        job = self._submit_device(y, u, v, ftype,
+                                  self._frame_qp_at(disp, ftype))
+        job["poc_lsb"] = self._poc_lsb(disp)
+        out = job["out"]
+        rec = self.dpb[0]
+        self._note_recon(disp, rec)
+        rec.poc = job["poc_lsb"]
+        n = job["mbw"] * job["mbh"]
+        if "mv8" in out:
+            # quadrant motion (partitions): direct derives per quadrant
+            rec.col_mv, rec.col_ref = out["mv8"], out["ref8"]
+            rec.col_intra = out["mb_class"] == 0
+        elif "mv" in out:
+            rec.col_mv = out["mv"][:, None].expand(n, 4, 2)
+            rec.col_ref = out["ref_mb"][:, None].expand(n, 4)
+            rec.col_intra = out["mb_class"] == 0
+        else:
+            rec.col_mv = torch.zeros((n, 4, 2), dtype=torch.int32,
+                                     device=self.device)
+            rec.col_intra = torch.ones(n, dtype=torch.bool,
+                                       device=self.device)
+            rec.col_ref = None
+        return job
+
+    def _upload(self, planes):
+        return [torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
+                for p in planes]
+
+    def _b_core(self, y, u, v, prev: ReconFrame, nxt: ReconFrame, dsf: int,
+                qp: int, n_words: int) -> dict:
+        """One B frame through ``b_frame_core`` at its own lambda.  With
+        one reference per anchor, col_ref is never consulted."""
+        return b_frame_core(
+            y, u, v, prev.y, prev.u, prev.v, nxt.y, nxt.u, nxt.v,
+            nxt.col_mv, nxt.col_intra, dsf, qp, sad_lambda(qp),
+            mbw=y.shape[1] // 16, mbh=y.shape[0] // 16,
+            me_range=self.p.me_range, cqp_off=self.p.chroma_qp_offset,
+            lv_cap=n_words, subpel=self.p.subpel,
+            decimate=self.p.dct_decimate)
+
+    def _b_job(self, out: dict, disp: int, qp: int, poc_cur: int, ladder,
+               n_words: int, args: tuple) -> dict:
+        h, w = args[0].shape
+        return dict(out=out, blob=_HostCopy(out["host_blob"]), mbw=w // 16,
+                    mbh=h // 16, qp=qp, ladder=ladder, n_words=n_words,
+                    poc_cur=poc_cur, disp=disp, frame_num=self.frame_num,
+                    args=args)
+
+    def _submit_b(self, fr: Frame420, disp: int, prev: ReconFrame,
+                  nxt: ReconFrame) -> dict:
+        qp = self._frame_qp_at(disp, "B")
+        ladder = self._ladder(qp)
+        poc_cur, dsf = self._dist_scale(disp, prev, nxt)
+        y, u, v = self._upload(self._pad(fr))
+        out = self._b_core(y, u, v, prev, nxt, dsf, qp, ladder[0])
+        return self._b_job(out, disp, qp, poc_cur, ladder, ladder[0],
+                           (y, u, v, prev, nxt, dsf))
+
+    def _submit_b_pair(self, b1, b2, prev: ReconFrame,
+                       nxt: ReconFrame) -> list:
+        """Both B frames of a mini-GOP through ``b_pair_core``: the first
+        frame's QP sets the lambda and the entropy ladder of both."""
+        qps, dsfs, pocs = [], [], []
+        for (_, d) in (b1, b2):
+            qps.append(self._frame_qp_at(d, "B"))
+            poc_cur, dsf = self._dist_scale(d, prev, nxt)
+            pocs.append(poc_cur)
+            dsfs.append(dsf)
+        ladder = self._ladder(qps[0])
+        n_words = ladder[0]
+        planes = [self._upload(self._pad(f)) for (f, _) in (b1, b2)]
+        y1 = planes[0][0]
+        outs = b_pair_core(
+            *zip(*planes), prev.y, prev.u, prev.v, nxt.y, nxt.u, nxt.v,
+            nxt.col_mv, nxt.col_intra, dsfs, qps, sad_lambda(qps[0]),
+            mbw=y1.shape[1] // 16, mbh=y1.shape[0] // 16,
+            me_range=self.p.me_range, cqp_off=self.p.chroma_qp_offset,
+            lv_cap=n_words, subpel=self.p.subpel,
+            decimate=self.p.dct_decimate)
+        return [self._b_job(outs[i], d, qps[i], pocs[i], ladder, n_words,
+                            (*planes[i], prev, nxt, dsfs[i]))
+                for i, (_, d) in enumerate((b1, b2))]
+
+    def _finalize_b(self, job: dict) -> bytes:
+        """A B frame's bytes: the overflow ladder re-runs ``b_frame_core``
+        at the frame's own lambda; then the non-reference slice (the
+        current frame_num, not advanced), the deblocked recon when
+        ``full_recon`` is on, and the stats."""
+        out = job["out"]
+        mbw, mbh, qp = job["mbw"], job["mbh"], job["qp"]
+        n = mbw * mbh
+        n_words = job["n_words"]
+        blob = job["blob"].numpy()
+
+        def total_of(blob):
+            rows = self._cab_rows(blob, n, is_b=True)
+            return int(rows[:, 14 + 8].astype(np.int64).sum())
+
+        if total_of(blob) > n * n_words:
+            y, u, v, prev, nxt, dsf = job["args"]
+            for n_words in job["ladder"][1:]:
+                out = self._b_core(y, u, v, prev, nxt, dsf, qp, n_words)
+                blob = out["host_blob"].cpu().numpy()
+                if total_of(blob) <= n * n_words:
+                    break
+        rows = self._cab_rows(blob, n, is_b=True)
+        self._note_budget(-(-total_of(blob) // n))
+        mb_class = rows[:, 14]
+        cost_total = int(rows[:, 14 + 9].astype(np.int64).sum())
+
+        bs = BitWriter()
+        write_slice_header(bs, self.p, self.sps, init_qp=self._init_qp,
+                           slice_type=SLICE_B, idr=False,
+                           frame_num=job["frame_num"], qp=qp, num_ref=1,
+                           num_ref_l1=1, poc_lsb=job["poc_cur"],
+                           is_ref=False)
+        pad = (-bs.bit_length) % 8
+        if pad:
+            bs.put(pad, (1 << pad) - 1)    # cabac_alignment_one_bit
+        payload = write_slice_cabac(blob, mbw, mbh, 2, qp, n_words)
+        data = wrap_slice_nal(bs.to_bytes_aligned() + payload, False,
+                              is_ref=False)
+
+        # the deblocked recon for output (a B frame is no reference; the
+        # b_full_recon analog skips it when full_recon is off)
+        ry, ru, rv = out["recon_y"], out["recon_u"], out["recon_v"]
+        if self.p.deblock and self.p.full_recon:
+            ry, ru, rv = deblock_frame_b(
+                ry, ru, rv, out["nnz_deblock"], out["mv0"], out["mv1"],
+                out["any0"], out["any1"], qp, self.p.deblock_alpha * 2,
+                self.p.deblock_beta * 2, mbw=mbw, mbh=mbh,
+                cqp_off=self.p.chroma_qp_offset,
+                intra=out["mb_class"] == 0)
+        self.last_recon = ReconFrame(ry, ru, rv)
+        self._note_recon(job["disp"], self.last_recon)
+        self.stats.append(FrameStats("B", len(data) * 8, qp))
+        self.rc.update("B", len(data) * 8, cost_total)
+        self._record_stats("B", qp, len(data) * 8, cost_total,
+                           np.where(mb_class == 3, 3,
+                                    np.where(mb_class == 0, 0, 2)))
+        self._note_au(len(data), "B", job["poc_cur"])
+        return data
+
     def flush(self) -> bytes:
-        """Every frame's bytes leave ``encode`` at once (no B frames, no
-        lookahead, no pipelining), so nothing is buffered."""
-        return b""
+        """The bytes still held back: the open mini-GOP and the finalize
+        queue (nothing with bframes=0, whose frames leave ``encode`` at
+        once)."""
+        return self._flush_rest()
+
+    def _flush_rest(self) -> bytes:
+        out = b""
+        if self._bq:
+            out += self._flush_bq()
+        return out + self._drain_gop_q()
 
     def _pad(self, fr: Frame420):
         y = pad_to_mb(fr.y, 16)
@@ -365,6 +647,8 @@ class Encoder:
         self._enc_idx += 1
         if self._pass2_qps is not None:
             return self._pass2_qps[min(i, len(self._pass2_qps) - 1)]
+        if ftype == "B":
+            return self.rc.b_qp()
         return self.rc.frame_qp(ftype)
 
     # per-type aggregates for the close() summary
@@ -429,21 +713,21 @@ class Encoder:
                 self._force = {}
             self._force[self._in_disp] = (tmap.get(frame_type), qp)
         self._in_disp += 1
+        if self.p.bframes > 0:
+            return self._encode_bgop(fr)
         return self._encode_now(fr, disp=self._in_disp - 1)
 
     def _encode_now(self, fr: Frame420, disp: int | None = None) -> bytes:
         y, u, v = self._pad(fr)
-        f_type, f_qp = (self._forced_for(disp) if disp is not None
-                        else (None, None))
+        f_type = (self._force.get(disp, (None, None))[0]
+                  if self._force and disp is not None else None)
         if f_type in ("IDR", "P"):
             ftype = f_type
             if f_type == "IDR":
                 self._last_idr_idx = self.frame_idx
         else:
             ftype = self._decide_type()
-        qp = self._zone_qp(disp, self._qp_for_frame(ftype))
-        if f_qp is not None:
-            qp = int(np.clip(f_qp, self.p.qp_min, self.p.qp_max))
+        qp = self._frame_qp_at(disp, ftype)
         if ftype == "IDR":
             self.frame_num = 0
         job = self._submit_device(y, u, v, ftype, qp)

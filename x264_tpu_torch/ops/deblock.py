@@ -1,9 +1,10 @@
 """In-loop deblocking (spec 8.7; port of x264_tpu/ops/device/deblock.py
-for I and P frames, per-MB or per-quadrant motion; parity: reference
-common/deblock.c).
+for I and P frames, per-MB or per-quadrant motion, and B frames; parity:
+reference common/deblock.c).
 
 Boundary strengths are a pure function of (MB class, nnz, mv, ref) and
-are computed for every edge at once (``bs_grids``); the pixel filter has
+are computed for every edge at once (``bs_grids``, ``bs_grids_b``); the
+pixel filter has
 the MB wavefront dependency and runs in ``kernels/deblock`` (one CUDA
 kernel for Y, Cb and Cr on the card, the plain diagonal-batched twin on
 the CPU).  The edge arithmetic below is shared by that twin and mirrors
@@ -72,6 +73,51 @@ def bs_grids(mb_intra, luma_nnz, mv, ref, mbw: int, mbh: int):
         bs = torch.where(mb_edge & (intra_g | p_intra), 4,
              torch.where(intra_g, 3,
              torch.where(nz, 2, torch.where(mvdiff, 1, 0))))
+        return torch.where(exists, bs, 0).to(_I32)
+
+    return one_dir(1), one_dir(0)
+
+
+def bs_grids_b(luma_nnz, mv0, mv1, any0, any1, mbw: int, mbh: int,
+               intra=None):
+    """Boundary strengths of a B frame (8.7.2.1's B rules; port of
+    x264_tpu/ops/device/deblock.py ``bs_grids_b`` without the 8x8
+    transform).  B MBs use one reference per list and L0 != L1, so an
+    MB's reference set is its (uses L0, uses L1) pair.  mv0/mv1 (N,2) or
+    (N,4,2) per quadrant; any0/any1 (N,) bool; intra (N,) bool or None:
+    I16x16 escape MBs, bS 4 on their MB edges and 3 inside.  Returns
+    (bs_v, bs_h) as ``bs_grids`` does."""
+    gh, gw = 4 * mbh, 4 * mbw
+    nnz = (luma_nnz.reshape(mbh, mbw, 4, 4).permute(0, 2, 1, 3)
+           .reshape(gh, gw))
+
+    def rep_mv(x):
+        """(N,2) or (N,4,2) -> per-4x4-block (gh, gw, 2)."""
+        if x.dim() == 2:
+            return _rep4(x.reshape(mbh, mbw, 2))
+        return (x.reshape(mbh, mbw, 2, 2, 2).repeat_interleave(2, 2)
+                .repeat_interleave(2, 3).permute(0, 2, 1, 3, 4)
+                .reshape(gh, gw, 2))
+
+    m0, m1 = rep_mv(mv0), rep_mv(mv1)
+    a0 = _rep4(any0.reshape(mbh, mbw).to(_I32))
+    a1 = _rep4(any1.reshape(mbh, mbw).to(_I32))
+    ig = None if intra is None else _rep4(intra.reshape(mbh, mbw))
+    col = torch.arange(gw, device=nnz.device)[None, :]
+    row = torch.arange(gh, device=nnz.device)[:, None]
+
+    def one_dir(axis):
+        pos = col if axis == 1 else row
+        exists = pos > 0
+        mb_edge = (pos % 4) == 0
+        nz = (nnz > 0) | (_shift_in(nnz, axis) > 0)
+        set_diff = (a0 != _shift_in(a0, axis)) | (a1 != _shift_in(a1, axis))
+        d0 = ((m0 - _shift_in(m0, axis)).abs() >= 4).any(-1) & (a0 > 0)
+        d1 = ((m1 - _shift_in(m1, axis)).abs() >= 4).any(-1) & (a1 > 0)
+        bs = torch.where(nz, 2, torch.where(set_diff | d0 | d1, 1, 0))
+        if ig is not None:
+            bs = torch.where(mb_edge & (ig | _shift_in(ig, axis)), 4,
+                             torch.where(ig, 3, bs))
         return torch.where(exists, bs, 0).to(_I32)
 
     return one_dir(1), one_dir(0)
@@ -169,4 +215,22 @@ def deblock_frame(y, u, v, mb_class, cbp_luma, cbp_chroma, luma_nnz, mv,
                                        luma_nnz, mv, ref, qp_mb, mbw, mbh,
                                        cqp_off)
     return deblock_filter(y, u, v, bs_v, bs_h, qp, qpc, off_a, off_b,
+                          mbw, mbh)
+
+
+def deblock_frame_b(y, u, v, luma_nnz, mv0, mv1, any0, any1, qp: int,
+                    off_a: int, off_b: int, mbw: int, mbh: int,
+                    cqp_off: int = 0, intra=None):
+    """B-frame deblock (port of x264_tpu/ops/device/deblock.py
+    ``deblock_frame_b`` without the 8x8 transform): the frame QP on every
+    MB, the chroma QP lookup, the two-list strengths and the filter
+    (``kernels/deblock``).  Returns new (y, u, v) uint8 planes."""
+    from x264_tpu_torch.kernels.deblock import deblock_filter
+    n = mbw * mbh
+    dev = y.device
+    qp_mb = torch.full((n,), int(qp), dtype=_I32, device=dev)
+    qpc_mb = tables(dev).chroma_qp[(qp_mb + cqp_off).clamp(0, 51).long()]
+    bs_v, bs_h = bs_grids_b(luma_nnz, mv0, mv1, any0, any1, mbw, mbh,
+                            intra=intra)
+    return deblock_filter(y, u, v, bs_v, bs_h, qp_mb, qpc_mb, off_a, off_b,
                           mbw, mbh)

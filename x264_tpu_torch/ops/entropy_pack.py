@@ -1,18 +1,20 @@
 """Compact syntax blob for the host CABAC coder (port of
-x264_tpu/ops/device/entropy_pack.py for I and single-reference P
-frames, with or without P partitions), and the host coder itself: the C
-source ``native/cabac.c`` (a copy of x264_tpu/native/cabac.c), built
-with gcc at first use and called through ctypes.  The coder reads the
-blob, so it must come out as the same int32 words as the reference's.
+x264_tpu/ops/device/entropy_pack.py for I, single-reference P frames,
+with or without P partitions, and B frames), and the host coder itself:
+the C source ``native/cabac.c`` (a copy of x264_tpu/native/cabac.c),
+built with gcc at first use and called through ctypes.  The coder reads
+the blob, so it must come out as the same int32 words as the
+reference's.
 
-Layout (one flat int32 array): per MB a row of ``blob_stride(parts)``
+Layout (one flat int32 array): per MB a row of ``blob_stride(b, parts)``
 words — the 408-bit significance bitmap in 13 words, the exclusive
 prefix of the MB's nonzero count, then the fields mb_class, mvd_x,
 mvd_y, i16_mode, chroma_mode, cbp_luma, cbp_chroma, qp, nnz_total,
-mb_cost, icost, ref, t8 and, with partitions, shape, the mvds of
-partition slots 1-3 (x, y) and their refs — followed by the
-frame-global stream of nonzero levels as int16 pairs (lo | hi << 16),
-n*K levels, zero-filled or cut at that cap."""
+mb_cost, icost, in B slices bmode, mvd1_x, mvd1_y, then ref, t8 and,
+with partitions, shape, the mvds of partition slots 1-3 (x, y) and
+their refs — followed by the frame-global stream of nonzero levels as
+int16 pairs (lo | hi << 16), n*K levels, zero-filled or cut at that
+cap."""
 
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 N_VALS = 408        # luma_dc 16 | luma_ac 16x16 | chroma_dc 2x4 | ac 2x4x16
 N_BITMAP = 13
 FIELDS_P = 13
+FIELDS_B = 16       # FIELDS_P + bmode, mvd1_x, mvd1_y
 FIELDS_PARTS = 10   # shape, mvd slots 1-3 (x, y), ref slots 1-3
 
 _I32 = torch.int32
@@ -77,8 +80,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def blob_stride(parts: bool = False) -> int:
-    return N_BITMAP + 1 + FIELDS_P + (FIELDS_PARTS if parts else 0)
+def blob_stride(b: bool = False, parts: bool = False) -> int:
+    return N_BITMAP + 1 + (FIELDS_B if b else FIELDS_P) \
+        + (FIELDS_PARTS if parts else 0)
 
 
 def _wrap_i32(x):
@@ -89,11 +93,14 @@ def _wrap_i32(x):
 
 def cabac_blob(luma_dc, luma_ac, chroma_dc, chroma_ac, mb_class, mvd,
                i16_mode, chroma_mode, cbp_luma, cbp_chroma, qp, mb_cost,
-               icost, K: int, shape=None, mvd_part=None, ref_part=None):
-    """All inputs per-MB int32 tensors; K even.  With partitions, shape
-    (N,), mvd_part (N,4,2) and ref_part (N,4) add the 10 partition
-    fields.  Returns the flat int32 blob: n*stride row words + n*K/2
-    stream words."""
+               icost, K: int, bmode=None, mvd1=None, t8=None, shape=None,
+               mvd_part=None, ref_part=None):
+    """All inputs per-MB int32 tensors; K even.  In a B slice, bmode (N,)
+    and mvd1 (N,2) (list 1's mvd) add the three B fields and t8 (N,) is
+    the transform flag (zeros when None).  With partitions, shape (N,),
+    mvd_part (N,4,2) and ref_part (N,4) add the 10 partition fields.
+    Returns the flat int32 blob: n*stride row words + n*K/2 stream
+    words."""
     n = mb_class.shape[0]
     dev = mb_class.device
     flat = torch.cat([luma_dc.reshape(n, 16), luma_ac.reshape(n, 256),
@@ -125,7 +132,11 @@ def cabac_blob(luma_dc, luma_ac, chroma_dc, chroma_ac, mb_class, mvd,
     zeros = torch.zeros(n, dtype=_I32, device=dev)
     fields = [prefix, mb_class, mvd[:, 0], mvd[:, 1], i16_mode,
               chroma_mode, cbp_luma, cbp_chroma, qp, nnz_mb, mb_cost,
-              icost, zeros, zeros]             # ref 0, then t8 0
+              icost]
+    if bmode is not None:
+        fields += [bmode, mvd1[:, 0], mvd1[:, 1]]
+    # list 0 ref_idx 0, then transform_size_8x8_flag always last
+    fields += [zeros, zeros if t8 is None else t8]
     if shape is not None:
         # P partitions: shape code, mvd of partition slots 1-3 (slot 0
         # travels in the base mvd fields), refs of slots 1-3
@@ -143,17 +154,19 @@ def write_slice_cabac(blob: np.ndarray, mbw: int, mbh: int, slice_kind: int,
                       slice_qp: int, K: int, parts: bool = False):
     """CABAC-code one slice from the host copy of the blob with
     ``native/cabac.c`` (the reference's
-    ``cabac_host.write_slice_cabac_packed`` for single-reference I/P
-    slices without the 8x8 transform or I4x4).  slice_kind 0 = I, 1 = P;
-    parts: the blob carries the partition fields (P slices with p8x8).
-    Returns the slice_data() payload bytes."""
+    ``cabac_host.write_slice_cabac_packed`` for single-reference I/P/B
+    slices without the 8x8 transform or I4x4).  slice_kind 0 = I, 1 = P,
+    2 = B (the blob then carries the B fields); parts: the blob carries
+    the partition fields (P slices with p8x8).  Returns the slice_data()
+    payload bytes."""
     n = mbw * mbh
     cap = 1024 + n * 512
     out = np.zeros(cap, np.uint8)
     blob = np.ascontiguousarray(blob.reshape(-1).astype(np.int32,
                                                         copy=False))
     sz = _lib().encode_slice_cabac_packed(
-        mbw, mbh, slice_kind, int(slice_qp), 0, blob, K, blob_stride(parts),
+        mbw, mbh, slice_kind, int(slice_qp), 0, blob, K,
+        blob_stride(slice_kind == 2, parts),
         0, 1, int(parts), 0, out, cap, None)
     if sz < 0:
         raise OverflowError("CABAC level cap or buffer overflow")

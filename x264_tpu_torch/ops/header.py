@@ -258,3 +258,48 @@ def classify_p_parts(mv8, ref8, shape, cbp_luma, cbp_chroma, mbw: int,
     if intra is not None:
         mb_class = torch.where(intra, MB_I16_D, mb_class).to(_I32)
     return mb_class, mvd_part.to(_I32), is_skip
+
+
+# B-frame 16x16 modes (x264_tpu/ops/device/header.py; the CAVLC mb_type
+# values)
+B_DIRECT, B_L0, B_L1, B_BI = 0, 1, 2, 3
+
+
+def mvp_for_list(mv, used, mbw: int, mbh: int):
+    """Median MVP over the neighbours that use this list (ref 0), 8.4.1.3
+    (port of x264_tpu/ops/device/header.py ``mvp_for_list``).  mv (N,2)
+    per MB, or (N,4,2) per quadrant (direct MBs under quadrant temporal
+    direct); used (N,) bool.  Returns mvp (N,2) int32.
+
+    With quadrant input the neighbouring 4x4 block of the current 16x16
+    partition lies in one quadrant of the neighbour MB (6.4.11.7): A =
+    the left MB's top-right quadrant, B = the top MB's bottom-left, C =
+    the top-right MB's bottom-left, D = the top-left MB's bottom-right."""
+    if mv.dim() == 2:
+        mv = mv[:, None, :].expand(mv.shape[0], 4, 2)
+    m4 = mv.to(_I32).reshape(mbh, mbw, 4, 2)
+    u = used.reshape(mbh, mbw)
+
+    def neigh(dy, dx, q):
+        mvn, av = shifted(m4[:, :, q], dy, dx, 0)
+        return mvn, shifted(u, dy, dx, False)[0], av
+
+    mva, ua, av_a = neigh(0, -1, 1)
+    mvb, ub, av_b = neigh(-1, 0, 2)
+    mvc, uc, av_c = neigh(-1, 1, 2)
+    mvd_, ud_, av_d = neigh(-1, -1, 3)
+    use_d = ~av_c
+    mvc = torch.where(use_d[..., None], mvd_, mvc)
+    uc = torch.where(use_d, ud_, uc)
+    av_c = torch.where(use_d, av_d, av_c)
+
+    ua, ub, uc = ua & av_a, ub & av_b, uc & av_c
+    # 8.4.1.3.2: a neighbour that does not use this list contributes mv 0
+    za, zb, zc = mva * ua[..., None], mvb * ub[..., None], mvc * uc[..., None]
+    med = torch.maximum(torch.minimum(za, zb),
+                        torch.minimum(torch.maximum(za, zb), zc))
+    only_a = av_a & ~av_b & ~av_c
+    one = (ua.to(_I32) + ub.to(_I32) + uc.to(_I32)) == 1
+    mvp = torch.where(only_a[..., None], za,
+                      torch.where(one[..., None], za + zb + zc, med))
+    return mvp.reshape(-1, 2).to(_I32)

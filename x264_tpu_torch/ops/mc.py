@@ -1,11 +1,16 @@
 """Motion compensation (port of x264_tpu/ops/device/mc.py's half-pel
-planes and chroma MC; parity: reference common/mc.c): the 6-tap half-pel
-planes and the normative 1/8-pel bilinear chroma interpolation, as
-index gathers over edge-padded planes."""
+planes, quadrant quarter-pel luma MC and chroma MC; parity: reference
+common/mc.c): the 6-tap half-pel planes, every quarter-pel sample as the
+rounded mean of two plane samples, and the normative 1/8-pel bilinear
+chroma interpolation, as index gathers over edge-padded planes."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from x264_tpu_torch.state import QPEL_TWO_SAMPLE_TBL
 
 _I32 = torch.int32
 
@@ -119,3 +124,46 @@ def mc_chroma_uv_quad(ref_u_pad, ref_v_pad, mv8, mbw: int, mbh: int,
     pred = (pred.reshape(2, n, 2, 2, 4, 4).permute(0, 1, 2, 4, 3, 5)
             .reshape(2, n, 8, 8))
     return pred[0], pred[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _qpel_table(device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(QPEL_TWO_SAMPLE_TBL, dtype=torch.long,
+                           device=device)
+
+
+def mc_luma_qpel_quad(planes4, mv8, mbw: int, mbh: int, pad: int):
+    """Quarter-pel luma MC per 8x8 quadrant (port of
+    x264_tpu/ops/device/mc.py ``mc_luma_qpel_quad``): planes4 (4, Hp, Wp)
+    [fp, hh, hv, hc] from ``hpel_planes`` of the reference padded by
+    ``pad``; mv8 (N,4,2) qpel mvs (quadrant q = 2*qy + qx).  Each sample
+    is (S1 + S2 + 1) >> 1 over the two plane samples QPEL_TWO_SAMPLE_TBL
+    names, gathered straight from the planes (the reference gathers 10x10
+    windows through its one-hot ``wingather``; the samples are the same).
+    Positions past the padded planes read their edge, as a decoder does.
+    Returns (N,16,16) int32."""
+    n = mbw * mbh
+    m = 4 * n
+    dev = mv8.device
+    hp, wp = planes4.shape[-2], planes4.shape[-1]
+    mvf = mv8.reshape(m, 2).to(_I32)
+    mb = torch.arange(n, dtype=_I32, device=dev)
+    mby, mbx = torch.div(mb, mbw, rounding_mode="floor"), mb % mbw
+    qy = torch.tensor([0, 0, 1, 1], dtype=_I32, device=dev)
+    qx = torch.tensor([0, 1, 0, 1], dtype=_I32, device=dev)
+    y0 = pad + (mby[:, None] * 16 + qy[None, :] * 8).reshape(m) \
+        + (mvf[:, 1] >> 2)
+    x0 = pad + (mbx[:, None] * 16 + qx[None, :] * 8).reshape(m) \
+        + (mvf[:, 0] >> 2)
+    tbl = _qpel_table(dev)[(mvf[:, 0] & 3).long(), (mvf[:, 1] & 3).long()]
+    r8 = torch.arange(8, dtype=_I32, device=dev)
+
+    def sample(p, dy, dx):
+        yi = ((y0 + dy)[:, None, None] + r8[None, :, None]).clamp(0, hp - 1)
+        xi = ((x0 + dx)[:, None, None] + r8[None, None, :]).clamp(0, wp - 1)
+        return planes4[p[:, None, None], yi.long(), xi.long()].to(_I32)
+
+    pred = (sample(tbl[:, 0], tbl[:, 1], tbl[:, 2])
+            + sample(tbl[:, 3], tbl[:, 4], tbl[:, 5]) + 1) >> 1
+    return (pred.reshape(n, 2, 2, 8, 8).permute(0, 1, 3, 2, 4)
+            .reshape(n, 16, 16))

@@ -65,8 +65,14 @@ def subpel_refine(src_mbs, ref_pad, mv0, lam: int, me_range: int,
     y0 = PAD + mby * 16 + (mv0[:, 1] >> 2) - 1
     x0 = PAD + mbx * 16 + (mv0[:, 0] >> 2) - 1
     r23 = torch.arange(23, dtype=_I32, device=dev)
-    yi = ((y0 - 2)[:, None, None] + r23[None, :, None]).long()
-    xi = ((x0 - 2)[:, None, None] + r23[None, None, :]).long()
+    # the window stays on the padded plane: the search never picks a
+    # block wholly in the replicated border, since a nearer one has the
+    # same SAD at fewer mv bits (tests/test_torch_bframes.py holds it at
+    # me_range 29-32); the clamp only keeps the gather in bounds
+    yi = ((y0 - 2)[:, None, None] + r23[None, :, None]).clamp(
+        0, ref_pad.shape[0] - 1).long()
+    xi = ((x0 - 2)[:, None, None] + r23[None, None, :]).clamp(
+        0, ref_pad.shape[1] - 1).long()
     win = hpel_windows(ref_pad[yi, xi].to(_I32))          # (4, N, 18, 18)
 
     # candidates in chunks of 7 stacked into one batched SATD, as in the

@@ -128,8 +128,14 @@ def subpel_refine_parts(src_mbs, mv8, shape, lam: int, me_range: int,
     src_q = (src_mbs.reshape(n, 2, 8, 2, 8).permute(0, 1, 3, 2, 4)
              .reshape(m, 8, 8))
     r15 = torch.arange(15, dtype=_I32, device=dev)
-    yi = ((y0 - 2)[:, None, None] + r15[None, :, None]).long()
-    xi = ((x0 - 2)[:, None, None] + r15[None, None, :]).long()
+    # the window stays on the padded plane: the search never picks a
+    # block wholly in the replicated border, since a nearer one has the
+    # same SAD at fewer mv bits (tests/test_torch_bframes.py holds it at
+    # me_range 29-32); the clamp only keeps the gather in bounds
+    yi = ((y0 - 2)[:, None, None] + r15[None, :, None]).clamp(
+        0, ref_pad.shape[0] - 1).long()
+    xi = ((x0 - 2)[:, None, None] + r15[None, None, :]).clamp(
+        0, ref_pad.shape[1] - 1).long()
     win = _hpel_windows10(ref_pad[yi, xi].to(_I32))        # (4, M, 10, 10)
 
     # partition pooling from the chosen shape
