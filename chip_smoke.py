@@ -17,20 +17,26 @@ Phases, each of which raises (exit code != 0) when it fails:
      the nominal one and the one the probe esa_sad_probe measures; the
      deblock kernel (one launch for Y, Cb and Cr) on the recon planes and
      bS grids of an encoded P8x8 frame, with both terms of its bound
-     (bytes, and the dependent chain timed by a probe kernel);
+     (bytes, and the dependent chain timed by a probe kernel); the trellis
+     kernel on the three blockings of a 1080p P frame's residual (4x4
+     luma, 8x8 luma, chroma AC), its bound the larger of its bytes and
+     its float operations at the card's FP32 rate;
   4. the main paths, each with the kernels' launch counts reset just
      before and read just after: Encoder(device="cuda") encodes a 1080p
      clip of one IDR and 5 P frames (the clip formula of bench.py's
-     make_clip) with P16x16 only, then again with P8x8 partitions, then
-     10 frames as bench.py's GOP (IDR + 3 x (B B P): bframes=2,
-     full_recon off, P8x8 anchors); fps, bytes, Y-PSNR, the partition
-     shapes chosen, per-frame ms by frame type and, where tools/avdec
-     runs, a decode that must equal the encoder's recon (keyed by display
-     index: B frames are final after their anchor);
+     make_clip) with P16x16 only, then again with P8x8 partitions, the
+     8x8 transform and trellis, then 10 frames as bench.py's GOP (IDR +
+     3 x (B B P): bframes=2, full_recon off, P8x8 anchors, the 8x8
+     transform and trellis); fps, bytes, Y-PSNR, the partition shapes
+     chosen, the share of 8x8-transform MBs, per-frame ms by frame type
+     and, where tools/avdec runs, a decode that must equal the encoder's
+     recon (keyed by display index: B frames are final after their
+     anchor);
   5. 352x288 streams encoded on the card must equal, byte for byte, the
      streams the port encodes on the CPU (the kernels' plain twins), with
-     and without partitions, and with B frames (one pair, one single tail
-     B, full_recon on).
+     and without partitions, with B frames (one pair, one single tail B,
+     full_recon on), and with the 8x8 transform and trellis on P8x8 and
+     on a B pair.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits 1.
@@ -54,7 +60,9 @@ CHECK_B_FRAMES = 6           # IDR, B B P, then B + P at flush
 AVDEC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
                      "avdec")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
+FP32_FLOPS_PER_S = 67e12     # H100 SXM, published, outside the tensor cores
 INT32_LANES_PER_SM = 64      # sm_90 integer add / min / sad per clock
+TOOLS = dict(transform_8x8=True, trellis=1)   # bench.py's, ported in A8
 
 
 def make_clip(n: int):
@@ -103,19 +111,20 @@ def split_motion_clip(w: int, h: int, n: int):
     return frames
 
 
-def _spy_shapes(enc) -> list:
-    """Record the partition shapes of every P frame ``enc`` encodes."""
-    shapes = []
+def _spy(enc, key: str = "shape") -> list:
+    """Record out[key] of every I or P core run of ``enc`` that has it:
+    the partition shapes or the 8x8-transform flags of the P frames."""
+    found = []
     run_core = enc._run_core
 
     def spy(*a, **kw):
         out, st = run_core(*a, **kw)
-        if "shape" in out:
-            shapes.append(out["shape"])
+        if key in out:
+            found.append(out[key])
         return out, st
 
     enc._run_core = spy
-    return shapes
+    return found
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -318,17 +327,97 @@ def _deblock_kernel_only_ms(KD, ry, ru, rv, bs_v, bs_h, qp_mb, qpc_mb,
     return sum(e0.elapsed_time(e1) for e0, e1 in ev[1:]) / reps
 
 
-def _run_1080p(label, clip, p8x8, records):
+def _trellis_launches(n_i: int, n_p: int, n_b: int) -> int:
+    """Trellis launches of a 1080p run with the 8x8 transform and
+    trellis, overflow re-runs aside: two per diagonal of the I16
+    wavefront (I16 AC, chroma AC), five per P or B frame (4x4 luma, 8x8
+    luma, chroma AC, and the intra escape's I16 AC and chroma AC, which
+    the port computes on every frame)."""
+    mbw, mbh = (W + 15) // 16, (H + 15) // 16
+    return 2 * (mbw + mbh - 1) * n_i + 5 * (n_p + n_b)
+
+
+def _trellis_phase(clip, record) -> None:
+    """The trellis kernel against its plain twin at the three shapes of
+    a 1080p P frame at QP 26 — 4x4 luma (130560 blocks of 16), 8x8 luma
+    (32640 of 64) and chroma AC (65280 of 15) — bit-exact, each timed
+    with its bound; the record sums the three, one P frame's trellis
+    work.  The input is the luma difference of frames 1 and 0 (the
+    clip's chroma is too smooth to leave a level at QP 26): its 4x4 and
+    8x8 coefficients, and for the chroma-AC shape the AC positions of
+    the first 65280 4x4 blocks with the chroma-AC tables."""
+    import torch
+    from x264_tpu_torch.kernels import build, trellis as KT
+    from x264_tpu_torch.kernels.build import check
+    from x264_tpu_torch.ops import transform as T
+    from x264_tpu_torch.ops.trellis import (dq1_4x4, dq1_8x8, frame_trellis,
+                                            trellis_quant_plain)
+    from x264_tpu_torch.state import me_lambda
+    dev = torch.device("cuda")
+    mbw, mbh = (W + 15) // 16, (H + 15) // 16
+    n = mbw * mbh
+    res = [torch.from_numpy(_pad_to_mb(clip[1][0], 16).astype(np.int32)
+                            - _pad_to_mb(clip[0][0], 16).astype(np.int32)
+                            ).to(dev)]
+    luma = T.plane_to_mbs(res[0], mbh, mbw, 16)
+    c4 = T.zigzag(T.dct4x4(T.mb_luma_to_blocks(luma))).reshape(n * 16, 16)
+    c8 = T.zigzag8(T.dct8x8(T.mb_luma_to_blocks8(luma))).reshape(n * 4, 64)
+    cac = c4[:n * 8, 1:].contiguous()
+    q = torch.full((n,), QP, dtype=torch.int32, device=dev)
+    tbl4, tbl8, lam2f, _, tblc = frame_trellis(QP, "P", me_lambda(QP), True)
+    shapes = (("4x4 luma", c4, dq1_4x4(q.repeat_interleave(16)), tbl4, 16),
+              ("8x8 luma", c8, dq1_8x8(q.repeat_interleave(4)), tbl8, 64),
+              ("chroma AC", cac,
+               dq1_4x4(q.repeat_interleave(8))[:, 1:].contiguous(), tblc,
+               15))
+    tot = dict(err=0, ms=0.0, plain=0.0, t_bytes=0.0, t_ops=0.0)
+    for name, c, dq, tbl, nc in shapes:
+        lv_k = KT.trellis_quant(c, dq, lam2f, tbl, nc)
+        lv_p = trellis_quant_plain(c, dq, lam2f, tbl, nc)
+        err = _max_err(lv_k, lv_p)
+        nz = int((lv_p != 0).sum())
+        if err or not nz:
+            raise AssertionError(f"trellis {name}: max err {err}, {nz} "
+                                 "nonzero levels")
+        ms = _time_ms(lambda: KT.trellis_quant(c, dq, lam2f, tbl, nc), 20)
+        plain = _time_ms(lambda: trellis_quant_plain(c, dq, lam2f, tbl, nc),
+                         3)
+        # a diagnostic: the launch alone, on an output allocated once
+        params, out = KT.params_block(tbl, lam2f, nc, dev), torch.empty_like(c)
+        stream = torch.cuda.current_stream().cuda_stream
+        alone = _time_ms(lambda: check(build.library().trellis_launch(
+            c.data_ptr(), dq.data_ptr(), params.data_ptr(), out.data_ptr(),
+            c.shape[0], nc, stream), "trellis"), 50)
+        nbytes, flops = KT.work(c.shape[0], nc)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * flops / FP32_FLOPS_PER_S
+        print(f"trellis {name}: {c.shape[0]} blocks x {nc}, bit-exact "
+              f"({nz} nonzero levels), {ms:.4f} ms through the wrapper (its "
+              f"launch alone {alone:.4f} ms; plain {plain:.3f} ms), bound "
+              f"max(bytes {t_bytes:.4f}, operations {t_ops:.4f}) ms")
+        tot["err"] = max(tot["err"], err)
+        for k, v in (("ms", ms), ("plain", plain), ("t_bytes", t_bytes),
+                     ("t_ops", t_ops)):
+            tot[k] += v
+    record("trellis", "x264_tpu_torch/csrc/trellis.cu",
+           "x264_tpu/ops/device/trellis.py:244", tot["err"], tot["ms"],
+           tot["plain"], (tot["t_ops"], "operations")
+           if tot["t_ops"] >= tot["t_bytes"] else (tot["t_bytes"], "bytes"))
+
+
+def _run_1080p(label, clip, p8x8, records, tools=None):
     """One main-path run (counts reset just before, read just after);
-    adds its launches to the records and returns (launches, the shape of
-    every MB of every P frame when partitions are on)."""
+    tools: extra params (the 8x8 transform and trellis).  Adds its
+    launches to the records and returns (launches, the shape of every MB
+    of every P frame when partitions are on)."""
     import torch
     import x264_tpu_torch
     from x264_tpu_torch.api import Encoder, Frame420
-    enc = Encoder(_params(W, H, p8x8), device="cuda")
+    enc = Encoder(_params(W, H, p8x8, **(tools or {})), device="cuda")
     recons = {}
     enc.recon_hook = recons.__setitem__       # keyed by display index
-    shapes = _spy_shapes(enc)
+    shapes = _spy(enc)
+    t8s = _spy(enc, "t8")
     stream, times = b"", []
     x264_tpu_torch.reset_launch_counts()
     for y, u, v in clip:
@@ -351,6 +440,12 @@ def _run_1080p(label, clip, p8x8, records):
           f"mean Y-PSNR {_check_recon(label, stream, recons, clip):.3f} dB")
     if recons[len(clip) - 1] is not enc.last_recon:
         raise AssertionError(f"{label}: last_recon is not the last recon")
+    if tools:
+        share = float(torch.cat(t8s).float().mean()) if t8s else 0.0
+        print(f"1080p {label}: {share:.4f} of the P frames' MBs use the "
+              "8x8 transform")
+        if not share:
+            raise AssertionError(f"{label}: no MB chose the 8x8 transform")
     return launches, [s.cpu().numpy() for s in shapes]
 
 
@@ -420,7 +515,7 @@ def _run_1080p_b(clip, records):
     import torch
     import x264_tpu_torch
     from x264_tpu_torch.api import Encoder, Frame420
-    kw = dict(bframes=2, full_recon=False)
+    kw = dict(bframes=2, full_recon=False, **TOOLS)
     enc = Encoder(_params(W, H, True, **kw), device="cuda")
     recons = {}
     enc.recon_hook = recons.__setitem__
@@ -442,13 +537,16 @@ def _run_1080p_b(clip, records):
         r["launches"] += launches[r["name"]]
     types = [s.frame_type for s in enc.stats]
     n_b = types.count("B")
+    least = _trellis_launches(n_i=1, n_p=3, n_b=n_b)
     if types != ["IDR"] + ["P", "B", "B"] * 3 or \
-            launches != {"esa16": 4 * n_b // 2, "esa_parts": 3,
-                         "deblock": 4}:
+            dict(launches, trellis=0) != {"esa16": 4 * n_b // 2,
+                                          "esa_parts": 3, "deblock": 4,
+                                          "trellis": 0} \
+            or launches["trellis"] < least:
         raise AssertionError(f"I/B/P8x8: frame types {types}, launches "
                              f"{launches} (expected esa16 12, esa_parts 3, "
                              "deblock 4: B frames are not deblocked with "
-                             "full_recon off)")
+                             f"full_recon off; trellis at least {least})")
     # the IDR is coded whole inside its own encode() call; every later
     # call up to flush() holds only the stages of display frames 1-9
     tail = times[1:]
@@ -462,7 +560,8 @@ def _run_1080p_b(clip, records):
           f"{len(stream) * 8 / len(clip) / 1000:.1f} kbit/frame, mean "
           f"Y-PSNR {_check_recon('I/B/P8x8', stream, recons, clip, range(0, len(clip), 3)):.3f} dB,"
           f" launches per B pair: esa16 {launches['esa16'] / n_pairs:g},"
-          f" deblock {(launches['deblock'] - n_anchors) / n_pairs:g}")
+          f" deblock {(launches['deblock'] - n_anchors) / n_pairs:g};"
+          f" trellis {launches['trellis']} in the run (at least {least})")
     stage = {}
     enc = Encoder(_params(W, H, True, **kw), device="cuda")
     _timed_stages(enc, stage)
@@ -506,11 +605,45 @@ def _check_small_b() -> None:
     if streams["cuda"] != streams["cpu"]:
         raise AssertionError("352x288 B: card stream != CPU stream")
     if types != ["IDR", "P", "B", "B", "P", "B"] or launches != {
-            "esa16": 6, "esa_parts": 2, "deblock": CHECK_B_FRAMES}:
+            "esa16": 6, "esa_parts": 2, "deblock": CHECK_B_FRAMES,
+            "trellis": 0}:
         raise AssertionError(f"352x288 B: frame types {types}, launches "
                              f"{launches}")
     print(f"{CHECK_W}x{CHECK_H} I/B/P8x8 x{CHECK_B_FRAMES}: card stream == "
           f"CPU stream ({len(streams['cuda'])} bytes), launches {launches}")
+
+
+def _check_small_tools() -> None:
+    """352x288 with the 8x8 transform and trellis: I/P8x8 (4 frames) and
+    one B pair on P8x8 anchors (full_recon on); card streams equal the
+    CPU streams, and the card runs launched the trellis kernel."""
+    import torch
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    for label, n, kw in (("I/P8x8", CHECK_FRAMES, {}),
+                         ("I/B/P8x8", 4, dict(bframes=2, full_recon=True))):
+        small = [Frame420(*f) for f in split_motion_clip(CHECK_W, CHECK_H,
+                                                         n)]
+        streams = {}
+        for d in ("cuda", "cpu"):
+            e = Encoder(_params(CHECK_W, CHECK_H, True, **kw, **TOOLS),
+                        device=d)
+            t8s = _spy(e, "t8")
+            x264_tpu_torch.reset_launch_counts()
+            streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
+            if d == "cuda":
+                launches = x264_tpu_torch.launch_counts()
+                share = float(torch.cat(t8s).float().mean())
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"352x288 {label} t8 + trellis: card stream"
+                                 " != CPU stream")
+        if not launches["trellis"] or not share:
+            raise AssertionError(f"352x288 {label} t8 + trellis: launches "
+                                 f"{launches}, 8x8 share {share}")
+        print(f"{CHECK_W}x{CHECK_H} {label} x{n} with the 8x8 transform and "
+              f"trellis: card stream == CPU stream "
+              f"({len(streams['cuda'])} bytes), launches {launches}, "
+              f"{share:.4f} of the P MBs use the 8x8 transform")
 
 
 def main() -> int:
@@ -678,6 +811,7 @@ def main() -> int:
                                     qpc_mb, mbw, mbh, 20)
     print(f"deblock kernel alone (without the wrapper's clones and counter "
           f"zeroing): {alone:.4f} ms")
+    _trellis_phase(clip, record)
     for r in records:
         print(f"kernel {r['name']}: bit-exact, {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
@@ -690,11 +824,14 @@ def main() -> int:
             and launches["deblock"] == N_FRAMES):
         raise AssertionError(f"I/P16 kernel launches {launches} do not "
                              f"match {N_FRAMES} frames ({n_p} P)")
-    launches, shapes = _run_1080p("I/P8x8", clip, True, records)
+    launches, shapes = _run_1080p("I/P8x8", clip, True, records, TOOLS)
+    least = _trellis_launches(n_i=1, n_p=n_p, n_b=0)
     if not (launches["esa_parts"] == n_p and launches["esa16"] == 0
-            and launches["deblock"] == N_FRAMES):
+            and launches["deblock"] == N_FRAMES
+            and launches["trellis"] >= least):
         raise AssertionError(f"I/P8x8 kernel launches {launches} do not "
-                             f"match {N_FRAMES} frames ({n_p} P)")
+                             f"match {N_FRAMES} frames ({n_p} P; trellis "
+                             f"at least {least})")
     hist = np.bincount(np.concatenate(shapes), minlength=4)
     print("1080p P8x8 shapes over the P frames (16x16, 16x8, 8x16, 8x8; "
           "intra and skip MBs count as 16x16): "
@@ -710,7 +847,7 @@ def main() -> int:
         streams = {}
         for d in ("cuda", "cpu"):
             e = Encoder(_params(CHECK_W, CHECK_H, p8x8), device=d)
-            shapes = _spy_shapes(e)
+            shapes = _spy(e)
             streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
         label = "P8x8" if p8x8 else "P16"
         if streams["cuda"] != streams["cpu"]:
@@ -725,6 +862,7 @@ def main() -> int:
               + (f"; shapes {' '.join(str(int(c)) for c in hist)}"
                  if p8x8 else ""))
     _check_small_b()
+    _check_small_tools()
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -333,9 +333,10 @@ def test_closed_b_settings_raise():
     for kw in (dict(b_adapt=1), dict(scenecut_threshold=40),
                dict(mbtree=True), dict(me_range=32),
                dict(me_range=32, p8x8=True), dict(bframes=0, me_range=32),
-               dict(transform_8x8=True), dict(ref_frames=2)):
+               dict(weightp=1), dict(ref_frames=2)):
         with pytest.raises(NotImplementedError):
             Encoder(_params(**kw), device="cpu")
+    Encoder(_params(transform_8x8=True, trellis=1), device="cpu")
     Encoder(_params(bframes=0, me_range=32, p8x8=True), device="cpu")
     Encoder(_params(me_range=31), device="cpu")
 

@@ -122,8 +122,8 @@ def test_unported_settings_and_missing_card_raise():
                dict(bframes=2, scenecut_threshold=40),
                dict(cabac=False), dict(i4x4=True),
                dict(subpel=0), dict(backend="reference"),
-               dict(p8x8=True, ref_frames=2), dict(p8x8=True, trellis=1),
-               dict(p8x8=True, transform_8x8=True),
+               dict(p8x8=True, ref_frames=2), dict(trellis=1, weightp=1),
+               dict(p8x8=True, transform_8x8=True, i4x4=True),
                dict(p8x8=True, aq_mode=1), dict(p8x8=True, weightp=1),
                dict(slices=2), dict(mbtree=True), dict(me_range=PAD + 1),
                dict(vbv_maxrate=500, vbv_bufsize=500,
@@ -173,3 +173,44 @@ def test_port_runs_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.startswith("OK")
+
+
+# settings the port accepts beyond the defaults, grouped so that each
+# group's cases share the reference's compiled programs: each group runs
+# I/P16 and I/B/P8x8 (bframes=2, full_recon on)
+SETTINGS_GROUPS = {
+    "subpel1_no_decimate": dict(subpel=1, dct_decimate=False),
+    "chroma_qp_offset_deblock_offsets": dict(chroma_qp_offset=4,
+                                             deblock_alpha=3,
+                                             deblock_beta=-2),
+    "deblock_off": dict(deblock=False),
+}
+
+
+@pytest.mark.parametrize("group", list(SETTINGS_GROUPS))
+def test_open_settings_match_reference_and_decode(group):
+    """subpel=1, dct_decimate=False, a chroma QP offset, deblock offsets
+    and deblock off: the port's streams equal the reference's on I, P16,
+    P8x8 and B frames, and avdec decodes them to the port's recon."""
+    w, h = 64, 48
+    for kw, n in ((dict(), 4), (dict(bframes=2, p8x8=True, me_range=8,
+                                     full_recon=True), 7)):
+        kw = dict(kw, **SETTINGS_GROUPS[group])
+        frames = _clip(w, h, n)
+        port = Encoder(_params(w, h, 26, **kw), device="cpu")
+        recons = {}
+        port.recon_hook = recons.__setitem__
+        stream = b"".join(port.encode(f) for f in frames) + port.flush()
+        assert stream == _encode(RefEncoder(_params(w, h, 26, ref=True,
+                                                    **kw)), frames)[0], kw
+        assert "B" in [s.frame_type for s in port.stats] or not kw.get(
+            "bframes")
+        dec = decode_annexb(stream, w, h)
+        assert len(dec) == n == len(recons)
+        for d, planes in enumerate(dec):
+            for p_rec, p_dec in zip((recons[d].y, recons[d].u, recons[d].v),
+                                    planes):
+                hh, ww = p_dec.shape
+                np.testing.assert_array_equal(
+                    p_rec[:hh, :ww].cpu().numpy(), p_dec,
+                    err_msg=f"{group} {kw}: display {d}")

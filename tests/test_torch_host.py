@@ -20,14 +20,17 @@ pytest.importorskip("jax")
 
 import x264_tpu.params as r_params  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
+from x264_tpu.bitstream import cabac_init as r_cabac_init  # noqa: E402
 from x264_tpu.bitstream import tables as r_tables  # noqa: E402
 from x264_tpu.models import inter_frame as r_inter  # noqa: E402
+from x264_tpu.models import residual_device as r_residual  # noqa: E402
 from x264_tpu.ops.device import me_parts as r_me_parts  # noqa: E402
 from x264_tpu.ops.reference import deblock as r_deblock  # noqa: E402
 from x264_tpu.ops.reference import mc as r_mc  # noqa: E402
 from x264_tpu.utils.yuv import Frame420 as RefFrame  # noqa: E402
 import x264_tpu_torch.params as t_params  # noqa: E402
 from x264_tpu_torch import state  # noqa: E402
+from x264_tpu_torch.bitstream import cabac_init as t_cabac_init  # noqa: E402
 from x264_tpu_torch.api import Encoder  # noqa: E402
 from x264_tpu_torch.ops import me_parts as t_me_parts  # noqa: E402
 from x264_tpu_torch.utils.yuv import Frame420  # noqa: E402
@@ -39,6 +42,15 @@ TABLES = [
     ("QUANT4_MF", r_tables, state),
     ("DEQUANT4", r_tables, state),
     ("ZIGZAG_4x4", r_tables, state),
+    ("ZIGZAG_8x8", r_tables, state),
+    ("QUANT8_MF", r_tables, state),
+    ("DEQUANT8", r_tables, state),
+    ("_DS4", r_residual, state),
+    ("_DS8", r_residual, state),
+    ("CTX_INIT_I", r_cabac_init, t_cabac_init),
+    ("CTX_INIT_PB", r_cabac_init, t_cabac_init),
+    ("SIG8X8_MAP", r_cabac_init, t_cabac_init),
+    ("LAST8X8_MAP", r_cabac_init, t_cabac_init),
     ("ALPHA", r_deblock, state),
     ("BETA", r_deblock, state),
     ("TC0", r_deblock, state),
@@ -49,6 +61,14 @@ TABLES = [
     ("N_PARTS", r_me_parts, t_me_parts),
     ("SHAPE_BITS", r_me_parts, t_me_parts),
 ]
+
+
+def test_cabac_init_is_a_verbatim_copy():
+    """bitstream/cabac_init.py (generated tables) is the reference's file
+    byte for byte."""
+    with open(t_cabac_init.__file__, "rb") as a, \
+            open(r_cabac_init.__file__, "rb") as b:
+        assert a.read() == b.read()
 
 
 @pytest.mark.parametrize("name,ref_mod,port_mod", TABLES,
@@ -62,6 +82,7 @@ def test_copied_table_equals_reference(name, ref_mod, port_mod):
 def test_lambda_and_mv_bits_equal_reference():
     for qp in range(52):
         assert state.sad_lambda(qp) == r_inter.sad_lambda(qp)
+        assert state.me_lambda(qp) == r_inter.me_lambda(qp)
     for m in (4, 36, 64, 132):
         np.testing.assert_array_equal(state.mv_bits_arr(m),
                                       r_inter.mv_bits_arr(m))

@@ -15,9 +15,11 @@ import x264_tpu_torch
 from x264_tpu_torch.api import Encoder
 from x264_tpu_torch.kernels import deblock as k_db
 from x264_tpu_torch.kernels import esa16, esa_parts
+from x264_tpu_torch.kernels import trellis as k_tr
+from x264_tpu_torch.ops import trellis as tr
 from x264_tpu_torch.ops.deblock import bs_grids
 from x264_tpu_torch.params import EncoderParams
-from x264_tpu_torch.state import PAD
+from x264_tpu_torch.state import PAD, me_lambda
 from x264_tpu_torch.utils.yuv import Frame420
 
 pytestmark = pytest.mark.cuda
@@ -338,4 +340,89 @@ def test_b_encoder_on_card_matches_cpu(cuda, bframes, p8x8):
             assert n_b and c["deblock"] == n and c["esa16"] == 2 * n_b + (
                 0 if p8x8 else n_p) and c["esa_parts"] == (
                 n_p if p8x8 else 0), c
+    assert streams[0] == streams[1]
+
+
+def _trellis_inputs(cuda, nblocks, nc, qp, scale, seed):
+    """Zigzag coefficients of random residual blocks (amplitudes from
+    noise to 255, so levels reach the escape range at low QP) and the dq
+    of a per-block QP around ``qp``."""
+    rng = np.random.default_rng(seed)
+    amp = rng.choice([1, 4, 16, 64, scale], size=(nblocks, 1))
+    c = np.clip(np.round(rng.standard_normal((nblocks, nc)) * amp * 8),
+                -16320, 16320).astype(np.int32)
+    q = np.clip(qp + rng.integers(-2, 3, nblocks), 0, 51).astype(np.int32)
+    qt = torch.from_numpy(q).to(cuda)
+    dq = tr.dq1_8x8(qt) if nc == 64 else tr.dq1_4x4(qt)
+    if nc == 15:
+        dq = dq[:, 1:].contiguous()
+    return torch.from_numpy(c).to(cuda), dq
+
+
+@pytest.mark.parametrize("nc,cat", [(16, 2), (64, 5), (15, 1), (15, 4)])
+@pytest.mark.parametrize("qp,stype", [(0, "I"), (26, "P"), (40, "B"),
+                                      (51, "P")])
+def test_trellis_kernel_matches_plain(cuda, nc, cat, qp, stype):
+    """Levels bit-exact against the plain twin (its float semantics are
+    the kernel's), with a launch counted; 1000 blocks, a partial CTA."""
+    c, dq = _trellis_inputs(cuda, 1000, nc, qp, 255, nc * 100 + qp)
+    tbl = tr.tables_tuple(qp, stype, cat)
+    lam2f = tr.frame_trellis(qp, stype, me_lambda(qp), True)[2]
+    before = x264_tpu_torch.launch_counts()["trellis"]
+    got = k_tr.trellis_quant(c, dq, lam2f, tbl, nc)
+    assert x264_tpu_torch.launch_counts()["trellis"] == before + 1
+    want = tr.trellis_quant_plain(c, dq, lam2f, tbl, nc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (want != 0).any()
+
+
+def test_trellis_kernel_1080p_shapes_and_layout(cuda):
+    """The 1080p block counts (130560 4x4, 32640 8x8, 65280 chroma AC),
+    repeated launches equal, and the parameter block's length equal to
+    the kernel's own."""
+    from x264_tpu_torch.kernels.build import library
+    bundle = tr.frame_trellis(26, "P", me_lambda(26), True)
+    for nblocks, nc, tbl in ((130560, 16, bundle[0]), (32640, 64, bundle[1]),
+                             (65280, 15, bundle[4])):
+        assert library().trellis_params_len(nc) == \
+            k_tr.params_block(tbl, bundle[2], nc, cuda).numel()
+        c, dq = _trellis_inputs(cuda, nblocks, nc, 26, 255, nc)
+        a = k_tr.trellis_quant(c, dq, bundle[2], tbl, nc)
+        b = k_tr.trellis_quant(c, dq, bundle[2], tbl, nc)
+        want = tr.trellis_quant_plain(c, dq, bundle[2], tbl, nc)
+        torch.cuda.synchronize()
+        assert torch.equal(a, want) and torch.equal(a, b)
+
+
+def test_trellis_bad_launches_raise(cuda):
+    tbl = tr.tables_tuple(26, "P", 2)
+    c = torch.zeros((4, 16), dtype=torch.int32, device=cuda)
+    dq = tr.dq1_4x4(torch.full((4,), 26, device=cuda))
+    with pytest.raises(ValueError):
+        k_tr.trellis_quant(c, dq, np.float32(1.0), tbl, 32)
+    with pytest.raises(ValueError):
+        k_tr.trellis_quant(c, dq[:, :15], np.float32(1.0), tbl, 16)
+    with pytest.raises(ValueError):
+        k_tr.trellis_quant(c, dq.cpu(), np.float32(1.0), tbl, 16)
+
+
+@pytest.mark.parametrize("bframes,p8x8", [(0, False), (0, True), (2, True)])
+def test_t8_trellis_encoder_on_card_matches_cpu(cuda, bframes, p8x8):
+    """The 8x8 transform and trellis on P16, P8x8 and a B pair
+    (full_recon on): card stream == CPU stream, trellis launched."""
+    from chip_smoke import split_motion_clip
+    w, h, n = 96, 64, 4
+    frames = [Frame420(*f) for f in split_motion_clip(w, h, n)]
+    p = EncoderParams(width=w, height=h, qp=26, cabac=True,
+                      bframes=bframes, me_range=8, scenecut_threshold=0,
+                      backend="device", p8x8=p8x8, full_recon=True,
+                      transform_8x8=True, trellis=1)
+    streams = []
+    for d in (cuda, "cpu"):
+        enc = Encoder(p, device=d)
+        x264_tpu_torch.reset_launch_counts()
+        streams.append(b"".join(enc.encode(f) for f in frames) + enc.flush())
+        if d is cuda:
+            assert x264_tpu_torch.launch_counts()["trellis"] > 0
     assert streams[0] == streams[1]

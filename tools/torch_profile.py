@@ -4,7 +4,7 @@ PyTorch + CUDA port, on one NVIDIA GPU: per-stage wall time and a
 torch.profiler breakdown.
 
     python3 tools/torch_profile.py [--frames N] [--pairs M]
-                                   [--modes p16,p8x8,bpair]
+                                   [--modes p16,p8x8,bpair] [--tools]
 
 For P16x16 and for P8x8, an encoder on the card encodes chip_smoke.py's
 1080p clip (bench.py's formula): the IDR and two P frames to warm up,
@@ -18,7 +18,8 @@ the CABAC coder inside it).  Then, for each mode again (after every
 timed pass: the profiler slows later launches in the same process), the
 same work under torch.profiler: device time by kernel, kernel launches
 (split by kernel), and the device's idle share of the profiled wall
-time.  Prints the card's name and power limit first.
+time.  --tools turns on the 8x8 transform and trellis (bench.py's) in
+every mode.  Prints the card's name and power limit first.
 """
 
 import argparse
@@ -29,6 +30,7 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+TOOLS = {}          # extra encoder params of every mode (--tools)
 
 
 def _timed(obj, name, times):
@@ -54,7 +56,7 @@ def _warm_encoder(p8x8: bool, frames):
     """An encoder on the card that has encoded the IDR and two P frames."""
     from chip_smoke import H, W, _params
     from x264_tpu_torch.api import Encoder
-    enc = Encoder(_params(W, H, p8x8), device="cuda")
+    enc = Encoder(_params(W, H, p8x8, **TOOLS), device="cuda")
     for f in frames[:3]:
         enc.encode(f)
     return enc
@@ -141,7 +143,7 @@ def _b_encoder(frames):
     last ``_submit_b_pair`` call."""
     from chip_smoke import H, W, _params
     from x264_tpu_torch.api import Encoder
-    enc = Encoder(_params(W, H, True, bframes=2, full_recon=False),
+    enc = Encoder(_params(W, H, True, bframes=2, full_recon=False, **TOOLS),
                   device="cuda")
     calls = []
     submit = enc._submit_b_pair
@@ -202,9 +204,12 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--modes", default="p16,p8x8,bpair")
+    ap.add_argument("--tools", action="store_true")
     args = ap.parse_args()
     modes = args.modes.split(",")
-    from chip_smoke import make_clip
+    from chip_smoke import TOOLS as bench_tools, make_clip
+    if args.tools:
+        TOOLS.update(bench_tools)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

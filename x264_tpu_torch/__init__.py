@@ -10,9 +10,12 @@ what ran on the TPU runs on PyTorch tensors:
   native/   — the C CABAC coder (a copy of x264_tpu/native), built with
               gcc at first use (ops/entropy_pack.py)
   ops/      — primitive ops on tensors (pixel, transform, predict, mc,
-              me, me_parts, header, entropy_pack, deblock)
-  models/   — frame cores: the I16 wavefront (intra) and the P pipeline
-              (inter, P16x16 or P8x8 partitions), with their residual paths
+              me, me_parts, header, entropy_pack, deblock) and the
+              trellis's host tables and plain twin (trellis)
+  models/   — frame cores: the I16 wavefront (intra), the P pipeline
+              (inter, P16x16 or P8x8 partitions) and the B frames
+              (b_frame), with their residual paths (4x4 or 8x8,
+              deadzone or trellis)
   kernels/  — wrappers, plain twins and the nvcc build of the
               hand-written CUDA kernels in csrc/
   state.py  — constant tables (copied from x264_tpu) on a device,

@@ -13,7 +13,8 @@ the frame cores, the deblock and the upload.  The decoded picture buffer
 
 The port runs the single-slice, single-reference CABAC path: I and P
 frames, with or without P8x8 partitions, and B frames in fixed mini-GOPs
-(``bframes`` > 0, temporal direct); the settings in ``_NOT_PORTED`` and
+(``bframes`` > 0, temporal direct), with the adaptive 8x8 transform and
+trellis quantisation when asked; the settings in ``_NOT_PORTED`` and
 ``_NOT_PORTED_B`` raise ``NotImplementedError``.
 """
 
@@ -35,9 +36,10 @@ from x264_tpu_torch.models.inter import p_frame_core
 from x264_tpu_torch.models.intra import i_frame_core
 from x264_tpu_torch.ops.deblock import deblock_frame, deblock_frame_b
 from x264_tpu_torch.ops.entropy_pack import blob_stride, write_slice_cabac
+from x264_tpu_torch.ops.trellis import frame_trellis
 from x264_tpu_torch.params import EncoderParams
 from x264_tpu_torch.rc import RateControl
-from x264_tpu_torch.state import PAD, sad_lambda
+from x264_tpu_torch.state import PAD, me_lambda, sad_lambda
 from x264_tpu_torch.utils.yuv import Frame420, pad_to_mb
 
 __all__ = ["Encoder", "EncoderParams", "Frame420", "FrameStats",
@@ -48,9 +50,8 @@ MB_I16, MB_I4, MB_PSKIP = 0, 1, 3
 
 # parameters whose paths are not ported yet (ROADMAP queue A), with the
 # value the port runs
-_NOT_PORTED = dict(cabac=True, ref_frames=1, i4x4=False,
-                   transform_8x8=False, trellis=0, weightp=0, aq_mode=0,
-                   mbtree=False, intra_refresh=False, slices=1,
+_NOT_PORTED = dict(cabac=True, ref_frames=1, i4x4=False, weightp=0,
+                   aq_mode=0, mbtree=False, intra_refresh=False, slices=1,
                    vbv_maxrate=0, vbv_bufsize=0)
 # with B frames: the adaptive mini-GOP and the pre-encode lowres
 # scenecut need the lookahead (ROADMAP A13)
@@ -207,7 +208,8 @@ class Encoder:
         if idr or ref is None:
             out = i_frame_core(yd, ud, vd, qp, mbw=mbw, mbh=mbh,
                                cqp_off=self.p.chroma_qp_offset,
-                               lv_cap=n_words)
+                               lv_cap=n_words,
+                               trellis_tbl=self._trellis_tbl(base_qp, "I"))
             slice_type = SLICE_I
         else:
             r = ref[0]
@@ -217,10 +219,21 @@ class Encoder:
                                cqp_off=self.p.chroma_qp_offset,
                                subpel=self.p.subpel, lv_cap=n_words,
                                parts=self.p.p8x8,
-                               decimate=self.p.dct_decimate)
+                               decimate=self.p.dct_decimate,
+                               t8=self.p.transform_8x8,
+                               trellis_tbl=self._trellis_tbl(base_qp, "P"))
             slice_type = SLICE_P
         out["host_blob"] = _HostCopy(out["host_blob"])
         return out, slice_type
+
+    def _trellis_tbl(self, qp: int, slice_type: str):
+        """The frame's trellis cost bundle (``frame_trellis`` at the RD
+        slope me_lambda), or None when trellis is off; the reference's
+        static ctx-init tables, never the coder's live states."""
+        if not self.p.trellis:
+            return None
+        return frame_trellis(qp, slice_type, me_lambda(qp),
+                             self.p.transform_8x8)
 
     def _note_recon(self, disp, rec) -> None:
         if self.recon_hook is not None and disp is not None:
@@ -278,11 +291,13 @@ class Encoder:
         else:
             mv = out["mv"] if "mv" in out else zeros[:, None].expand(n, 2)
             ref = out.get("ref_mb", zeros)
+        has_t8 = self.p.transform_8x8 and "t8" in out
         return deblock_frame(
             ry, ru, rv, out["mb_class"], out["cbp_luma"], out["cbp_chroma"],
             out.get("nnz_deblock", out["luma_nnz"]), mv, ref, out["qp_mb"],
             self.p.deblock_alpha * 2, self.p.deblock_beta * 2, mbw=mbw,
-            mbh=mbh, cqp_off=self.p.chroma_qp_offset)
+            mbh=mbh, cqp_off=self.p.chroma_qp_offset,
+            t8=out["t8"] if has_t8 else None)
 
     def _submit_device(self, y, u, v, ftype: str, qp: int) -> dict:
         """Upload the frame, run its core and deblock, advance the DPB."""
@@ -376,7 +391,8 @@ class Encoder:
             bs.put(pad, (1 << pad) - 1)    # cabac_alignment_one_bit
         kind = 0 if job["slice_type"] == SLICE_I else 1
         payload = write_slice_cabac(blob, job["mbw"], job["mbh"], kind,
-                                    job["slice_qp"], K, parts=parts)
+                                    job["slice_qp"], K, parts=parts,
+                                    t8_mode=self.p.transform_8x8)
         out_bytes += wrap_slice_nal(bs.to_bytes_aligned() + payload,
                                     job["idr"])
         cost = int(rows[:, 14 + 9].astype(np.int64).sum())
@@ -515,7 +531,8 @@ class Encoder:
             mbw=y.shape[1] // 16, mbh=y.shape[0] // 16,
             me_range=self.p.me_range, cqp_off=self.p.chroma_qp_offset,
             lv_cap=n_words, subpel=self.p.subpel,
-            decimate=self.p.dct_decimate)
+            decimate=self.p.dct_decimate, t8_mode=self.p.transform_8x8,
+            trellis_tbl=self._trellis_tbl(qp, "B"))
 
     def _b_job(self, out: dict, disp: int, qp: int, poc_cur: int, ladder,
                n_words: int, args: tuple) -> dict:
@@ -555,7 +572,8 @@ class Encoder:
             mbw=y1.shape[1] // 16, mbh=y1.shape[0] // 16,
             me_range=self.p.me_range, cqp_off=self.p.chroma_qp_offset,
             lv_cap=n_words, subpel=self.p.subpel,
-            decimate=self.p.dct_decimate)
+            decimate=self.p.dct_decimate, t8_mode=self.p.transform_8x8,
+            trellis_tbl=self._trellis_tbl(qps[0], "B"))
         return [self._b_job(outs[i], d, qps[i], pocs[i], ladder, n_words,
                             (*planes[i], prev, nxt, dsfs[i]))
                 for i, (_, d) in enumerate((b1, b2))]
@@ -596,7 +614,8 @@ class Encoder:
         pad = (-bs.bit_length) % 8
         if pad:
             bs.put(pad, (1 << pad) - 1)    # cabac_alignment_one_bit
-        payload = write_slice_cabac(blob, mbw, mbh, 2, qp, n_words)
+        payload = write_slice_cabac(blob, mbw, mbh, 2, qp, n_words,
+                                    t8_mode=self.p.transform_8x8)
         data = wrap_slice_nal(bs.to_bytes_aligned() + payload, False,
                               is_ref=False)
 
@@ -609,7 +628,8 @@ class Encoder:
                 out["any0"], out["any1"], qp, self.p.deblock_alpha * 2,
                 self.p.deblock_beta * 2, mbw=mbw, mbh=mbh,
                 cqp_off=self.p.chroma_qp_offset,
-                intra=out["mb_class"] == 0)
+                intra=out["mb_class"] == 0,
+                t8=out["t8"] if self.p.transform_8x8 else None)
         self.last_recon = ReconFrame(ry, ru, rv)
         self._note_recon(job["disp"], self.last_recon)
         self.stats.append(FrameStats("B", len(data) * 8, qp))

@@ -5,4 +5,4 @@ CPU, launches the kernel for CUDA tensors, and counts its launches in
 ``LAUNCHES`` (one per wrapper call that launched the kernel), so a run
 can show that the main path went through the kernels."""
 
-LAUNCHES = {"esa16": 0, "esa_parts": 0, "deblock": 0}
+LAUNCHES = {"esa16": 0, "esa_parts": 0, "deblock": 0, "trellis": 0}

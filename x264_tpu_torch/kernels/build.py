@@ -37,6 +37,8 @@ SIGNATURES = {
     "esa_geom_query": [_I, _I, _I, _P],
     "deblock_launch": [_P] * 11 + [_I] * 4 + [_P],
     "deblock_chain_probe_launch": [_P, _P, _P, _P, _I, _I, _P],
+    "trellis_launch": [_P, _P, _P, _P, _I, _I, _P],
+    "trellis_params_len": [_I],
 }
 
 _lib = None

@@ -1,0 +1,94 @@
+"""Trellis quantisation: the wrapper of the CUDA kernel ``csrc/trellis.cu``
+(one thread per block runs the 9-state Viterbi and its backtrack) and the
+work it does, for its bound.
+
+Replaces x264_tpu/ops/device/trellis.py::trellis_quant, which the
+reference runs as XLA (no Pallas kernel); the plain twin is
+``ops/trellis.trellis_quant_plain``."""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from x264_tpu_torch.kernels import LAUNCHES
+from x264_tpu_torch.kernels.build import check, library
+from x264_tpu_torch.ops.trellis import (lambda_tables, position_gains,
+                                        trellis_quant_plain)
+
+NCS = (15, 16, 64)
+
+# float operations of one Viterbi step of one block in csrc/trellis.cu,
+# an FMA counted as two: the target, seed and distortion (c, c/dq, +0.5,
+# (w*c)*c: 5); for each of the two candidate levels the error (FMA 2),
+# its distortion (2), min(a, 15) - 2 (2) and per state the entry and
+# level costs (base_e 2, gt_base 1, lcg FMA 2 + 2 adds, two move sums
+# 3: 10 x 9); the level-0 moves (2 x 9); the first minimum over the 45
+# transitions and 8 dummies (53)
+FLOPS_PER_STEP = 5 + 2 * (2 + 2 + 2 + 10 * 9) + 2 * 9 + 53
+
+
+def params_block(tbl, lam2f, nc: int, device) -> torch.Tensor:
+    """The kernel's per-call parameter block (layout in csrc/trellis.cu),
+    float32 on ``device``; cached by the tables' and lambda's bytes, so
+    that the calls of a frame and of later frames at its QP neither
+    rebuild nor upload it."""
+    return _params_block(str(torch.device(device)), nc,
+                         np.float32(lam2f).tobytes(),
+                         tuple(np.asarray(a, np.float32).tobytes()
+                               for a in tbl))
+
+
+@functools.lru_cache(maxsize=256)
+def _params_block(device: str, nc: int, lam: bytes, tbl: tuple):
+    shapes = ((nc - 1, 2), (nc - 1, 2), (8, 2), (8, 2), (2,))
+    tbl = [np.frombuffer(b, np.float32).reshape(sh)
+           for b, sh in zip(tbl, shapes)]
+    t = lambda_tables(tbl, np.frombuffer(lam, np.float32)[0], nc)
+    k, w = position_gains(nc)
+    host = np.concatenate([t["sig0"], t["fl"], t["fm"], t["lc1"], t["b0e1"],
+                           t["gt1e0"], t["gt1e1"], t["fin"],
+                           np.atleast_1d(t["byp"]), k, w]).astype(np.float32)
+    return torch.from_numpy(host).to(device)
+
+
+def work(nblocks: int, nc: int) -> tuple:
+    """(bytes, float operations) of one call: coefficients and dq read
+    once, levels written once; FLOPS_PER_STEP per block and position."""
+    return 12 * nblocks * nc, FLOPS_PER_STEP * nblocks * nc
+
+
+def trellis_quant_(coefs_zz, dq_zz, lam2f, tbl, nc: int):
+    """Launch the kernel on CUDA tensors: (B, nc) int32 coefficients and
+    float32 dq -> (B, nc) int32 signed levels."""
+    if nc not in NCS:
+        raise ValueError(f"trellis: nc {nc} not in {NCS}")
+    if coefs_zz.dim() != 2 or coefs_zz.shape[1] != nc \
+            or dq_zz.shape != coefs_zz.shape:
+        raise ValueError(f"trellis: coefs {tuple(coefs_zz.shape)} and dq "
+                         f"{tuple(dq_zz.shape)} must both be (B, {nc})")
+    dev = coefs_zz.device
+    if dq_zz.device != dev:
+        raise ValueError("trellis: coefs and dq on different devices")
+    c = coefs_zz.to(torch.int32).contiguous()
+    dq = dq_zz.to(torch.float32).contiguous()
+    params = params_block(tbl, lam2f, nc, dev)
+    out = torch.empty_like(c)
+    err = library().trellis_launch(
+        c.data_ptr(), dq.data_ptr(), params.data_ptr(), out.data_ptr(),
+        c.shape[0], nc, torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "trellis")
+    LAUNCHES["trellis"] += 1
+    return out
+
+
+def trellis_quant(coefs_zz, dq_zz, lam2f, tbl, nc: int):
+    """RD-optimal signed levels of (B, nc) zigzag coefficients: the
+    kernel on a CUDA tensor, the plain twin on a CPU tensor."""
+    if coefs_zz.device.type == "cpu":
+        return trellis_quant_plain(coefs_zz, dq_zz, lam2f, tbl, nc)
+    if coefs_zz.device.type != "cuda":
+        raise ValueError(f"trellis_quant: no kernel for {coefs_zz.device}")
+    return trellis_quant_(coefs_zz, dq_zz, lam2f, tbl, nc)

@@ -1,7 +1,7 @@
 """B-frame core: bi-predictive 16x16 encoding with temporal direct mode
 (port of x264_tpu/models/b_frame_device.py: ``b_frame_core``,
 ``b_pair_core`` and ``_b_body`` on the CABAC, single-reference-per-list
-path without the 8x8 transform or trellis).
+path, with the adaptive 8x8 transform and trellis when asked).
 
 Temporal direct (8.4.1.2.3) derives every MB's direct mvs from the
 colocated quadrant of the future anchor's motion field, so the whole B
@@ -18,10 +18,10 @@ from __future__ import annotations
 
 import torch
 
-from x264_tpu_torch.models.inter import _neigh
+from x264_tpu_torch.models.inter import _neigh, select_transform_8x8
 from x264_tpu_torch.models.intra import pick_mode, qp_per_mb
 from x264_tpu_torch.models.residual import (encode_chroma, encode_i16_luma,
-                                            encode_p_luma)
+                                            encode_p_luma, trellis_args)
 from x264_tpu_torch.ops import pixel as P
 from x264_tpu_torch.ops import predict as PR
 from x264_tpu_torch.ops import transform as T
@@ -50,28 +50,33 @@ def _anchors(l0_y, l0_u, l0_v, l1_y, l1_u, l1_v):
 def b_frame_core(y, u, v, l0_y, l0_u, l0_v, l1_y, l1_u, l1_v, col_mv,
                  col_intra, dist_scale: int, qp, lam: int, mbw: int,
                  mbh: int, me_range: int, cqp_off: int, lv_cap: int,
-                 subpel: int = 2, decimate: bool = True):
+                 subpel: int = 2, decimate: bool = True,
+                 t8_mode: bool = False, trellis_tbl=None):
     """Encode one B frame.  y/u/v uint8 source planes; l0_* / l1_* the
     past and future anchors' recon planes; col_mv (N,4,2) the future
     anchor's quadrant motion field, col_intra (N,) bool its intra MBs;
     dist_scale the temporal-direct DistScaleFactor (8.4.1.2.3); qp int;
-    lam int.  Returns the per-MB syntax tensors, the pre-deblock recon
-    planes and ``host_blob``."""
+    lam int; t8_mode: the adaptive 8x8 transform; trellis_tbl: the
+    ``ops/trellis.frame_trellis`` bundle or None.  Returns the per-MB
+    syntax tensors, the pre-deblock recon planes and ``host_blob``."""
     a = _anchors(l0_y, l0_u, l0_v, l1_y, l1_u, l1_v)
     mv0, c0 = full_search_16x16(y, a["l0y"], lam, me_range, mbw, mbh)
     mv1, c1 = full_search_16x16(y, a["l1y"], lam, me_range, mbw, mbh)
     return _b_body(y, u, v, a, col_mv, col_intra, dist_scale, qp, lam,
                    mv0, c0, mv1, c1, mbw=mbw, mbh=mbh, me_range=me_range,
                    cqp_off=cqp_off, lv_cap=lv_cap, subpel=subpel,
-                   decimate=decimate)
+                   decimate=decimate, t8_mode=t8_mode,
+                   trellis_tbl=trellis_tbl)
 
 
 def b_pair_core(ys, us, vs, l0_y, l0_u, l0_v, l1_y, l1_u, l1_v, col_mv,
                 col_intra, dist_scales, qps, lam: int, mbw: int, mbh: int,
                 me_range: int, cqp_off: int, lv_cap: int, subpel: int = 2,
-                decimate: bool = True):
+                decimate: bool = True, t8_mode: bool = False,
+                trellis_tbl=None):
     """Both B frames of a mini-GOP: ys/us/vs the two frames' planes,
-    dist_scales/qps their two values, lam shared.  The padded anchors
+    dist_scales/qps their two values, lam and the trellis bundle
+    shared.  The padded anchors
     and half-pel planes are made once; the four fullpel searches run in
     the reference's order (B1-L0, B1-L1, B2-L0, B2-L1); then the body
     per frame.  Returns the two frames' output dicts; each equals
@@ -82,14 +87,15 @@ def b_pair_core(ys, us, vs, l0_y, l0_u, l0_v, l1_y, l1_u, l1_v, col_mv,
     return [_b_body(ys[i], us[i], vs[i], a, col_mv, col_intra,
                     dist_scales[i], qps[i], lam, *fp[2 * i], *fp[2 * i + 1],
                     mbw=mbw, mbh=mbh, me_range=me_range, cqp_off=cqp_off,
-                    lv_cap=lv_cap, subpel=subpel, decimate=decimate)
+                    lv_cap=lv_cap, subpel=subpel, decimate=decimate,
+                    t8_mode=t8_mode, trellis_tbl=trellis_tbl)
             for i in range(2)]
 
 
 def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
             mv0_fp, cost0_fp, mv1_fp, cost1_fp, mbw: int, mbh: int,
             me_range: int, cqp_off: int, lv_cap: int, subpel: int,
-            decimate: bool):
+            decimate: bool, t8_mode: bool, trellis_tbl):
     """One B frame from the shared anchor work ``a`` and the frame's
     fullpel ME results."""
     n = mbw * mbh
@@ -139,8 +145,19 @@ def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
            torch.where((bmode == B_L0)[:, None, None], pred0,
            torch.where((bmode == B_L1)[:, None, None], pred1, pred_bi)))
 
+    tr4, tr8, tr16, trc = trellis_args(trellis_tbl)
     recon_y_mbs, ac_zz, nnz, cbp_l = encode_p_luma(src_mbs, pred, qp,
+                                                   trellis=tr4,
                                                    decimate=decimate)
+    nnz_deblock = nnz
+    t8 = torch.zeros(n, dtype=torch.bool, device=dev)
+    if t8_mode:
+        # the P core's true-cost transform size (reference analyse.c
+        # x264_mb_analyse_transform for B slices; CABAC only there too)
+        (t8, recon_y_mbs, ac_zz, nnz, nnz_deblock,
+         cbp_l) = select_transform_8x8(src_mbs, pred, qp, lam, recon_y_mbs,
+                                       ac_zz, nnz, cbp_l, trellis8=tr8,
+                                       decimate=decimate)
 
     # chroma: per-list MC at the final mvs, averaged per mode
     cu0, cv0 = mc_chroma_uv_quad(a["l0u"], a["l0v"], fmv0, mbw, mbh,
@@ -156,7 +173,8 @@ def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
     src_u = T.plane_to_mbs(u.to(_I32), mbh, mbw, 8)
     src_v = T.plane_to_mbs(v.to(_I32), mbh, mbw, 8)
     ru_mbs, rv_mbs, cdc, cac, cnnz, cbp_c = encode_chroma(
-        src_u, src_v, cpred_u, cpred_v, qpc, intra=False, decimate=decimate)
+        src_u, src_v, cpred_u, cpred_v, qpc, intra=False, decimate=decimate,
+        trellis=trc)
 
     # ---- intra-in-B: the I16x16 escape (analyse.c:3180-3259's intra
     # probe in B).  A source-edge cost estimate picks candidates, the
@@ -192,7 +210,8 @@ def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
     itop, ileft, itl = _neigh(ry_pl, 16, mbw, mbh)
     imode, _, ipred = pick_mode(
         src_mbs, PR.predict_16x16_all(itop, ileft, itl, at, al), iavail)
-    irec, idc, iac, innz, icbp_l = encode_i16_luma(src_mbs, ipred, qp)
+    irec, idc, iac, innz, icbp_l = encode_i16_luma(src_mbs, ipred, qp,
+                                                   trellis=tr16)
     ctop_u, cleft_u, ctl_u = _neigh(ru_pl, 8, mbw, mbh)
     ctop_v, cleft_v, ctl_v = _neigh(rv_pl, 8, mbw, mbh)
     cpreds_u = PR.predict_chroma_all(ctop_u, cleft_u, ctl_u, at, al)
@@ -203,7 +222,7 @@ def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
     cmode = torch.argmin(ccosts, dim=1)
     icr_u, icr_v, icdc, icac, icnnz, icbp_c = encode_chroma(
         src_u, src_v, cpreds_u[mb, cmode], cpreds_v[mb, cmode], qpc,
-        intra=True)
+        intra=True, trellis=trc)
 
     mk1 = intra_mask[:, None]
     mk2 = intra_mask[:, None, None]
@@ -221,6 +240,8 @@ def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
     recon_y_mbs = torch.where(mk2, irec, recon_y_mbs)
     ru_mbs = torch.where(mk2, icr_u, ru_mbs)
     rv_mbs = torch.where(mk2, icr_v, rv_mbs)
+    nnz_deblock = torch.where(mk1, nnz, nnz_deblock)
+    t8 = t8 & ~intra_mask & (cbp_l > 0)
 
     # intra MBs leave the inter signalling entirely
     use0, use1 = use0 & ~intra_mask, use1 & ~intra_mask
@@ -238,13 +259,12 @@ def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
     mb_class = torch.where(intra_mask, 0,
                            torch.where(is_skip, 3, 2)).to(_I32)
     mb_cost = torch.minimum(cost0, cost1)
-    t8 = torch.zeros(n, dtype=torch.bool, device=dev)
     out = dict(
         mb_class=mb_class, bmode=bmode, mv0=fmv0, mv1=fmv1, any0=any0,
         any1=any1, mvd0=mvd0.to(_I32), mvd1=mvd1.to(_I32),
         i16_mode=i16_mode, chroma_mode=chroma_mode, luma_dc=luma_dc,
         luma_ac=ac_zz, chroma_dc=cdc, chroma_ac=cac, chroma_nnz=cnnz,
-        luma_nnz=nnz, nnz_deblock=nnz, t8=t8, cbp_luma=cbp_l,
+        luma_nnz=nnz, nnz_deblock=nnz_deblock, t8=t8, cbp_luma=cbp_l,
         cbp_chroma=cbp_c, qp_mb=qp, mb_cost=mb_cost,
         recon_y=T.mbs_to_plane(recon_y_mbs, mbh, mbw, 16).to(torch.uint8),
         recon_u=T.mbs_to_plane(ru_mbs, mbh, mbw, 8).to(torch.uint8),

@@ -1,9 +1,10 @@
 """P-frame core: the whole per-frame pixel pipeline — exhaustive fullpel
-ME, subpel refinement, luma/chroma MC, residual, reconstruction,
-intra-in-P, P_Skip/MVP classification and the CABAC blob — over all MBs
-at once (port of x264_tpu/models/inter_device.py: ``p_frame_pipeline``
-on the single-reference, no-PIR, no-weights path, P16x16 only or with
-P8x8 partitions, the CABAC branch of ``p_entropy_tail`` and
+ME, subpel refinement, luma/chroma MC, residual (the adaptive 8x8
+transform and trellis when asked), reconstruction, intra-in-P,
+P_Skip/MVP classification and the CABAC blob — over all MBs at once
+(port of x264_tpu/models/inter_device.py: ``p_frame_pipeline`` on the
+single-reference, no-PIR, no-weights path, P16x16 only or with P8x8
+partitions, the CABAC branch of ``p_entropy_tail`` and
 ``p_frame_core``).  The reference runs the partition path as two device
 programs to dodge a TPU miscompile; here it is one eager pass."""
 
@@ -14,7 +15,8 @@ import torch.nn.functional as F
 
 from x264_tpu_torch.models.intra import pick_mode, qp_per_mb
 from x264_tpu_torch.models.residual import (encode_chroma, encode_i16_luma,
-                                            encode_p_luma)
+                                            encode_p_luma, encode_p_luma_t8,
+                                            trellis_args)
 from x264_tpu_torch.ops import pixel as P
 from x264_tpu_torch.ops import predict as PR
 from x264_tpu_torch.ops import transform as T
@@ -43,15 +45,51 @@ def _neigh(plane, s: int, mbw: int, mbh: int):
             tlv.reshape(n))
 
 
+def _cavlc_bits_proxy(ac):
+    """Per-MB CAVLC rate estimate over (N, B, 16) zigzag levels: sum of
+    (2*bit_length(|l|) + 1) per nonzero level — the exp-golombish cost
+    the transform-size decision trades against SSD (the non-RDO analog
+    of reference encoder/analyse.c x264_mb_analyse_transform)."""
+    a = ac.to(_I32).abs()
+    nbits = torch.zeros_like(a)
+    for k in range(14):                      # levels fit in 14 bits
+        nbits += (a >= (1 << k)).to(_I32)
+    return (2 * nbits + (a > 0).to(_I32)).sum((-1, -2), dtype=_I32)
+
+
+def select_transform_8x8(src_mbs, pred, qp, lam: int, recon4, ac4, nnz4,
+                         cbp4, trellis8=None, decimate: bool = True):
+    """Per-MB adaptive transform size: encode the 8x8 alternative and pick
+    by SSD + lambda2*rate (lambda2 = max(lam*lam*9//10, 1) on the core's
+    SAD lambda).  Returns (t8 (N,) bool, recon, ac_zz, nnz, nnz_deblock,
+    cbp_luma)."""
+    rec8, ac8, nnz8, nnzdb8, cbp8 = encode_p_luma_t8(
+        src_mbs, pred, qp, trellis=trellis8, decimate=decimate)
+    lam2 = max(lam * lam * 9 // 10, 1)
+    cost4 = P.ssd(src_mbs, recon4) + lam2 * _cavlc_bits_proxy(ac4)
+    cost8 = P.ssd(src_mbs, rec8) + lam2 * _cavlc_bits_proxy(ac8)
+    sel8 = cost8 < cost4
+    # an all-zero 8x8 winner is emitted as a zero-residual 4x4 MB (the
+    # flag is only written when cbp_luma > 0 and is inferred 0 otherwise)
+    t8 = sel8 & (cbp8 > 0)
+    m1, m2 = sel8[:, None], sel8[:, None, None]
+    return (t8, torch.where(m2, rec8, recon4), torch.where(m2, ac8, ac4),
+            torch.where(m1, nnz8, nnz4), torch.where(m1, nnzdb8, nnz4),
+            torch.where(sel8, cbp8, cbp4))
+
+
 def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
                      lam: int, mbw: int, mbh: int, me_range: int,
                      cqp_off: int, subpel: int, lv_cap: int,
-                     parts: bool = False, decimate: bool = True):
+                     parts: bool = False, decimate: bool = True,
+                     t8: bool = False, trellis_tbl=None):
     """P-frame pipeline on pre-padded reference planes (PAD luma, PAD//2
     chroma).  y/u/v uint8 source planes; qp int or per-MB (N,); lam int;
-    parts: P8x8 partitions (16x16/16x8/8x16/8x8 per MB).  Returns the
-    per-MB syntax tensors, pre-deblock recon planes and the CABAC
-    ``host_blob``; with partitions also shape, mv8, ref8 and mvd_part."""
+    parts: P8x8 partitions (16x16/16x8/8x16/8x8 per MB); t8: the adaptive
+    8x8 transform; trellis_tbl: the ``ops/trellis.frame_trellis`` bundle
+    or None.  Returns the per-MB syntax tensors, pre-deblock recon planes
+    and the CABAC ``host_blob``; with partitions also shape, mv8, ref8
+    and mvd_part."""
     if subpel < 1:
         raise NotImplementedError("the fullpel-only P path (subpel=0) is "
                                   "not ported")
@@ -77,9 +115,17 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
         mv, mb_cost, pred = subpel_refine(src_mbs, ref_y_pad, mv, lam,
                                           me_range, subpel, mbw, mbh,
                                           return_pred=True)
+    tr4, tr8, tr16, trc = trellis_args(trellis_tbl)
     recon_y_mbs, ac_zz, nnz, cbp_l = encode_p_luma(src_mbs, pred, qp,
+                                                   trellis=tr4,
                                                    decimate=decimate)
     nnz_deblock = nnz
+    t8_flag = torch.zeros(n, dtype=torch.bool, device=dev)
+    if t8:
+        (t8_flag, recon_y_mbs, ac_zz, nnz, nnz_deblock,
+         cbp_l) = select_transform_8x8(src_mbs, pred, qp, lam, recon_y_mbs,
+                                       ac_zz, nnz, cbp_l, trellis8=tr8,
+                                       decimate=decimate)
 
     if parts:
         pred_u, pred_v = mc_chroma_uv_quad(ref_u_pad, ref_v_pad, mv8, mbw,
@@ -90,7 +136,8 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     src_u = T.plane_to_mbs(u.to(_I32), mbh, mbw, 8)
     src_v = T.plane_to_mbs(v.to(_I32), mbh, mbw, 8)
     ru_mbs, rv_mbs, cdc, cac, cnnz, cbp_c = encode_chroma(
-        src_u, src_v, pred_u, pred_v, qpc, intra=False, decimate=decimate)
+        src_u, src_v, pred_u, pred_v, qpc, intra=False, decimate=decimate,
+        trellis=trc)
 
     # source-edge intra cost estimate (scenecut + the intra-in-P
     # decision): source pixels as neighbours, so it is fully parallel
@@ -129,7 +176,8 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     imode, icost_fix, ipred = pick_mode(
         src_mbs, PR.predict_16x16_all(itop, ileft, itl, at, al),
         PR.i16x16_mode_avail(at, al, at & al))
-    irec, idc, iac, innz, icbp_l = encode_i16_luma(src_mbs, ipred, qp)
+    irec, idc, iac, innz, icbp_l = encode_i16_luma(src_mbs, ipred, qp,
+                                                   trellis=tr16)
     ctop_u, cleft_u, ctl_u = _neigh(ru_pl, 8, mbw, mbh)
     ctop_v, cleft_v, ctl_v = _neigh(rv_pl, 8, mbw, mbh)
     cpreds_u = PR.predict_chroma_all(ctop_u, cleft_u, ctl_u, at, al)
@@ -140,7 +188,7 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     cmode = torch.argmin(ccosts, dim=1)
     icr_u, icr_v, icdc, icac, icnnz, icbp_c = encode_chroma(
         src_u, src_v, cpreds_u[mb, cmode], cpreds_v[mb, cmode], qpc,
-        intra=True)
+        intra=True, trellis=trc)
 
     mk1 = intra_mask[:, None]
     mk2 = intra_mask[:, None, None]
@@ -160,6 +208,7 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     recon_y_mbs = torch.where(mk2, irec, recon_y_mbs)
     ru_mbs = torch.where(mk2, icr_u, ru_mbs)
     rv_mbs = torch.where(mk2, icr_v, rv_mbs)
+    t8_flag = t8_flag & ~intra_mask & (cbp_l > 0)
 
     # classification + entropy blob (p_entropy_tail's CABAC branch)
     if parts:
@@ -176,7 +225,7 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
         mb_cost=mb_cost, qp_mb=qp, icost=icost, mv=mv, ref_mb=ref,
         i16_mode=i16_mode, chroma_mode=chroma_mode, luma_dc=luma_dc,
         luma_ac=ac_zz, luma_nnz=nnz, nnz_deblock=nnz_deblock,
-        t8=torch.zeros(n, dtype=torch.bool, device=dev), cbp_luma=cbp_l,
+        t8=t8_flag, cbp_luma=cbp_l,
         chroma_dc=cdc, chroma_ac=cac, chroma_nnz=cnnz, cbp_chroma=cbp_c,
         recon_y=T.mbs_to_plane(recon_y_mbs, mbh, mbw, 16).to(torch.uint8),
         recon_u=T.mbs_to_plane(ru_mbs, mbh, mbw, 8).to(torch.uint8),
@@ -191,17 +240,20 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
         blob_parts = dict(shape=shape, mvd_part=mvd_part, ref_part=ref8)
     out["host_blob"] = cabac_blob(luma_dc, ac_zz, cdc, cac, mb_class, mvd,
                                   i16_mode, chroma_mode, cbp_l, cbp_c, qp,
-                                  mb_cost, icost, K=lv_cap, **blob_parts)
+                                  mb_cost, icost, K=lv_cap, t8=t8_flag,
+                                  **blob_parts)
     return out
 
 
 def p_frame_core(y, u, v, ref_y, ref_u, ref_v, qp, lam: int, mbw: int,
                  mbh: int, me_range: int, cqp_off: int, subpel: int,
-                 lv_cap: int, parts: bool = False, decimate: bool = True):
+                 lv_cap: int, parts: bool = False, decimate: bool = True,
+                 t8: bool = False, trellis_tbl=None):
     """Single-reference entry: edge-pad the reference planes (PAD luma,
     PAD//2 chroma), then run ``p_frame_pipeline``."""
     return p_frame_pipeline(y, u, v, pad_edge(ref_y, PAD),
                             pad_edge(ref_u, PAD // 2),
                             pad_edge(ref_v, PAD // 2), qp, lam, mbw, mbh,
                             me_range, cqp_off, subpel, lv_cap,
-                            parts=parts, decimate=decimate)
+                            parts=parts, decimate=decimate, t8=t8,
+                            trellis_tbl=trellis_tbl)

@@ -1,6 +1,6 @@
 """I-frame core: wavefront-batched I16x16 + chroma encoding with the
 CABAC blob (port of x264_tpu/models/intra_device.py::i_frame_core, CABAC
-branch, no trellis).
+branch; with trellis on the I16 AC and chroma AC levels when asked).
 
 Intra prediction reads reconstructed neighbours, so MBs on anti-diagonal
 d = mbx + mby depend only on earlier diagonals.  The reference scans the
@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from x264_tpu_torch.models.residual import encode_chroma, encode_i16_luma
+from x264_tpu_torch.models.residual import (encode_chroma, encode_i16_luma,
+                                            trellis_args)
 from x264_tpu_torch.ops import pixel as P
 from x264_tpu_torch.ops import predict as PR
 from x264_tpu_torch.ops.entropy_pack import cabac_blob
@@ -39,10 +40,12 @@ def pick_mode(src, preds, avail):
 
 
 def i_frame_core(y, u, v, qp, mbw: int, mbh: int, cqp_off: int,
-                 lv_cap: int):
+                 lv_cap: int, trellis_tbl=None):
     """All-device I-frame pipeline.  y/u/v uint8 planes (16mbh x 16mbw);
-    qp int or per-MB (N,).  Returns the per-MB syntax tensors (raster MB
-    order), the pre-deblock recon planes and ``host_blob``."""
+    qp int or per-MB (N,); trellis_tbl: the ``ops/trellis.frame_trellis``
+    bundle (I16 AC, cat 1, and chroma AC, cat 4: x264's trellis=1 intra
+    scope) or None.  Returns the per-MB syntax tensors (raster MB order),
+    the pre-deblock recon planes and ``host_blob``."""
     n = mbw * mbh
     dev = y.device
     qp = qp_per_mb(qp, n, dev)
@@ -50,6 +53,7 @@ def i_frame_core(y, u, v, qp, mbw: int, mbh: int, cqp_off: int,
     ysrc, usrc, vsrc = y.to(_I32), u.to(_I32), v.to(_I32)
     r16 = torch.arange(16, device=dev)
     r8 = torch.arange(8, device=dev)
+    _, _, tr16, trc = trellis_args(trellis_tbl)
 
     acc = dict(
         i16_mode=torch.zeros(n, dtype=_I32, device=dev),
@@ -98,7 +102,8 @@ def i_frame_core(y, u, v, qp, mbw: int, mbh: int, cqp_off: int,
         mode, mode_cost, pred = pick_mode(
             src, PR.predict_16x16_all(top, left, tl, at, al),
             PR.i16x16_mode_avail(at, al, atl))
-        recon, dc_zz, ac_zz, nnz, cbp_l = encode_i16_luma(src, pred, qp[mb])
+        recon, dc_zz, ac_zz, nnz, cbp_l = encode_i16_luma(src, pred, qp[mb],
+                                                          trellis=tr16)
 
         cy0, cx0 = ys * 8, xs * 8
         ctop_u, cleft_u, ctl_u = edges(ru, cy0, cx0, 8)
@@ -114,7 +119,7 @@ def i_frame_core(y, u, v, qp, mbw: int, mbh: int, cqp_off: int,
         lanes = torch.arange(xs.shape[0], device=dev)
         cr_u, cr_v, cdc, cac, cnnz, cbp_c = encode_chroma(
             csrc_u, csrc_v, cpreds_u[lanes, cmode], cpreds_v[lanes, cmode],
-            qpc[mb], intra=True)
+            qpc[mb], intra=True, trellis=trc)
 
         yy = (y0[:, None] + r16)[:, :, None]
         ry[yy, (x0[:, None] + r16)[:, None, :]] = recon

@@ -35,14 +35,26 @@ def _shift_in(g, axis: int):
     return out
 
 
-def bs_grids(mb_intra, luma_nnz, mv, ref, mbw: int, mbh: int):
+def _no_t8_inner(bs, t8, axis: int, mbw: int, mbh: int):
+    """Zero the inner 4x4 edges (odd edge columns or rows) of the MBs
+    coded with the 8x8 transform: only edges 0 and 2 exist there (8.7)."""
+    if t8 is None:
+        return bs
+    pos = torch.arange(bs.shape[axis], device=bs.device)
+    odd = (pos % 2 == 1)[None, :] if axis == 1 else (pos % 2 == 1)[:, None]
+    return torch.where(_rep4(t8.reshape(mbh, mbw)) & odd, 0, bs)
+
+
+def bs_grids(mb_intra, luma_nnz, mv, ref, mbw: int, mbh: int, t8=None):
     """Boundary strengths for every 4-px edge.
 
     mb_intra (N,) bool; luma_nnz (N,16) raster-block; mv (N,2) per MB or
     (N,4,2) per quadrant (partitioned P frames: internal 8x8 edges then
-    get the mv-discontinuity bS=1 rule, 8.7.2.1); ref (N,) or (N,4).
-    Returns (bs_v, bs_h) (4*mbh, 4*mbw) int32: bs_v[gy,gx] = strength of
-    the vertical edge left of block (gy,gx); frame-boundary edges are 0."""
+    get the mv-discontinuity bS=1 rule, 8.7.2.1); ref (N,) or (N,4);
+    t8 (N,) bool or None: MBs coded with the 8x8 transform do not filter
+    their interior 4x4 luma edges.  Returns (bs_v, bs_h) (4*mbh, 4*mbw)
+    int32: bs_v[gy,gx] = strength of the vertical edge left of block
+    (gy,gx); frame-boundary edges are 0."""
     gh, gw = 4 * mbh, 4 * mbw
     nnz = (luma_nnz.reshape(mbh, mbw, 4, 4).permute(0, 2, 1, 3)
            .reshape(gh, gw))
@@ -73,19 +85,20 @@ def bs_grids(mb_intra, luma_nnz, mv, ref, mbw: int, mbh: int):
         bs = torch.where(mb_edge & (intra_g | p_intra), 4,
              torch.where(intra_g, 3,
              torch.where(nz, 2, torch.where(mvdiff, 1, 0))))
+        bs = _no_t8_inner(bs, t8, axis, mbw, mbh)
         return torch.where(exists, bs, 0).to(_I32)
 
     return one_dir(1), one_dir(0)
 
 
 def bs_grids_b(luma_nnz, mv0, mv1, any0, any1, mbw: int, mbh: int,
-               intra=None):
+               intra=None, t8=None):
     """Boundary strengths of a B frame (8.7.2.1's B rules; port of
-    x264_tpu/ops/device/deblock.py ``bs_grids_b`` without the 8x8
-    transform).  B MBs use one reference per list and L0 != L1, so an
-    MB's reference set is its (uses L0, uses L1) pair.  mv0/mv1 (N,2) or
-    (N,4,2) per quadrant; any0/any1 (N,) bool; intra (N,) bool or None:
-    I16x16 escape MBs, bS 4 on their MB edges and 3 inside.  Returns
+    x264_tpu/ops/device/deblock.py ``bs_grids_b``).  B MBs use one
+    reference per list and L0 != L1, so an MB's reference set is its
+    (uses L0, uses L1) pair.  mv0/mv1 (N,2) or (N,4,2) per quadrant;
+    any0/any1 (N,) bool; intra (N,) bool or None: I16x16 escape MBs, bS 4
+    on their MB edges and 3 inside; t8 as in ``bs_grids``.  Returns
     (bs_v, bs_h) as ``bs_grids`` does."""
     gh, gw = 4 * mbh, 4 * mbw
     nnz = (luma_nnz.reshape(mbh, mbw, 4, 4).permute(0, 2, 1, 3)
@@ -118,6 +131,7 @@ def bs_grids_b(luma_nnz, mv0, mv1, any0, any1, mbw: int, mbh: int,
         if ig is not None:
             bs = torch.where(mb_edge & (ig | _shift_in(ig, axis)), 4,
                              torch.where(ig, 3, bs))
+        bs = _no_t8_inner(bs, t8, axis, mbw, mbh)
         return torch.where(exists, bs, 0).to(_I32)
 
     return one_dir(1), one_dir(0)
@@ -187,10 +201,11 @@ def chroma_filter_params(p1, p0, q0, q1, on, bs4, alpha, beta, tc0):
 
 
 def deblock_prep(mb_class, cbp_luma, cbp_chroma, luma_nnz, mv, ref, qp_mb,
-                 mbw: int, mbh: int, cqp_off: int = 0):
+                 mbw: int, mbh: int, cqp_off: int = 0, t8=None):
     """The decoder-visible QP chain (7.4.5: an MB that emits no residual
-    carries the previous QP), the chroma QP lookup and the strengths.
-    Returns (bs_v, bs_h, qp_mb (N,), qpc_mb (N,))."""
+    carries the previous QP), the chroma QP lookup and the strengths (t8
+    as in ``bs_grids``).  Returns (bs_v, bs_h, qp_mb (N,), qpc_mb
+    (N,))."""
     n = mbw * mbh
     dev = mb_class.device
     qp_mb = torch.as_tensor(qp_mb, dtype=_I32, device=dev).reshape(-1) \
@@ -201,29 +216,30 @@ def deblock_prep(mb_class, cbp_luma, cbp_chroma, luma_nnz, mv, ref, qp_mb,
     last = torch.cummax(idx, 0).values
     qp_mb = torch.where(last >= 0, qp_mb[last.clamp(min=0)], qp_mb[0])
     qpc_mb = tables(dev).chroma_qp[(qp_mb + cqp_off).clamp(0, 51).long()]
-    bs_v, bs_h = bs_grids(mb_class <= 1, luma_nnz, mv, ref, mbw, mbh)
+    bs_v, bs_h = bs_grids(mb_class <= 1, luma_nnz, mv, ref, mbw, mbh, t8=t8)
     return bs_v, bs_h, qp_mb, qpc_mb
 
 
 def deblock_frame(y, u, v, mb_class, cbp_luma, cbp_chroma, luma_nnz, mv,
                   ref, qp_mb, off_a: int, off_b: int, mbw: int, mbh: int,
-                  cqp_off: int = 0):
-    """Anchor deblock: QP chain, chroma QP, strengths and the filter.
-    Returns new (y, u, v) uint8 planes; the inputs are left as they are."""
+                  cqp_off: int = 0, t8=None):
+    """Anchor deblock: QP chain, chroma QP, strengths (t8: the MBs coded
+    with the 8x8 transform, or None) and the filter.  Returns new
+    (y, u, v) uint8 planes; the inputs are left as they are."""
     from x264_tpu_torch.kernels.deblock import deblock_filter
     bs_v, bs_h, qp, qpc = deblock_prep(mb_class, cbp_luma, cbp_chroma,
                                        luma_nnz, mv, ref, qp_mb, mbw, mbh,
-                                       cqp_off)
+                                       cqp_off, t8=t8)
     return deblock_filter(y, u, v, bs_v, bs_h, qp, qpc, off_a, off_b,
                           mbw, mbh)
 
 
 def deblock_frame_b(y, u, v, luma_nnz, mv0, mv1, any0, any1, qp: int,
                     off_a: int, off_b: int, mbw: int, mbh: int,
-                    cqp_off: int = 0, intra=None):
+                    cqp_off: int = 0, intra=None, t8=None):
     """B-frame deblock (port of x264_tpu/ops/device/deblock.py
-    ``deblock_frame_b`` without the 8x8 transform): the frame QP on every
-    MB, the chroma QP lookup, the two-list strengths and the filter
+    ``deblock_frame_b``): the frame QP on every MB, the chroma QP lookup,
+    the two-list strengths (t8 as in ``bs_grids``) and the filter
     (``kernels/deblock``).  Returns new (y, u, v) uint8 planes."""
     from x264_tpu_torch.kernels.deblock import deblock_filter
     n = mbw * mbh
@@ -231,6 +247,6 @@ def deblock_frame_b(y, u, v, luma_nnz, mv0, mv1, any0, any1, qp: int,
     qp_mb = torch.full((n,), int(qp), dtype=_I32, device=dev)
     qpc_mb = tables(dev).chroma_qp[(qp_mb + cqp_off).clamp(0, 51).long()]
     bs_v, bs_h = bs_grids_b(luma_nnz, mv0, mv1, any0, any1, mbw, mbh,
-                            intra=intra)
+                            intra=intra, t8=t8)
     return deblock_filter(y, u, v, bs_v, bs_h, qp_mb, qpc_mb, off_a, off_b,
                           mbw, mbh)

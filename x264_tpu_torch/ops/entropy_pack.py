@@ -151,14 +151,16 @@ def cabac_blob(luma_dc, luma_ac, chroma_dc, chroma_ac, mb_class, mvd,
 
 
 def write_slice_cabac(blob: np.ndarray, mbw: int, mbh: int, slice_kind: int,
-                      slice_qp: int, K: int, parts: bool = False):
+                      slice_qp: int, K: int, parts: bool = False,
+                      t8_mode: bool = False):
     """CABAC-code one slice from the host copy of the blob with
     ``native/cabac.c`` (the reference's
     ``cabac_host.write_slice_cabac_packed`` for single-reference I/P/B
-    slices without the 8x8 transform or I4x4).  slice_kind 0 = I, 1 = P,
-    2 = B (the blob then carries the B fields); parts: the blob carries
-    the partition fields (P slices with p8x8).  Returns the slice_data()
-    payload bytes."""
+    slices without I4x4).  slice_kind 0 = I, 1 = P, 2 = B (the blob then
+    carries the B fields); parts: the blob carries the partition fields
+    (P slices with p8x8); t8_mode: the PPS transform_8x8_mode_flag (codes
+    each MB's transform_size_8x8_flag and its 8x8 blocks).  Returns the
+    slice_data() payload bytes."""
     n = mbw * mbh
     cap = 1024 + n * 512
     out = np.zeros(cap, np.uint8)
@@ -167,7 +169,7 @@ def write_slice_cabac(blob: np.ndarray, mbw: int, mbh: int, slice_kind: int,
     sz = _lib().encode_slice_cabac_packed(
         mbw, mbh, slice_kind, int(slice_qp), 0, blob, K,
         blob_stride(slice_kind == 2, parts),
-        0, 1, int(parts), 0, out, cap, None)
+        int(t8_mode), 1, int(parts), 0, out, cap, None)
     if sz < 0:
         raise OverflowError("CABAC level cap or buffer overflow")
     return out[:sz].tobytes()

@@ -33,3 +33,8 @@ def satd(a, b):
     d = d.reshape(*d.shape[:-2], h // 4, 4, w // 4, 4)
     t = hadamard4(d, -3, -1).abs().sum((-3, -1), dtype=_I32)
     return t.sum((-1, -2), dtype=_I32) >> 1
+
+
+def ssd(a, b):
+    d = a.to(_I32) - b.to(_I32)
+    return (d * d).sum((-1, -2), dtype=_I32)

@@ -23,6 +23,12 @@ import torch
 # Scan orders (8.5.6).  ZIGZAG_4x4[k] = raster index of k-th coefficient.
 ZIGZAG_4x4 = np.array([0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15],
                       dtype=np.int32)
+ZIGZAG_8x8 = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+], dtype=np.int32)
 
 # Quantization (8.5.9).  Position classes within a 4x4 block:
 #   class 0: (0,0),(0,2),(2,0),(2,2);  class 1: (1,1),(1,3),(3,1),(3,3);
@@ -57,6 +63,46 @@ _QUANT_MF_CLASS = np.array([  # [qp%6][class]
 DEQUANT4 = _DEQUANT_CLASS[:, _POS_CLASS_4x4]   # (6, 4, 4)
 QUANT4_MF = _QUANT_MF_CLASS[:, _POS_CLASS_4x4]  # (6, 4, 4)
 
+# 8x8 transform scale tables (8.5.9 LevelScale8x8) — used when the High-profile
+# 8x8 transform lands.  [qp%6][class8] with the 6-class position layout.
+_POS_CLASS_8x8 = np.zeros((8, 8), dtype=np.int32)
+for _i in range(8):
+    for _j in range(8):
+        if _i % 4 == 0 and _j % 4 == 0:
+            _POS_CLASS_8x8[_i, _j] = 0
+        elif _i % 2 == 1 and _j % 2 == 1:
+            _POS_CLASS_8x8[_i, _j] = 1
+        elif _i % 4 == 2 and _j % 4 == 2:
+            _POS_CLASS_8x8[_i, _j] = 2
+        elif _i % 4 == 0 and _j % 2 == 1 or _i % 2 == 1 and _j % 4 == 0:
+            _POS_CLASS_8x8[_i, _j] = 3
+        elif _i % 4 == 0 and _j % 4 == 2 or _i % 4 == 2 and _j % 4 == 0:
+            _POS_CLASS_8x8[_i, _j] = 4
+        else:
+            _POS_CLASS_8x8[_i, _j] = 5
+
+_DEQUANT8_CLASS = np.array([
+    [20, 18, 32, 19, 25, 24],
+    [22, 19, 35, 21, 28, 26],
+    [26, 23, 42, 24, 33, 31],
+    [28, 25, 45, 26, 35, 33],
+    [32, 28, 51, 30, 40, 38],
+    [36, 32, 58, 34, 46, 43],
+], dtype=np.int32)
+DEQUANT8 = _DEQUANT8_CLASS[:, _POS_CLASS_8x8]   # (6, 8, 8)
+
+# Encoder-side MF companion for the 8x8 quantizer (standard JM values,
+# same role as QUANT4_MF; position classes shared with DEQUANT8).
+_QUANT8_MF_CLASS = np.array([
+    [13107, 11428, 20972, 12222, 16777, 15481],
+    [11916, 10826, 19174, 11058, 14980, 14290],
+    [10082, 8943, 15978, 9675, 12710, 11985],
+    [9362, 8228, 14913, 8931, 11984, 11259],
+    [8192, 7346, 13159, 7740, 10486, 9777],
+    [7282, 6428, 11570, 6830, 9118, 8640],
+], dtype=np.int32)
+QUANT8_MF = _QUANT8_MF_CLASS[:, _POS_CLASS_8x8]  # (6, 8, 8)
+
 # Chroma QP mapping (Table 8-15): QPc as a function of clipped qPi.
 _CHROMA_QP_TAIL = np.array(
     [29, 30, 31, 32, 32, 33, 34, 34, 35, 35, 36, 36, 37, 37, 37,
@@ -74,6 +120,12 @@ def sad_lambda(qp: int) -> int:
     me_lambda (the λ² law) here overweights bits ~3-4x and biases every
     analysis decision toward cheap-but-poor predictions."""
     return max(1, round(2.0 ** ((qp - 12) / 6.0)))
+
+
+def me_lambda(qp: int) -> int:
+    """LAMBDA2 law (0.85 * 2^((qp-12)/3), reference x264_lambda2_tab):
+    the RD slope — correct for trellis / SSD+rate decisions ONLY."""
+    return max(1, round(0.85 * 2.0 ** ((qp - 12) / 3.0)))
 
 
 def mv_bits(d: int) -> int:
@@ -147,8 +199,9 @@ for _fx in range(4):
 
 
 # JVT-B118 decimation run scores (reference common/tables.c
-# x264_decimate_table4), as x264_tpu/models/residual_device.py holds them
+# x264_decimate_table4/8), as x264_tpu/models/residual_device.py holds them
 _DS4 = np.array([3, 2, 2, 1, 1, 1] + [0] * 10, np.int32)
+_DS8 = np.array([3, 3, 3, 3] + [2] * 8 + [1] * 12 + [0] * 40, np.int32)
 
 
 @dataclass(frozen=True)
@@ -157,8 +210,13 @@ class Tables:
     dequant4: torch.Tensor      # (6, 4, 4)
     zigzag4: torch.Tensor       # (16,) raster index of each scan position
     unzigzag4: torch.Tensor     # (16,)
+    quant8_mf: torch.Tensor     # (6, 8, 8)
+    dequant8: torch.Tensor      # (6, 8, 8)
+    zigzag8: torch.Tensor       # (64,)
+    unzigzag8: torch.Tensor     # (64,)
     chroma_qp: torch.Tensor     # (52,)
     decimate4: torch.Tensor     # (16,)
+    decimate8: torch.Tensor     # (64,)
     alpha: torch.Tensor         # (52,)
     beta: torch.Tensor          # (52,)
     tc0: torch.Tensor           # (52, 3)
@@ -177,8 +235,13 @@ def tables(device: torch.device) -> Tables:
         dequant4=_i32(DEQUANT4, device),
         zigzag4=_i32(ZIGZAG_4x4, device).long(),
         unzigzag4=_i32(np.argsort(ZIGZAG_4x4), device).long(),
+        quant8_mf=_i32(QUANT8_MF, device),
+        dequant8=_i32(DEQUANT8, device),
+        zigzag8=_i32(ZIGZAG_8x8, device).long(),
+        unzigzag8=_i32(np.argsort(ZIGZAG_8x8), device).long(),
         chroma_qp=_i32(CHROMA_QP_TABLE, device),
         decimate4=_i32(_DS4, device),
+        decimate8=_i32(_DS8, device),
         alpha=_i32(ALPHA, device),
         beta=_i32(BETA, device),
         tc0=_i32(TC0, device),
