@@ -20,14 +20,18 @@ Phases, each of which raises (exit code != 0) when it fails:
      (bytes, and the dependent chain timed by a probe kernel); the trellis
      kernel on the three blockings of a 1080p P frame's residual (4x4
      luma, 8x8 luma, chroma AC), its bound the larger of its bytes and
-     its float operations at the card's FP32 rate;
+     its float operations at the card's FP32 rate; the I4x4/I8x8 core
+     on the first frame, eager against its CUDA graph (capture and
+     replay ms), and the NxN candidate kernel against its twin on every
+     knight step of that IDR, with its bound and one MB's chain;
   4. the main paths, each with the kernels' launch counts reset just
      before and read just after: Encoder(device="cuda") encodes a 1080p
      clip of one IDR and 5 P frames (the clip formula of bench.py's
-     make_clip) with P16x16 only, then again with P8x8 partitions, the
-     8x8 transform and trellis, then 10 frames as bench.py's GOP (IDR +
-     3 x (B B P): bframes=2, full_recon off, P8x8 anchors, the 8x8
-     transform and trellis); fps, bytes, Y-PSNR, the partition shapes
+     make_clip) with P16x16 only (then the I16 core's graph: capture and
+     replay ms, replay == eager core), then again with P8x8 partitions,
+     the 8x8 transform and trellis, then 10 frames as bench.py's GOP (IDR
+     + 3 x (B B P): bframes=2, full_recon off, P8x8 anchors, I4x4, the
+     8x8 transform and trellis); fps, bytes, Y-PSNR, the partition shapes
      chosen, the share of 8x8-transform MBs, per-frame ms by frame type
      and, where tools/avdec runs, a decode that must equal the encoder's
      recon (keyed by display index: B frames are final after their
@@ -35,8 +39,10 @@ Phases, each of which raises (exit code != 0) when it fails:
   5. 352x288 streams encoded on the card must equal, byte for byte, the
      streams the port encodes on the CPU (the kernels' plain twins), with
      and without partitions, with B frames (one pair, one single tail B,
-     full_recon on), and with the 8x8 transform and trellis on P8x8 and
-     on a B pair.
+     full_recon on), with the 8x8 transform and trellis on P8x8 and
+     on a B pair, and with I4x4 on I/P8x8 (two IDRs).
+Every I frame's core on the card is a CUDA graph replay
+(x264_tpu_torch/models/graph.py).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits 1.
@@ -327,14 +333,16 @@ def _deblock_kernel_only_ms(KD, ry, ru, rv, bs_v, bs_h, qp_mb, qpc_mb,
     return sum(e0.elapsed_time(e1) for e0, e1 in ev[1:]) / reps
 
 
-def _trellis_launches(n_i: int, n_p: int, n_b: int) -> int:
+def _trellis_launches(n_i: int, n_p: int, n_b: int, i4: bool = False) -> int:
     """Trellis launches of a 1080p run with the 8x8 transform and
-    trellis, overflow re-runs aside: two per diagonal of the I16
-    wavefront (I16 AC, chroma AC), five per P or B frame (4x4 luma, 8x8
-    luma, chroma AC, and the intra escape's I16 AC and chroma AC, which
-    the port computes on every frame)."""
+    trellis, overflow re-runs and graph warm-ups aside: two per step of
+    the I wavefront (I16 AC, chroma AC; 187 diagonals of the I16 core,
+    254 knight steps of the I4x4 core), five per P or B frame (4x4 luma,
+    8x8 luma, chroma AC, and the intra escape's I16 AC and chroma AC,
+    which the port computes on every frame)."""
     mbw, mbh = (W + 15) // 16, (H + 15) // 16
-    return 2 * (mbw + mbh - 1) * n_i + 5 * (n_p + n_b)
+    steps = mbw + 2 * mbh - 2 if i4 else mbw + mbh - 1
+    return 2 * steps * n_i + 5 * (n_p + n_b)
 
 
 def _trellis_phase(clip, record) -> None:
@@ -403,6 +411,148 @@ def _trellis_phase(clip, record) -> None:
            "x264_tpu/ops/device/trellis.py:244", tot["err"], tot["ms"],
            tot["plain"], (tot["t_ops"], "operations")
            if tot["t_ops"] >= tot["t_bytes"] else (tot["t_bytes"], "bytes"))
+
+
+def _graph_replays(core, planes, qp, lam, tt, reps: int, **kw) -> tuple:
+    """(the graph, ms of each of reps replays, the last replay's output) of
+    an intra core at this key, captured now if no run captured it yet;
+    each replay timed with the card synchronised around it."""
+    import torch
+    from x264_tpu_torch.models.graph import graph_for, run_core
+    g = graph_for(core, planes, qp, lam, tt, **kw)
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_core(core, *planes, qp, lam, trellis_tbl=tt, **kw)
+        torch.cuda.synchronize()
+        times.append(1000 * (time.perf_counter() - t0))
+    return g, times, out
+
+
+def _i4_state(out, mbw: int, mbh: int) -> tuple:
+    """The int32 recon plane (before deblock) and the mode grid an I4x4
+    core left: each MB's neighbours as its knight step saw them."""
+    import torch
+    n = mbw * mbh
+    modes = out["i4_modes"]
+    quads = modes[:, :4].reshape(n, 2, 1, 2, 1).expand(n, 2, 2, 2, 2) \
+        .reshape(n, 16)
+    cells = torch.where(out["t8"][:, None], quads,
+                        torch.where(out["mb_class"][:, None] == 1, modes, 2))
+    grid = cells.reshape(mbh, mbw, 4, 4).permute(0, 2, 1, 3) \
+        .reshape(4 * mbh, 4 * mbw)
+    return (out["recon_y"].to(torch.int32).contiguous(),
+            grid.to(torch.int32).contiguous())
+
+
+def _nxn_phase(clip, record, int_ops_per_s: float) -> None:
+    """The I4x4/I8x8 core on the first 1080p frame (CQP 26, the 8x8
+    transform and trellis: the B-GOP run's key): the eager core against
+    its CUDA graph (capture ms, then replay ms, every field equal); then
+    the NxN kernel against its plain twin on every one of the 254 knight
+    steps, from the state that IDR left (kernel and twin each carry their
+    own copy forward; outputs, recon plane and mode grid equal), timed
+    per IDR (all 254 launches through the wrapper, CUDA events around
+    the whole pass; the recorded time is a CUDA graph of the 254
+    launches, as the core's graph runs them), with its bound
+    (``kernels/intra_nxn.work`` at the HBM and int32 rates) and the
+    dependent chain of one MB (the kernel at step 0, one MB, 254 times in
+    a graph)."""
+    import torch
+    from x264_tpu_torch.kernels import intra_nxn as KN
+    from x264_tpu_torch.models.intra import i4_frame_core
+    from x264_tpu_torch.ops.trellis import frame_trellis
+    from x264_tpu_torch.state import me_lambda, sad_lambda
+    dev = torch.device("cuda")
+    mbw, mbh = (W + 15) // 16, (H + 15) // 16
+    n_mb, steps = mbw * mbh, mbw + 2 * mbh - 2
+    planes = [torch.from_numpy(_pad_to_mb(p, s)).to(dev)
+              for p, s in zip(clip[0], (16, 8, 8))]
+    qp = torch.full((n_mb,), QP, dtype=torch.int32, device=dev)
+    lam = sad_lambda(QP)
+    tt = frame_trellis(QP, "I", me_lambda(QP), True)
+    kw = dict(mbw=mbw, mbh=mbh, cqp_off=0, lv_cap=96, t8_mode=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = i4_frame_core(*planes, qp, lam, trellis_tbl=tt, **kw)
+    torch.cuda.synchronize()
+    eager_ms = 1000 * (time.perf_counter() - t0)
+    g, replay, out = _graph_replays(i4_frame_core, planes, qp, lam, tt, 5,
+                                    **kw)
+    bad = [k for k in eager if not torch.equal(eager[k], out[k])]
+    if bad:
+        raise AssertionError(f"I4 core: graph replay != eager core in {bad}")
+    hist = np.bincount((out["mb_class"] + out["t8"]).cpu().numpy(),
+                       minlength=3)
+    print(f"I4x4/I8x8 core, 1080p IDR: graph replay == eager core, every "
+          f"field; MBs I16 {hist[0]}, I4x4 {hist[1]}, I8x8 {hist[2]}; "
+          f"eager {eager_ms:.1f} ms, capture {g.capture_ms:.1f} ms (warm-up "
+          f"and capture), replay ms " + " ".join(f"{t:.2f}" for t in replay)
+          + f"; {g.launches['intra_nxn']} NxN and {g.launches['trellis']} "
+          "trellis launches per replay")
+
+    ysrc = planes[0].to(torch.int32)
+    state = _i4_state(eager, mbw, mbh)
+    lam_t = torch.tensor([lam], dtype=torch.int32, device=dev)
+    kst = [t.clone() for t in state]
+    pst = [t.clone() for t in state]
+    err = 0
+    for d in range(steps):
+        got = KN.nxn_candidates(kst[0], kst[1], ysrc, qp, lam_t, d, mbw, mbh,
+                                True)
+        want = KN.nxn_candidates_plain(pst[0], pst[1], ysrc, qp, lam, d, mbw,
+                                       mbh, True)
+        err = max([err, _max_err(kst[0], pst[0]), _max_err(kst[1], pst[1])]
+                  + [_max_err(got[k], want[k]) for k in want])
+    if err:
+        raise AssertionError(f"intra_nxn disagrees with its plain twin: "
+                             f"max err {err}")
+
+    def idr_pass(fn, st, ds=range(steps)):
+        for d in ds:
+            fn(st[0], st[1], ysrc, qp, lam_t, d, mbw, mbh, True)
+
+    reps = 5
+    copies = [[t.clone() for t in state] for _ in range(reps + 1)]
+    idr_pass(KN.nxn_candidates, copies[0])          # warm-up
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    for st in copies[1:]:
+        idr_pass(KN.nxn_candidates, st)
+    ev[1].record()
+    ev[2].record()
+    idr_pass(KN.nxn_candidates_plain, [t.clone() for t in state])
+    ev[3].record()
+    torch.cuda.synchronize()
+    wrapper_ms = ev[0].elapsed_time(ev[1]) / reps
+    plain = ev[2].elapsed_time(ev[3])
+
+    def graph_ms(ds) -> float:
+        """ms of one replay of a CUDA graph of the kernel launched at the
+        steps ds, as the I4 core's graph launches it (no wrapper)."""
+        st = [t.clone() for t in state]
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            idr_pass(KN.nxn_candidates, st, ds)
+        return _time_ms(g.replay, reps)
+
+    ms = graph_ms(range(steps))
+    chain_us = 1e3 * graph_ms([0] * steps) / steps
+    nbytes, ops = KN.work(n_mb, True)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / int_ops_per_s
+    print(f"intra_nxn at 1080p (t8_mode, {steps} knight steps, {n_mb} MBs): "
+          f"bit-exact on every step, {ms:.4f} ms per IDR as a graph of "
+          f"{steps} launches ({1e3 * ms / steps:.2f} us per step; through "
+          f"the wrapper {wrapper_ms:.4f} ms; plain {plain:.1f} ms), bound "
+          f"max(bytes {t_bytes:.4f}, operations {t_ops:.4f}) ms; one MB's "
+          f"chain (step 0 alone, {steps} launches in a graph) "
+          f"{chain_us:.2f} us, x {steps} steps = "
+          f"{chain_us * steps / 1e3:.3f} ms")
+    record("intra_nxn", "x264_tpu_torch/csrc/intra_nxn.cu",
+           "x264_tpu/models/intra_device.py:360-554", err, ms, plain,
+           (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
 
 
 def _run_1080p(label, clip, p8x8, records, tools=None):
@@ -509,13 +659,15 @@ def _timed_stages(enc, times: dict) -> None:
 def _run_1080p_b(clip, records):
     """The B-GOP main path (counts reset just before, read just after):
     bench.py's GOP shape, IDR + 3 x (B B P), P8x8 anchors, full_recon
-    off.  Prints each encode() call's ms, fps over the calls after the
-    IDR's (display frames 1-9, flush included), and, from a second run with the card
-    synchronised around each stage, the ms per I, P and B frame."""
+    off, I4x4 on (the IDR's I4x4/I8x8 core one CUDA graph replay, the
+    NxN kernel once per knight step).  Prints each encode() call's ms,
+    fps over the calls after the IDR's (display frames 1-9, flush
+    included), and, from a second run with the card synchronised around
+    each stage, the ms per I, P and B frame."""
     import torch
     import x264_tpu_torch
     from x264_tpu_torch.api import Encoder, Frame420
-    kw = dict(bframes=2, full_recon=False, **TOOLS)
+    kw = dict(bframes=2, full_recon=False, i4x4=True, **TOOLS)
     enc = Encoder(_params(W, H, True, **kw), device="cuda")
     recons = {}
     enc.recon_hook = recons.__setitem__
@@ -537,16 +689,20 @@ def _run_1080p_b(clip, records):
         r["launches"] += launches[r["name"]]
     types = [s.frame_type for s in enc.stats]
     n_b = types.count("B")
-    least = _trellis_launches(n_i=1, n_p=3, n_b=n_b)
+    least = _trellis_launches(n_i=1, n_p=3, n_b=n_b, i4=True)
+    steps = (W + 15) // 16 + 2 * ((H + 15) // 16) - 2
+    nxn = launches["intra_nxn"]
     if types != ["IDR"] + ["P", "B", "B"] * 3 or \
-            dict(launches, trellis=0) != {"esa16": 4 * n_b // 2,
-                                          "esa_parts": 3, "deblock": 4,
-                                          "trellis": 0} \
-            or launches["trellis"] < least:
+            dict(launches, trellis=0, intra_nxn=0) != {
+                "esa16": 4 * n_b // 2, "esa_parts": 3, "deblock": 4,
+                "trellis": 0, "intra_nxn": 0} \
+            or launches["trellis"] < least or not nxn or nxn % steps:
         raise AssertionError(f"I/B/P8x8: frame types {types}, launches "
                              f"{launches} (expected esa16 12, esa_parts 3, "
                              "deblock 4: B frames are not deblocked with "
-                             f"full_recon off; trellis at least {least})")
+                             f"full_recon off; trellis at least {least}; "
+                             f"intra_nxn a multiple of the {steps} knight "
+                             "steps, one per step of each I4 core run)")
     # the IDR is coded whole inside its own encode() call; every later
     # call up to flush() holds only the stages of display frames 1-9
     tail = times[1:]
@@ -606,7 +762,7 @@ def _check_small_b() -> None:
         raise AssertionError("352x288 B: card stream != CPU stream")
     if types != ["IDR", "P", "B", "B", "P", "B"] or launches != {
             "esa16": 6, "esa_parts": 2, "deblock": CHECK_B_FRAMES,
-            "trellis": 0}:
+            "trellis": 0, "intra_nxn": 0}:
         raise AssertionError(f"352x288 B: frame types {types}, launches "
                              f"{launches}")
     print(f"{CHECK_W}x{CHECK_H} I/B/P8x8 x{CHECK_B_FRAMES}: card stream == "
@@ -644,6 +800,59 @@ def _check_small_tools() -> None:
               f"trellis: card stream == CPU stream "
               f"({len(streams['cuda'])} bytes), launches {launches}, "
               f"{share:.4f} of the P MBs use the 8x8 transform")
+
+
+def _check_small_i4() -> None:
+    """352x288 I/P8x8 with I4x4, the 8x8 transform and trellis, and a
+    second IDR (keyint 3): the card stream equals the CPU stream, and the
+    card run launched the NxN kernel on every knight step of both IDRs
+    (graph replays)."""
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    small = [Frame420(*f) for f in split_motion_clip(CHECK_W, CHECK_H,
+                                                     CHECK_FRAMES)]
+    streams = {}
+    for d in ("cuda", "cpu"):
+        e = Encoder(_params(CHECK_W, CHECK_H, True, i4x4=True, keyint_max=3,
+                            **TOOLS), device=d)
+        x264_tpu_torch.reset_launch_counts()
+        streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
+        if d == "cuda":
+            launches = x264_tpu_torch.launch_counts()
+            types = [s.frame_type for s in e.stats]
+    steps = CHECK_W // 16 + 2 * (CHECK_H // 16) - 2
+    if streams["cuda"] != streams["cpu"]:
+        raise AssertionError("352x288 I4x4: card stream != CPU stream")
+    if types != ["IDR", "P", "P", "IDR"] or launches["intra_nxn"] < 2 * steps:
+        raise AssertionError(f"352x288 I4x4: frame types {types}, launches "
+                             f"{launches}")
+    print(f"{CHECK_W}x{CHECK_H} I4x4 + I/P8x8 x{CHECK_FRAMES} (keyint 3) "
+          f"with the 8x8 transform and trellis: card stream == CPU stream "
+          f"({len(streams['cuda'])} bytes), launches {launches}")
+
+
+def _i16_graph_phase(clip) -> None:
+    """The I16 core of the I/P16 run's IDR key (CQP 26, no trellis): its
+    graph's capture ms and replay ms, the replay equal to the eager core
+    in every field."""
+    import torch
+    from x264_tpu_torch.models.intra import i_frame_core
+    dev = torch.device("cuda")
+    mbw, mbh = (W + 15) // 16, (H + 15) // 16
+    planes = [torch.from_numpy(_pad_to_mb(p, s)).to(dev)
+              for p, s in zip(clip[0], (16, 8, 8))]
+    qp = torch.full((mbw * mbh,), QP, dtype=torch.int32, device=dev)
+    kw = dict(mbw=mbw, mbh=mbh, cqp_off=0, lv_cap=96)
+    eager = i_frame_core(*planes, qp, **kw)
+    g, replay, out = _graph_replays(i_frame_core, planes, qp, None, None, 5,
+                                    **kw)
+    bad = [k for k in eager if not torch.equal(eager[k], out[k])]
+    if bad:
+        raise AssertionError(f"I16 core: graph replay != eager core in {bad}")
+    print(f"I16 core, 1080p IDR: graph replay == eager core, every field; "
+          f"capture {g.capture_ms:.1f} ms (warm-up and capture, in the "
+          "I/P16 run's IDR), replay ms "
+          + " ".join(f"{t:.2f}" for t in replay))
 
 
 def main() -> int:
@@ -812,6 +1021,7 @@ def main() -> int:
     print(f"deblock kernel alone (without the wrapper's clones and counter "
           f"zeroing): {alone:.4f} ms")
     _trellis_phase(clip, record)
+    _nxn_phase(clip, record, int_ops_per_s)
     for r in records:
         print(f"kernel {r['name']}: bit-exact, {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
@@ -824,6 +1034,7 @@ def main() -> int:
             and launches["deblock"] == N_FRAMES):
         raise AssertionError(f"I/P16 kernel launches {launches} do not "
                              f"match {N_FRAMES} frames ({n_p} P)")
+    _i16_graph_phase(clip)
     launches, shapes = _run_1080p("I/P8x8", clip, True, records, TOOLS)
     least = _trellis_launches(n_i=1, n_p=n_p, n_b=0)
     if not (launches["esa_parts"] == n_p and launches["esa16"] == 0
@@ -863,6 +1074,7 @@ def main() -> int:
                  if p8x8 else ""))
     _check_small_b()
     _check_small_tools()
+    _check_small_i4()
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -120,10 +120,10 @@ def test_scenecut_promotes_like_reference():
 def test_unported_settings_and_missing_card_raise():
     for kw in (dict(bframes=2, b_adapt=1),
                dict(bframes=2, scenecut_threshold=40),
-               dict(cabac=False), dict(i4x4=True),
+               dict(cabac=False), dict(i4x4=True, cabac=False),
                dict(subpel=0), dict(backend="reference"),
                dict(p8x8=True, ref_frames=2), dict(trellis=1, weightp=1),
-               dict(p8x8=True, transform_8x8=True, i4x4=True),
+               dict(p8x8=True, transform_8x8=True, i4x4=True, weightp=1),
                dict(p8x8=True, aq_mode=1), dict(p8x8=True, weightp=1),
                dict(slices=2), dict(mbtree=True), dict(me_range=PAD + 1),
                dict(vbv_maxrate=500, vbv_bufsize=500,

@@ -14,12 +14,13 @@ import torch
 import x264_tpu_torch
 from x264_tpu_torch.api import Encoder
 from x264_tpu_torch.kernels import deblock as k_db
-from x264_tpu_torch.kernels import esa16, esa_parts
+from x264_tpu_torch.kernels import esa16, esa_parts, intra_nxn
 from x264_tpu_torch.kernels import trellis as k_tr
+from x264_tpu_torch.models import graph, intra
 from x264_tpu_torch.ops import trellis as tr
 from x264_tpu_torch.ops.deblock import bs_grids
 from x264_tpu_torch.params import EncoderParams
-from x264_tpu_torch.state import PAD, me_lambda
+from x264_tpu_torch.state import PAD, me_lambda, sad_lambda
 from x264_tpu_torch.utils.yuv import Frame420
 
 pytestmark = pytest.mark.cuda
@@ -426,3 +427,152 @@ def test_t8_trellis_encoder_on_card_matches_cpu(cuda, bframes, p8x8):
         if d is cuda:
             assert x264_tpu_torch.launch_counts()["trellis"] > 0
     assert streams[0] == streams[1]
+
+
+# ---- the NxN candidate kernel and the intra graph ----
+
+def _nxn_state(dev, mbw, mbh, seed):
+    """Random recon plane, source, mode grid (modes 0-8 inside the frame)
+    and per-MB QP (0 and 51 included): kernel and twin must agree on any
+    state, the edges they read as well as the garbage they must not."""
+    rng = np.random.default_rng(seed)
+    h, w = 16 * mbh, 16 * mbw
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    qp = rng.integers(0, 52, mbw * mbh)
+    qp[:2] = (0, 51)[:qp.size]
+    return (t(rng.integers(0, 256, (h, w))), t(rng.integers(0, 9, (
+        4 * mbh, 4 * mbw))), t(rng.integers(0, 256, (h, w))), t(qp))
+
+
+def _nxn_check(dev, state, d, mbw, mbh, t8_mode, lam):
+    """Kernel and twin on copies of one state: outputs and the recon
+    plane and mode grid they leave, equal; returns the twin's state."""
+    ry, grid, src, qp = state
+    lam_t = torch.tensor([lam], dtype=torch.int32, device=dev)
+    rk, gk, rp, gp = ry.clone(), grid.clone(), ry.clone(), grid.clone()
+    before = x264_tpu_torch.launch_counts()["intra_nxn"]
+    got = intra_nxn.nxn_candidates(rk, gk, src, qp, lam_t, d, mbw, mbh,
+                                   t8_mode)
+    assert x264_tpu_torch.launch_counts()["intra_nxn"] == before + 1
+    want = intra_nxn.nxn_candidates_plain(rp, gp, src, qp, lam, d, mbw, mbh,
+                                          t8_mode)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for k in want:
+        if want[k] is None:
+            assert got[k] is None, k
+        else:
+            assert torch.equal(got[k], want[k]), (d, k)
+    assert torch.equal(rk, rp) and torch.equal(gk, gp), d
+    return rp, gp, src, qp
+
+
+@pytest.mark.parametrize("t8_mode", [False, True])
+def test_nxn_kernel_matches_plain_1080p_steps(cuda, t8_mode):
+    """The first knight step, a full-length middle one (60 MBs) and the
+    last of a 1080p frame, on random states, at two lambdas."""
+    mbw, mbh = 120, 68
+    counts = [intra_nxn.knight_lanes(d, mbw, mbh)[1]
+              for d in range(mbw + 2 * mbh - 2)]
+    full = counts.index(max(counts))
+    assert max(counts) == 60 and len(counts) == 254
+    for i, d in enumerate((0, full, 253)):
+        state = _nxn_state(cuda, mbw, mbh, 40 + i)
+        for lam in (sad_lambda(26), sad_lambda(51)):
+            _nxn_check(cuda, state, d, mbw, mbh, t8_mode, lam)
+
+
+@pytest.mark.parametrize("mbw,mbh", [(1, 5), (6, 1), (2, 3)])
+@pytest.mark.parametrize("t8_mode", [False, True])
+def test_nxn_kernel_matches_plain_thin_frames(cuda, mbw, mbh, t8_mode):
+    """Every step of one-MB-wide and one-MB-high frames in order, each
+    step on the state the previous one left."""
+    state = _nxn_state(cuda, mbw, mbh, 7)
+    for d in range(mbw + 2 * mbh - 2):
+        if intra_nxn.knight_lanes(d, mbw, mbh)[1]:    # mbw 1: odd d empty
+            state = _nxn_check(cuda, state, d, mbw, mbh, t8_mode,
+                               sad_lambda(30))
+
+
+def test_nxn_bad_launches_raise(cuda):
+    ry, grid, src, qp = _nxn_state(cuda, 2, 2, 1)
+    lam = torch.tensor([4], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        intra_nxn.nxn_candidates(ry, grid, src, qp, lam, 5, 2, 2, False)
+    with pytest.raises(ValueError):
+        intra_nxn.nxn_candidates(ry.float(), grid, src, qp, lam, 0, 2, 2,
+                                 False)
+    with pytest.raises(ValueError):
+        intra_nxn.nxn_candidates(ry, grid, src, qp.cpu(), lam, 0, 2, 2,
+                                 False)
+
+
+def _intra_planes(dev, w, h, seed):
+    from chip_smoke import split_motion_clip
+    y, u, v = split_motion_clip(w, h, 1)[0]
+    rng = np.random.default_rng(seed)
+    y = np.clip(y.astype(np.int32) + rng.integers(-30, 31, y.shape), 0, 255)
+    return [torch.from_numpy(np.ascontiguousarray(p.astype(np.uint8))).to(dev)
+            for p in (y, u, v)]
+
+
+@pytest.mark.parametrize("i4", [False, True])
+def test_intra_graph_matches_eager_core(cuda, i4):
+    """The I16 and the I4x4/I8x8 core replayed as a CUDA graph equal the
+    eager core on the card, field for field, for two frames at two QPs
+    (the second a replay with new inputs, lambda and trellis tables),
+    and every replay adds its captured launches."""
+    from x264_tpu_torch.ops.trellis import frame_trellis
+    w, h = 96, 64
+    core = intra.i4_frame_core if i4 else intra.i_frame_core
+    kw = dict(mbw=w // 16, mbh=h // 16, cqp_off=2, lv_cap=96)
+    if i4:
+        kw["t8_mode"] = True
+    for seed, qp in ((1, 26), (2, 33)):
+        planes = _intra_planes(cuda, w, h, seed)
+        tt = frame_trellis(qp, "I", me_lambda(qp), True)
+        qp_t = torch.full((1,), qp, dtype=torch.int32, device=cuda)
+        lam = sad_lambda(qp) if i4 else None
+        eager = core(*planes, qp_t, *([lam] if i4 else []), trellis_tbl=tt,
+                     **kw)
+        g = graph.graph_for(core, planes, qp_t, lam, tt, **kw)
+        before = x264_tpu_torch.launch_counts()
+        got = graph.run_core(core, *planes, qp_t, lam, trellis_tbl=tt, **kw)
+        after = x264_tpu_torch.launch_counts()
+        torch.cuda.synchronize()
+        assert {k: after[k] - before[k] for k in after} == g.launches
+        assert g.launches["trellis"] == 2 * (
+            kw["mbw"] + (2 if i4 else 1) * kw["mbh"] - (2 if i4 else 1))
+        assert g.launches["intra_nxn"] == (
+            kw["mbw"] + 2 * kw["mbh"] - 2 if i4 else 0)
+        assert set(got) == set(eager)
+        for k in eager:
+            assert torch.equal(got[k], eager[k]), (qp, k)
+        if i4:
+            assert (got["mb_class"] == 1).any() and got["t8"].any()
+
+
+def test_i4_encoder_on_card_matches_cpu(cuda):
+    """352x288 I/P8x8 with I4x4, the 8x8 transform and trellis, and a
+    second IDR (keyint 3): card stream == CPU stream, the NxN kernel
+    launched on every knight step of both IDRs."""
+    from chip_smoke import split_motion_clip
+    w, h, n = 352, 288, 4
+    frames = [Frame420(*f) for f in split_motion_clip(w, h, n)]
+    p = EncoderParams(width=w, height=h, qp=26, cabac=True, bframes=0,
+                      me_range=8, scenecut_threshold=0, backend="device",
+                      p8x8=True, transform_8x8=True, trellis=1, i4x4=True,
+                      keyint_max=3)
+    streams = []
+    for d in (cuda, "cpu"):
+        enc = Encoder(p, device=d)
+        x264_tpu_torch.reset_launch_counts()
+        streams.append(b"".join(enc.encode(f) for f in frames) + enc.flush())
+        if d is cuda:
+            launches = x264_tpu_torch.launch_counts()
+        assert [s.frame_type for s in enc.stats] == ["IDR", "P", "P", "IDR"]
+    assert streams[0] == streams[1]
+    assert launches["intra_nxn"] >= 2 * (w // 16 + 2 * (h // 16) - 2)

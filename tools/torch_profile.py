@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of a 1080p P frame and of a 1080p B pair goes in the
-PyTorch + CUDA port, on one NVIDIA GPU: per-stage wall time and a
-torch.profiler breakdown.
+"""Where the time of a 1080p P frame, a 1080p B pair and a 1080p IDR
+goes in the PyTorch + CUDA port, on one NVIDIA GPU: per-stage wall time
+and a torch.profiler breakdown.
 
     python3 tools/torch_profile.py [--frames N] [--pairs M]
-                                   [--modes p16,p8x8,bpair] [--tools]
+        [--modes p16,p8x8,bpair,idr16,idr4] [--tools]
 
 For P16x16 and for P8x8, an encoder on the card encodes chip_smoke.py's
 1080p clip (bench.py's formula): the IDR and two P frames to warm up,
@@ -14,12 +14,19 @@ pair (bench.py's GOP: bframes=2, P8x8 anchors, full_recon off), an
 encoder encodes the IDR and two mini-GOPs to warm up, then submits and
 finalizes the last mini-GOP's B pair M times again, with a synchronise
 around each stage (``_submit_b_pair``: both B cores; ``_finalize_b``;
-the CABAC coder inside it).  Then, for each mode again (after every
+the CABAC coder inside it).  For the IDR (idr16: the I16 core; idr4:
+the I4x4/I8x8 core), an encoder with keyint 1 encodes one IDR (its core's
+CUDA graph is captured there), then N more with a synchronise around
+each stage (``_run_core``: the graph replay; ``_deblock_device``;
+``_finalize_cabac``).  Then, for each mode again (after every
 timed pass: the profiler slows later launches in the same process), the
 same work under torch.profiler: device time by kernel, kernel launches
 (split by kernel), and the device's idle share of the profiled wall
-time.  --tools turns on the 8x8 transform and trellis (bench.py's) in
-every mode.  Prints the card's name and power limit first.
+time; graph launches are counted apart from kernel launches, and
+host-to-device copies by API (``cudaMemcpyAsync``, ``cudaMemcpy``,
+``cudaMemcpyWithStream``).  --tools turns on the 8x8 transform and
+trellis (bench.py's) in every mode.  Prints the card's name and power
+limit first.
 """
 
 import argparse
@@ -119,14 +126,19 @@ def _report(prof, pwall: float, n: int, label: str, unit: str,
                                                     "cuLaunchKernel"))
     launch_ms = sum(e.self_cpu_time_total for e in ka
                     if e.key in ("cudaLaunchKernel", "cuLaunchKernel")) / 1000
-    copies = [e for e in ka if e.key in ("cudaMemcpyAsync", "cudaMemcpy")]
+    graphs = sum(e.count for e in ka if e.key == "cudaGraphLaunch")
+    copies = [e for e in ka if e.key in ("cudaMemcpyAsync", "cudaMemcpy",
+                                         "cudaMemcpyWithStream")]
+    by_api = {e.key: e.count / n for e in copies}
     print(f"{label}: {pwall / n:.1f} ms wall per {unit}, device "
           f"busy {dev_ms / n:.2f} ms, idle share {1 - dev_ms / pwall:.3f}, "
           f"{launches / n:.0f} kernel launches per {unit} "
-          f"({launch_ms / n:.1f} ms of host launch time), "
+          f"({launch_ms / n:.1f} ms of host launch time), {graphs / n:g} "
+          f"graph launches, "
           f"{sum(e.count for e in copies) / n:.0f} memcpy calls per {unit} "
           f"({sum(e.self_cpu_time_total for e in copies) / 1000 / n:.1f} ms "
-          "of host time, waits for the stream included)")
+          f"of host time, waits for the stream included; by API {by_api}); "
+          f"{sum(e.count for e in dev) / n:.0f} kernels ran on the device")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1000 / n:8.3f} ms "
               f"{e.count / n:7.1f}x  {e.key[:90]}")
@@ -195,6 +207,49 @@ def b_profile(frames, n: int) -> None:
     _report(prof, pwall, n, "B pair profiled", "B pair", by_count=True)
 
 
+def _idr_encoder(i4: bool, frames):
+    """An encoder on the card whose every frame is an IDR (keyint 1),
+    after its first IDR (the core's CUDA graph captured)."""
+    from chip_smoke import H, W, _params
+    from x264_tpu_torch.api import Encoder
+    enc = Encoder(_params(W, H, True, keyint_max=1, i4x4=i4, **TOOLS),
+                  device="cuda")
+    enc.encode(frames[0])
+    return enc
+
+
+def idr_stages(i4: bool, frames, n: int) -> None:
+    import torch
+    label = "IDR (I4x4/I8x8 core)" if i4 else "IDR (I16 core)"
+    enc = _idr_encoder(i4, frames)
+    times = {}
+    for name in ("_run_core", "_deblock_device", "_finalize_cabac"):
+        _timed(enc, name, times)
+    t0 = time.perf_counter()
+    for f in frames[1:1 + n]:
+        enc.encode(f)
+    torch.cuda.synchronize()
+    wall = 1000 * (time.perf_counter() - t0) / n
+    print(f"{label}: {wall:.1f} ms per IDR; stages (ms per frame): "
+          + ", ".join(f"{k} {sum(v) / n:.1f}" for k, v in times.items()))
+
+
+def idr_profile(i4: bool, frames, n: int) -> None:
+    import x264_tpu_torch
+    label = "IDR (I4x4/I8x8 core)" if i4 else "IDR (I16 core)"
+    enc = _idr_encoder(i4, frames)
+    x264_tpu_torch.reset_launch_counts()
+
+    def work():
+        for f in frames[1:1 + n]:
+            enc.encode(f)
+
+    prof, pwall = _profiled(work)
+    print(f"{label} hand-kernel launches per IDR: "
+          f"{ {k: v / n for k, v in x264_tpu_torch.launch_counts().items()} }")
+    _report(prof, pwall, n, f"{label} profiled", "IDR", by_count=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -203,7 +258,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--pairs", type=int, default=2)
-    ap.add_argument("--modes", default="p16,p8x8,bpair")
+    ap.add_argument("--modes", default="p16,p8x8,bpair,idr16,idr4")
     ap.add_argument("--tools", action="store_true")
     args = ap.parse_args()
     modes = args.modes.split(",")
@@ -220,10 +275,15 @@ def main() -> int:
         stages(p8x8, frames, args.frames)
     if "bpair" in modes:
         b_stages(frames, args.pairs)
+    idr_modes = [m == "idr4" for m in modes if m in ("idr16", "idr4")]
+    for i4 in idr_modes:
+        idr_stages(i4, frames, args.frames)
     for p8x8 in p_modes:
         profile(p8x8, frames, args.frames)
     if "bpair" in modes:
         b_profile(frames, args.pairs)
+    for i4 in idr_modes:
+        idr_profile(i4, frames, args.frames)
     return 0
 
 

@@ -11,11 +11,13 @@ the frame cores, the deblock and the upload.  The decoded picture buffer
     enc = Encoder(EncoderParams(..., cabac=True, bframes=0), device="cuda")
     stream = b"".join(enc.encode(Frame420(y, u, v)) for ...) + enc.flush()
 
-The port runs the single-slice, single-reference CABAC path: I and P
-frames, with or without P8x8 partitions, and B frames in fixed mini-GOPs
+The port runs the single-slice, single-reference CABAC path: I frames
+(I16x16, or with ``i4x4`` the I16x16 / I4x4 / I8x8 choice), P frames,
+with or without P8x8 partitions, and B frames in fixed mini-GOPs
 (``bframes`` > 0, temporal direct), with the adaptive 8x8 transform and
 trellis quantisation when asked; the settings in ``_NOT_PORTED`` and
-``_NOT_PORTED_B`` raise ``NotImplementedError``.
+``_NOT_PORTED_B`` raise ``NotImplementedError``.  On the card an I
+frame's core is one CUDA graph replay (``models/graph.py``).
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ from x264_tpu_torch.bitstream.headers import (SLICE_B, SLICE_I, SLICE_P,
                                               write_slice_header, write_sps)
 from x264_tpu_torch.bitstream.sei import version_sei
 from x264_tpu_torch.models.b_frame import b_frame_core, b_pair_core
+from x264_tpu_torch.models.graph import run_core
 from x264_tpu_torch.models.inter import p_frame_core
-from x264_tpu_torch.models.intra import i_frame_core
+from x264_tpu_torch.models.intra import i4_frame_core, i_frame_core
 from x264_tpu_torch.ops.deblock import deblock_frame, deblock_frame_b
 from x264_tpu_torch.ops.entropy_pack import blob_stride, write_slice_cabac
 from x264_tpu_torch.ops.trellis import frame_trellis
@@ -50,7 +53,7 @@ MB_I16, MB_I4, MB_PSKIP = 0, 1, 3
 
 # parameters whose paths are not ported yet (ROADMAP queue A), with the
 # value the port runs
-_NOT_PORTED = dict(cabac=True, ref_frames=1, i4x4=False, weightp=0,
+_NOT_PORTED = dict(cabac=True, ref_frames=1, weightp=0,
                    aq_mode=0, mbtree=False, intra_refresh=False, slices=1,
                    vbv_maxrate=0, vbv_bufsize=0)
 # with B frames: the adaptive mini-GOP and the pre-encode lowres
@@ -194,22 +197,30 @@ class Encoder:
         return m
 
     def _cab_rows(self, blob, n: int, is_b: bool = False,
-                  parts: bool = False):
+                  parts: bool = False, i4: bool = False):
         """Per-MB field rows of a flat CABAC blob (entropy_pack layout)."""
-        st = blob_stride(is_b, parts)
+        st = blob_stride(is_b, parts, i4)
         return np.asarray(blob).reshape(-1)[:n * st].reshape(n, st)
 
     def _run_core(self, yd, ud, vd, ref, idr: bool, base_qp: int, qp_arr,
                   n_words: int, mbw: int, mbh: int):
         """Run the I or P core; ``host_blob`` comes back as a
-        ``_HostCopy``, the one device-to-host copy of a frame."""
+        ``_HostCopy``, the one device-to-host copy of a frame.  An I
+        frame takes ``i4_frame_core`` with i4x4 (at the lambda of the
+        frame QP, as the reference), else ``i_frame_core``; on the card
+        as a CUDA graph replay."""
         qp = torch.as_tensor(np.asarray(qp_arr, np.int32),
                              device=self.device)
         if idr or ref is None:
-            out = i_frame_core(yd, ud, vd, qp, mbw=mbw, mbh=mbh,
-                               cqp_off=self.p.chroma_qp_offset,
-                               lv_cap=n_words,
-                               trellis_tbl=self._trellis_tbl(base_qp, "I"))
+            kw = dict(mbw=mbw, mbh=mbh, cqp_off=self.p.chroma_qp_offset,
+                      lv_cap=n_words,
+                      trellis_tbl=self._trellis_tbl(base_qp, "I"))
+            core, args = i_frame_core, (yd, ud, vd, qp)
+            if self.p.i4x4:
+                core, args = i4_frame_core, args + (sad_lambda(base_qp),)
+                kw["t8_mode"] = self.p.transform_8x8
+            out = run_core(core, *args, **kw) \
+                if self.device.type == "cuda" else core(*args, **kw)
             slice_type = SLICE_I
         else:
             r = ref[0]
@@ -358,7 +369,8 @@ class Encoder:
         K = job["n_words"]
         n = job["mbw"] * job["mbh"]
         parts = self.p.p8x8 and job["slice_type"] == SLICE_P
-        rows = self._cab_rows(blob, n, parts=parts)
+        i4 = self.p.i4x4 and job["slice_type"] == SLICE_I
+        rows = self._cab_rows(blob, n, parts=parts, i4=i4)
         total = int(rows[:, 14 + 8].astype(np.int64).sum())
         if total > n * K:
             # frame-level stream overflow: re-run at the next capacity
@@ -369,7 +381,7 @@ class Encoder:
                                         job["qp"], job["qp_arr"], K,
                                         job["mbw"], job["mbh"])
                 blob = out["host_blob"].numpy()
-                rows = self._cab_rows(blob, n, parts=parts)
+                rows = self._cab_rows(blob, n, parts=parts, i4=i4)
                 total = int(rows[:, 14 + 8].astype(np.int64).sum())
                 if total <= n * K:
                     break
@@ -392,7 +404,7 @@ class Encoder:
         kind = 0 if job["slice_type"] == SLICE_I else 1
         payload = write_slice_cabac(blob, job["mbw"], job["mbh"], kind,
                                     job["slice_qp"], K, parts=parts,
-                                    t8_mode=self.p.transform_8x8)
+                                    t8_mode=self.p.transform_8x8, i4=i4)
         out_bytes += wrap_slice_nal(bs.to_bytes_aligned() + payload,
                                     job["idr"])
         cost = int(rows[:, 14 + 9].astype(np.int64).sum())

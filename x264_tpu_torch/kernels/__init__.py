@@ -2,7 +2,10 @@
 
 Each wrapper takes its kernel's plain PyTorch twin for tensors on the
 CPU, launches the kernel for CUDA tensors, and counts its launches in
-``LAUNCHES`` (one per wrapper call that launched the kernel), so a run
-can show that the main path went through the kernels."""
+``LAUNCHES`` (one per wrapper call that launched the kernel; a CUDA
+graph of an I core, ``models/graph.py``, adds its captured counts at
+each replay), so a run can show that the main path went through the
+kernels."""
 
-LAUNCHES = {"esa16": 0, "esa_parts": 0, "deblock": 0, "trellis": 0}
+LAUNCHES = {"esa16": 0, "esa_parts": 0, "deblock": 0, "trellis": 0,
+            "intra_nxn": 0}

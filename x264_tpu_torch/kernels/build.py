@@ -39,6 +39,7 @@ SIGNATURES = {
     "deblock_chain_probe_launch": [_P, _P, _P, _P, _I, _I, _P],
     "trellis_launch": [_P, _P, _P, _P, _I, _I, _P],
     "trellis_params_len": [_I],
+    "intra_nxn_launch": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _lib = None

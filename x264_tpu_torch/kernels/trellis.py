@@ -62,7 +62,9 @@ def work(nblocks: int, nc: int) -> tuple:
 
 def trellis_quant_(coefs_zz, dq_zz, lam2f, tbl, nc: int):
     """Launch the kernel on CUDA tensors: (B, nc) int32 coefficients and
-    float32 dq -> (B, nc) int32 signed levels."""
+    float32 dq -> (B, nc) int32 signed levels.  tbl: the cost tables, or
+    their parameter block already on the card (``params_block``; a CUDA
+    graph's own buffer, ``models/graph.py``)."""
     if nc not in NCS:
         raise ValueError(f"trellis: nc {nc} not in {NCS}")
     if coefs_zz.dim() != 2 or coefs_zz.shape[1] != nc \
@@ -74,7 +76,8 @@ def trellis_quant_(coefs_zz, dq_zz, lam2f, tbl, nc: int):
         raise ValueError("trellis: coefs and dq on different devices")
     c = coefs_zz.to(torch.int32).contiguous()
     dq = dq_zz.to(torch.float32).contiguous()
-    params = params_block(tbl, lam2f, nc, dev)
+    params = tbl if torch.is_tensor(tbl) else params_block(tbl, lam2f, nc,
+                                                           dev)
     out = torch.empty_like(c)
     err = library().trellis_launch(
         c.data_ptr(), dq.data_ptr(), params.data_ptr(), out.data_ptr(),

@@ -1,6 +1,7 @@
 """Compact syntax blob for the host CABAC coder (port of
-x264_tpu/ops/device/entropy_pack.py for I, single-reference P frames,
-with or without P partitions, and B frames), and the host coder itself:
+x264_tpu/ops/device/entropy_pack.py for I frames, I16x16 or I_NxN,
+single-reference P frames, with or without P partitions, and B frames),
+and the host coder itself:
 the C source ``native/cabac.c`` (a copy of x264_tpu/native/cabac.c),
 built with gcc at first use and called through ctypes.  The coder reads
 the blob, so it must come out as the same int32 words as the
@@ -10,9 +11,10 @@ Layout (one flat int32 array): per MB a row of ``blob_stride(b, parts)``
 words — the 408-bit significance bitmap in 13 words, the exclusive
 prefix of the MB's nonzero count, then the fields mb_class, mvd_x,
 mvd_y, i16_mode, chroma_mode, cbp_luma, cbp_chroma, qp, nnz_total,
-mb_cost, icost, in B slices bmode, mvd1_x, mvd1_y, then ref, t8 and,
-with partitions, shape, the mvds of partition slots 1-3 (x, y) and
-their refs — followed by the frame-global stream of nonzero levels as
+mb_cost, icost, in B slices bmode, mvd1_x, mvd1_y, then ref, t8,
+with partitions shape, the mvds of partition slots 1-3 (x, y) and
+their refs, and with I_NxN the 16 prediction modes as nibbles in two
+words — followed by the frame-global stream of nonzero levels as
 int16 pairs (lo | hi << 16), n*K levels, zero-filled or cut at that
 cap."""
 
@@ -32,6 +34,7 @@ N_BITMAP = 13
 FIELDS_P = 13
 FIELDS_B = 16       # FIELDS_P + bmode, mvd1_x, mvd1_y
 FIELDS_PARTS = 10   # shape, mvd slots 1-3 (x, y), ref slots 1-3
+FIELDS_I4 = 2       # I_NxN pred modes, raster blocks 0-7 and 8-15
 
 _I32 = torch.int32
 
@@ -80,9 +83,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def blob_stride(b: bool = False, parts: bool = False) -> int:
+def blob_stride(b: bool = False, parts: bool = False,
+                i4: bool = False) -> int:
     return N_BITMAP + 1 + (FIELDS_B if b else FIELDS_P) \
-        + (FIELDS_PARTS if parts else 0)
+        + (FIELDS_PARTS if parts else 0) + (FIELDS_I4 if i4 else 0)
 
 
 def _wrap_i32(x):
@@ -94,12 +98,13 @@ def _wrap_i32(x):
 def cabac_blob(luma_dc, luma_ac, chroma_dc, chroma_ac, mb_class, mvd,
                i16_mode, chroma_mode, cbp_luma, cbp_chroma, qp, mb_cost,
                icost, K: int, bmode=None, mvd1=None, t8=None, shape=None,
-               mvd_part=None, ref_part=None):
+               mvd_part=None, ref_part=None, i4_modes=None):
     """All inputs per-MB int32 tensors; K even.  In a B slice, bmode (N,)
     and mvd1 (N,2) (list 1's mvd) add the three B fields and t8 (N,) is
     the transform flag (zeros when None).  With partitions, shape (N,),
-    mvd_part (N,4,2) and ref_part (N,4) add the 10 partition fields.
-    Returns the flat int32 blob: n*stride row words + n*K/2 stream
+    mvd_part (N,4,2) and ref_part (N,4) add the 10 partition fields;
+    i4_modes (N,16) adds the two I_NxN mode words (4-bit nibbles, raster
+    blocks; -1, the value of non-I_NxN MBs, packs as 0).  Returns the flat int32 blob: n*stride row words + n*K/2 stream
     words."""
     n = mb_class.shape[0]
     dev = mb_class.device
@@ -145,6 +150,13 @@ def cabac_blob(luma_dc, luma_ac, chroma_dc, chroma_ac, mb_class, mvd,
                    mvd_part[:, 2, 0], mvd_part[:, 2, 1],
                    mvd_part[:, 3, 0], mvd_part[:, 3, 1],
                    ref_part[:, 1], ref_part[:, 2], ref_part[:, 3]]
+    if i4_modes is not None:
+        # mode 8 in the top nibble passes bit 31: the words wrap as the
+        # reference's int32 sums do
+        nib = i4_modes.to(torch.int64).clamp(0, 15)
+        sh4 = 4 * torch.arange(8, device=dev)
+        fields += [_wrap_i32((nib[:, :8] << sh4).sum(1)),
+                   _wrap_i32((nib[:, 8:] << sh4).sum(1))]
     rows = torch.cat([bitmap] + [f.to(_I32)[:, None] for f in fields],
                      dim=1)
     return torch.cat([rows.reshape(-1), stream])
@@ -152,13 +164,14 @@ def cabac_blob(luma_dc, luma_ac, chroma_dc, chroma_ac, mb_class, mvd,
 
 def write_slice_cabac(blob: np.ndarray, mbw: int, mbh: int, slice_kind: int,
                       slice_qp: int, K: int, parts: bool = False,
-                      t8_mode: bool = False):
+                      t8_mode: bool = False, i4: bool = False):
     """CABAC-code one slice from the host copy of the blob with
     ``native/cabac.c`` (the reference's
     ``cabac_host.write_slice_cabac_packed`` for single-reference I/P/B
-    slices without I4x4).  slice_kind 0 = I, 1 = P, 2 = B (the blob then
-    carries the B fields); parts: the blob carries the partition fields
-    (P slices with p8x8); t8_mode: the PPS transform_8x8_mode_flag (codes
+    slices).  slice_kind 0 = I, 1 = P, 2 = B (the blob then carries the
+    B fields); parts: the blob carries the partition fields (P slices
+    with p8x8); i4: the blob carries the I_NxN mode words (I slices with
+    i4x4); t8_mode: the PPS transform_8x8_mode_flag (codes
     each MB's transform_size_8x8_flag and its 8x8 blocks).  Returns the
     slice_data() payload bytes."""
     n = mbw * mbh
@@ -168,8 +181,8 @@ def write_slice_cabac(blob: np.ndarray, mbw: int, mbh: int, slice_kind: int,
                                                         copy=False))
     sz = _lib().encode_slice_cabac_packed(
         mbw, mbh, slice_kind, int(slice_qp), 0, blob, K,
-        blob_stride(slice_kind == 2, parts),
-        int(t8_mode), 1, int(parts), 0, out, cap, None)
+        blob_stride(slice_kind == 2, parts, i4),
+        int(t8_mode), 1, int(parts), int(i4), out, cap, None)
     if sz < 0:
         raise OverflowError("CABAC level cap or buffer overflow")
     return out[:sz].tobytes()
