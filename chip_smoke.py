@@ -19,11 +19,15 @@ Phases, each of which raises (exit code != 0) when it fails:
      bS grids of an encoded P8x8 frame, with both terms of its bound
      (bytes, and the dependent chain timed by a probe kernel); the trellis
      kernel on the three blockings of a 1080p P frame's residual (4x4
-     luma, 8x8 luma, chroma AC), its bound the larger of its bytes and
-     its float operations at the card's FP32 rate; the I4x4/I8x8 core
-     on the first frame, eager against its CUDA graph (capture and
-     replay ms), and the NxN candidate kernel against its twin on every
-     knight step of that IDR, with its bound and one MB's chain;
+     luma, 8x8 luma, chroma AC) and at the I4x4 IDR's step shapes (1, 30
+     and 60 MBs, and one IDR's 508 launches as a graph), in both of its
+     layouts, its bound the larger of its bytes and its float operations
+     at the card's FP32 rate; the I4x4/I8x8 core on the first frame,
+     eager against its CUDA graph (capture and replay ms), and the NxN
+     candidate kernel against its twin on every knight step of that IDR,
+     with t8_mode on and off, with its bound and one MB's chain; the
+     registers, spills and shared memory of the ESA, trellis and NxN
+     kernels (ptxas);
   4. the main paths, each with the kernels' launch counts reset just
      before and read just after: Encoder(device="cuda") encodes a 1080p
      clip of one IDR and 5 P frames (the clip formula of bench.py's
@@ -48,6 +52,7 @@ The line before the last is the kernels' JSON record; the last line is
 and exits 1.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -243,13 +248,16 @@ def _esa_probe_rate(lib, n_sm: int) -> float:
     return blocks * 256 * iters * 8 * 16 / (1e-3 * _time_ms(probe, 5))
 
 
-def _print_esa_resources(log: str) -> None:
-    """Registers and spills of the ESA kernels, from ptxas's report."""
+def _print_resources(log: str, keys: tuple) -> None:
+    """Registers, spills, static shared memory and stack frame of the
+    kernels whose names hold one of keys, from ptxas's report."""
     from x264_tpu_torch.kernels.build import kernel_resources
-    for name, (regs, st, ld) in sorted(kernel_resources(log).items()):
-        if "search_kernel" in name or "esa" in name:
-            print(f"ptxas {name}: {regs} registers, spill stores {st} "
-                  f"bytes, spill loads {ld} bytes")
+    for name, r in sorted(kernel_resources(log).items()):
+        if any(k in name for k in keys):
+            print(f"ptxas {name}: {r.registers} registers, spill stores "
+                  f"{r.spill_stores} bytes, spill loads {r.spill_loads} "
+                  f"bytes, {r.smem} bytes of shared memory, {r.stack} bytes "
+                  "of stack")
 
 
 def _deblock_chain_passes(mbw: int, mbh: int) -> int:
@@ -345,44 +353,94 @@ def _trellis_launches(n_i: int, n_p: int, n_b: int, i4: bool = False) -> int:
     return 2 * steps * n_i + 5 * (n_p + n_b)
 
 
-def _trellis_phase(clip, record) -> None:
-    """The trellis kernel against its plain twin at the three shapes of
-    a 1080p P frame at QP 26 — 4x4 luma (130560 blocks of 16), 8x8 luma
-    (32640 of 64) and chroma AC (65280 of 15) — bit-exact, each timed
-    with its bound; the record sums the three, one P frame's trellis
-    work.  The input is the luma difference of frames 1 and 0 (the
-    clip's chroma is too smooth to leave a level at QP 26): its 4x4 and
-    8x8 coefficients, and for the chroma-AC shape the AC positions of
-    the first 65280 4x4 blocks with the chroma-AC tables."""
+def _trellis_p_shapes(clip) -> tuple:
+    """lam2f and the three trellis calls of a 1080p P frame at QP 26,
+    [(name, coefficients, dq, tables, nc)]: 4x4 luma (130560 blocks of
+    16), 8x8 luma (32640 of 64) and chroma AC (65280 of 15).  The input
+    is the luma difference of frames 1 and 0 (the clip's chroma is too
+    smooth to leave a level at QP 26): its 4x4 and 8x8 coefficients, and
+    for the chroma-AC shape the AC positions of the first 65280 4x4
+    blocks with the chroma-AC tables."""
     import torch
-    from x264_tpu_torch.kernels import build, trellis as KT
-    from x264_tpu_torch.kernels.build import check
     from x264_tpu_torch.ops import transform as T
-    from x264_tpu_torch.ops.trellis import (dq1_4x4, dq1_8x8, frame_trellis,
-                                            trellis_quant_plain)
+    from x264_tpu_torch.ops.trellis import dq1_4x4, dq1_8x8, frame_trellis
     from x264_tpu_torch.state import me_lambda
     dev = torch.device("cuda")
     mbw, mbh = (W + 15) // 16, (H + 15) // 16
     n = mbw * mbh
-    res = [torch.from_numpy(_pad_to_mb(clip[1][0], 16).astype(np.int32)
-                            - _pad_to_mb(clip[0][0], 16).astype(np.int32)
-                            ).to(dev)]
-    luma = T.plane_to_mbs(res[0], mbh, mbw, 16)
+    res = torch.from_numpy(_pad_to_mb(clip[1][0], 16).astype(np.int32)
+                           - _pad_to_mb(clip[0][0], 16).astype(np.int32)
+                           ).to(dev)
+    luma = T.plane_to_mbs(res, mbh, mbw, 16)
     c4 = T.zigzag(T.dct4x4(T.mb_luma_to_blocks(luma))).reshape(n * 16, 16)
     c8 = T.zigzag8(T.dct8x8(T.mb_luma_to_blocks8(luma))).reshape(n * 4, 64)
-    cac = c4[:n * 8, 1:].contiguous()
     q = torch.full((n,), QP, dtype=torch.int32, device=dev)
     tbl4, tbl8, lam2f, _, tblc = frame_trellis(QP, "P", me_lambda(QP), True)
-    shapes = (("4x4 luma", c4, dq1_4x4(q.repeat_interleave(16)), tbl4, 16),
-              ("8x8 luma", c8, dq1_8x8(q.repeat_interleave(4)), tbl8, 64),
-              ("chroma AC", cac,
-               dq1_4x4(q.repeat_interleave(8))[:, 1:].contiguous(), tblc,
-               15))
+    return lam2f, [
+        ("4x4 luma", c4, dq1_4x4(q.repeat_interleave(16)), tbl4, 16),
+        ("8x8 luma", c8, dq1_8x8(q.repeat_interleave(4)), tbl8, 64),
+        ("chroma AC", c4[:n * 8, 1:].contiguous(),
+         dq1_4x4(q.repeat_interleave(8))[:, 1:].contiguous(), tblc, 15)]
+
+
+def _trellis_idr_inputs(clip) -> tuple:
+    """(coefficients, dq, lam2f, I16 AC tables, chroma AC tables) for the
+    I4x4 IDR's step shapes: 960 blocks of 15 (60 MBs' I16 AC), the AC
+    positions of the 4x4 transforms of frame 0's luma minus each MB's
+    mean, with the I-slice tables at QP 26."""
+    import torch
+    from x264_tpu_torch.ops import transform as T
+    from x264_tpu_torch.ops.trellis import dq1_4x4, frame_trellis
+    from x264_tpu_torch.state import me_lambda
+    dev = torch.device("cuda")
+    mbw, mbh = (W + 15) // 16, (H + 15) // 16
+    mbs = T.plane_to_mbs(torch.from_numpy(_pad_to_mb(clip[0][0], 16).astype(
+        np.int32)).to(dev), mbh, mbw, 16)
+    mbs = mbs - mbs.float().mean((1, 2), keepdim=True).round().int()
+    cac = T.zigzag(T.dct4x4(T.mb_luma_to_blocks(mbs[:60]))).reshape(960, 16)
+    dq = dq1_4x4(torch.full((960,), QP, dtype=torch.int32, device=dev))
+    _, _, lam2f, tbl16, tblc = frame_trellis(QP, "I", me_lambda(QP), True)
+    return (cac[:, 1:].contiguous(), dq[:, 1:].contiguous(), lam2f, tbl16,
+            tblc)
+
+
+def _trellis_calls() -> dict:
+    """{layout: fn(coefs, dq, lam2f, tables, nc)}: "auto", the wrapper the
+    encoder calls (the launcher picks the layout), then each layout of
+    kernels/trellis.LAYOUTS forced (none in a tree that has one layout,
+    which tools/nxn_trellis_bench.py may time)."""
+    from x264_tpu_torch.kernels import trellis as KT
+    calls = {"auto": KT.trellis_quant_}
+    for lay in getattr(KT, "LAYOUTS", ()):
+        calls[lay] = functools.partial(KT._trellis_quant_layout, layout=lay)
+    return calls
+
+
+def _trellis_bound_ms(nblocks: int, nc: int) -> tuple:
+    """(bytes term, operations term) of one call's bound, ms."""
+    from x264_tpu_torch.kernels import trellis as KT
+    nbytes, flops = KT.work(nblocks, nc)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOPS_PER_S
+
+
+def _trellis_phase(clip, record) -> None:
+    """The trellis kernel against its plain twin at the three shapes of
+    a 1080p P frame (_trellis_p_shapes), bit-exact in the layout the
+    launcher picks and in both layouts forced, each timed with its
+    bound; the record sums the three, one P frame's trellis work.  Then
+    the I4x4 IDR's shapes (_trellis_idr_phase)."""
+    import torch
+    from x264_tpu_torch.kernels import build, trellis as KT
+    from x264_tpu_torch.kernels.build import check
+    from x264_tpu_torch.ops.trellis import trellis_quant_plain
+    dev = torch.device("cuda")
+    lam2f, shapes = _trellis_p_shapes(clip)
+    calls = _trellis_calls()
     tot = dict(err=0, ms=0.0, plain=0.0, t_bytes=0.0, t_ops=0.0)
     for name, c, dq, tbl, nc in shapes:
-        lv_k = KT.trellis_quant(c, dq, lam2f, tbl, nc)
         lv_p = trellis_quant_plain(c, dq, lam2f, tbl, nc)
-        err = _max_err(lv_k, lv_p)
+        err = max(_max_err(fn(c, dq, lam2f, tbl, nc), lv_p)
+                  for fn in calls.values())
         nz = int((lv_p != 0).sum())
         if err or not nz:
             raise AssertionError(f"trellis {name}: max err {err}, {nz} "
@@ -390,18 +448,21 @@ def _trellis_phase(clip, record) -> None:
         ms = _time_ms(lambda: KT.trellis_quant(c, dq, lam2f, tbl, nc), 20)
         plain = _time_ms(lambda: trellis_quant_plain(c, dq, lam2f, tbl, nc),
                          3)
+        forced = {lay: _time_ms(lambda: fn(c, dq, lam2f, tbl, nc), 20)
+                  for lay, fn in calls.items() if lay != "auto"}
         # a diagnostic: the launch alone, on an output allocated once
         params, out = KT.params_block(tbl, lam2f, nc, dev), torch.empty_like(c)
         stream = torch.cuda.current_stream().cuda_stream
         alone = _time_ms(lambda: check(build.library().trellis_launch(
             c.data_ptr(), dq.data_ptr(), params.data_ptr(), out.data_ptr(),
             c.shape[0], nc, stream), "trellis"), 50)
-        nbytes, flops = KT.work(c.shape[0], nc)
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * flops / FP32_FLOPS_PER_S
-        print(f"trellis {name}: {c.shape[0]} blocks x {nc}, bit-exact "
-              f"({nz} nonzero levels), {ms:.4f} ms through the wrapper (its "
-              f"launch alone {alone:.4f} ms; plain {plain:.3f} ms), bound "
+        t_bytes, t_ops = _trellis_bound_ms(c.shape[0], nc)
+        print(f"trellis {name}: {c.shape[0]} blocks x {nc}, bit-exact in "
+              f"every layout ({nz} nonzero levels), {ms:.4f} ms through the "
+              f"wrapper, layout {_trellis_layout(c.shape[0], nc)} (its "
+              f"launch alone {alone:.4f} ms; thread per block "
+              f"{forced['thread']:.4f}, lanes per state "
+              f"{forced['lanes']:.4f}; plain {plain:.3f} ms), bound "
               f"max(bytes {t_bytes:.4f}, operations {t_ops:.4f}) ms")
         tot["err"] = max(tot["err"], err)
         for k, v in (("ms", ms), ("plain", plain), ("t_bytes", t_bytes),
@@ -411,6 +472,81 @@ def _trellis_phase(clip, record) -> None:
            "x264_tpu/ops/device/trellis.py:244", tot["err"], tot["ms"],
            tot["plain"], (tot["t_ops"], "operations")
            if tot["t_ops"] >= tot["t_bytes"] else (tot["t_bytes"], "bytes"))
+    _trellis_idr_phase(clip)
+
+
+def _trellis_layout(nblocks: int, nc: int) -> str:
+    """The layout the launcher picks for this call."""
+    from x264_tpu_torch.kernels import build, trellis as KT
+    code = build.library().trellis_auto_layout(nblocks, nc)
+    return next(k for k, v in KT.LAYOUTS.items() if v == code)
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """ms of one replay of a CUDA graph of fn()'s launches, captured
+    after one eager run of fn()."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return _time_ms(g.replay, reps)
+
+
+def _trellis_idr_phase(clip) -> None:
+    """The trellis kernel at the I4x4 IDR's step shapes (nc 15: the I16
+    AC blocks of a knight step's MBs, 16 x count, and the chroma AC
+    ones, 8 x count, count 1, 30 and 60; _trellis_idr_inputs), bit-exact
+    against the twin in every layout, each timed as a CUDA graph of 254
+    launches (us per launch) with its bound; then one IDR's 508 launches
+    (the two shapes at every knight step's MB count) as one graph,
+    against the sum of their bounds."""
+    import torch
+    from x264_tpu_torch.kernels import intra_nxn as KN, trellis as KT
+    from x264_tpu_torch.ops.trellis import trellis_quant_plain
+    dev = torch.device("cuda")
+    mbw, mbh = (W + 15) // 16, (H + 15) // 16
+    steps = mbw + 2 * mbh - 2
+    cac, dq, lam2f, tbl16, tblc = _trellis_idr_inputs(clip)
+    p16 = KT.params_block(tbl16, lam2f, 15, dev)
+    pc = KT.params_block(tblc, lam2f, 15, dev)
+    calls = _trellis_calls()
+
+    def bound_ms(nblocks):
+        return max(_trellis_bound_ms(nblocks, 15))
+
+    for count in (1, 30, 60):
+        for name, k, tbl, params in (("I16 AC", 16, tbl16, p16),
+                                     ("chroma AC", 8, tblc, pc)):
+            b = k * count
+            c, d = cac[:b], dq[:b]
+            want = trellis_quant_plain(c, d, lam2f, tbl, 15)
+            err = max(_max_err(fn(c, d, lam2f, params, 15), want)
+                      for fn in calls.values())
+            if err or not (want != 0).any():
+                raise AssertionError(f"trellis IDR {name} x {count}: max err "
+                                     f"{err}")
+            us = {lay: 1e3 * _graph_ms(lambda: [fn(
+                c, d, lam2f, params, 15) for _ in range(steps)], 5) / steps
+                for lay, fn in calls.items()}
+            print(f"trellis IDR {name}, {count} MBs ({b} blocks x 15): "
+                  f"bit-exact in every layout, {us['auto']:.2f} us per launch"
+                  f" (layout {_trellis_layout(b, 15)}; thread per block "
+                  f"{us['thread']:.2f}, lanes per state {us['lanes']:.2f}; "
+                  f"a graph of {steps} launches), bound "
+                  f"{1e3 * bound_ms(b):.3f} us")
+    counts = [KN.knight_lanes(d, mbw, mbh)[1] for d in range(steps)]
+
+    def idr():
+        for cnt in counts:
+            KT.trellis_quant_(cac[:16 * cnt], dq[:16 * cnt], lam2f, p16, 15)
+            KT.trellis_quant_(cac[:8 * cnt], dq[:8 * cnt], lam2f, pc, 15)
+
+    print(f"trellis, one 1080p I4x4 IDR's {2 * steps} launches (I16 AC and "
+          f"chroma AC at every knight step's MB count) as one graph: "
+          f"{_graph_ms(idr, 5):.4f} ms, bound "
+          f"{sum(bound_ms(16 * c) + bound_ms(8 * c) for c in counts):.4f} ms")
 
 
 def _graph_replays(core, planes, qp, lam, tt, reps: int, **kw) -> tuple:
@@ -451,14 +587,15 @@ def _nxn_phase(clip, record, int_ops_per_s: float) -> None:
     transform and trellis: the B-GOP run's key): the eager core against
     its CUDA graph (capture ms, then replay ms, every field equal); then
     the NxN kernel against its plain twin on every one of the 254 knight
-    steps, from the state that IDR left (kernel and twin each carry their
-    own copy forward; outputs, recon plane and mode grid equal), timed
+    steps, from the state that IDR left, with t8_mode on and off (kernel
+    and twin each carry their own copy forward; outputs, recon plane and
+    mode grid equal), timed
     per IDR (all 254 launches through the wrapper, CUDA events around
     the whole pass; the recorded time is a CUDA graph of the 254
     launches, as the core's graph runs them), with its bound
     (``kernels/intra_nxn.work`` at the HBM and int32 rates) and the
     dependent chain of one MB (the kernel at step 0, one MB, 254 times in
-    a graph)."""
+    a graph), both also with t8_mode off (the I4x4 chain alone)."""
     import torch
     from x264_tpu_torch.kernels import intra_nxn as KN
     from x264_tpu_torch.models.intra import i4_frame_core
@@ -495,23 +632,26 @@ def _nxn_phase(clip, record, int_ops_per_s: float) -> None:
     ysrc = planes[0].to(torch.int32)
     state = _i4_state(eager, mbw, mbh)
     lam_t = torch.tensor([lam], dtype=torch.int32, device=dev)
-    kst = [t.clone() for t in state]
-    pst = [t.clone() for t in state]
     err = 0
-    for d in range(steps):
-        got = KN.nxn_candidates(kst[0], kst[1], ysrc, qp, lam_t, d, mbw, mbh,
-                                True)
-        want = KN.nxn_candidates_plain(pst[0], pst[1], ysrc, qp, lam, d, mbw,
-                                       mbh, True)
-        err = max([err, _max_err(kst[0], pst[0]), _max_err(kst[1], pst[1])]
-                  + [_max_err(got[k], want[k]) for k in want])
+    for t8 in (True, False):
+        kst = [t.clone() for t in state]
+        pst = [t.clone() for t in state]
+        for d in range(steps):
+            got = KN.nxn_candidates(kst[0], kst[1], ysrc, qp, lam_t, d, mbw,
+                                    mbh, t8)
+            want = KN.nxn_candidates_plain(pst[0], pst[1], ysrc, qp, lam, d,
+                                           mbw, mbh, t8)
+            err = max([err, _max_err(kst[0], pst[0]),
+                       _max_err(kst[1], pst[1])]
+                      + [_max_err(got[k], want[k]) for k in want
+                         if want[k] is not None])
     if err:
         raise AssertionError(f"intra_nxn disagrees with its plain twin: "
                              f"max err {err}")
 
-    def idr_pass(fn, st, ds=range(steps)):
+    def idr_pass(fn, st, ds=range(steps), t8=True):
         for d in ds:
-            fn(st[0], st[1], ysrc, qp, lam_t, d, mbw, mbh, True)
+            fn(st[0], st[1], ysrc, qp, lam_t, d, mbw, mbh, t8)
 
     reps = 5
     copies = [[t.clone() for t in state] for _ in range(reps + 1)]
@@ -528,17 +668,17 @@ def _nxn_phase(clip, record, int_ops_per_s: float) -> None:
     wrapper_ms = ev[0].elapsed_time(ev[1]) / reps
     plain = ev[2].elapsed_time(ev[3])
 
-    def graph_ms(ds) -> float:
+    def graph_ms(ds, t8=True) -> float:
         """ms of one replay of a CUDA graph of the kernel launched at the
         steps ds, as the I4 core's graph launches it (no wrapper)."""
         st = [t.clone() for t in state]
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            idr_pass(KN.nxn_candidates, st, ds)
-        return _time_ms(g.replay, reps)
+        return _graph_ms(lambda: idr_pass(KN.nxn_candidates, st, ds, t8),
+                         reps)
 
     ms = graph_ms(range(steps))
     chain_us = 1e3 * graph_ms([0] * steps) / steps
+    ms_i4 = graph_ms(range(steps), False)
+    chain_i4 = 1e3 * graph_ms([0] * steps, False) / steps
     nbytes, ops = KN.work(n_mb, True)
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * ops / int_ops_per_s
@@ -549,7 +689,9 @@ def _nxn_phase(clip, record, int_ops_per_s: float) -> None:
           f"max(bytes {t_bytes:.4f}, operations {t_ops:.4f}) ms; one MB's "
           f"chain (step 0 alone, {steps} launches in a graph) "
           f"{chain_us:.2f} us, x {steps} steps = "
-          f"{chain_us * steps / 1e3:.3f} ms")
+          f"{chain_us * steps / 1e3:.3f} ms; t8_mode off (the I4x4 chain "
+          f"alone, bit-exact on every step too): {ms_i4:.4f} ms per IDR, "
+          f"chain {chain_i4:.2f} us")
     record("intra_nxn", "x264_tpu_torch/csrc/intra_nxn.cu",
            "x264_tpu/models/intra_device.py:360-554", err, ms, plain,
            (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
@@ -886,7 +1028,8 @@ def main() -> int:
     print(f"kernel build: {build.build_info['seconds']:.3f} s "
           f"({build.build_info['path']})")
     print(build.build_info["log"], file=sys.stderr)
-    _print_esa_resources(build.build_info["log"])
+    _print_resources(build.build_info["log"],
+                     ("search_kernel", "esa", "trellis", "intra_nxn"))
     probe_rate = _esa_probe_rate(build.library(), n_sm)
     print(f"esa_sad_probe: {probe_rate / 1e12:.3f} T vabsdiff4/s, "
           f"{probe_rate / (n_sm * clk_mhz * 1e6):.2f} per SM per clock at "

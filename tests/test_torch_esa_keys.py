@@ -167,5 +167,5 @@ ptxas info    : Function properties for _Z13esa_sad_probePji
 ptxas info    : Used 40 registers, 368 bytes cmem[0]
 """
     got = build.kernel_resources(log)
-    assert got == {"_ZN3esa13search_kernelILi1ELi4EEEvPKh": (122, 0, 0),
-                   "_Z13esa_sad_probePji": (40, 4, 8)}
+    assert got == {"_ZN3esa13search_kernelILi1ELi4EEEvPKh": (122, 0, 0, 0, 0),
+                   "_Z13esa_sad_probePji": (40, 4, 8, 0, 8)}

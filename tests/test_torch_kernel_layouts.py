@@ -1,0 +1,321 @@
+"""The work layouts of csrc/intra_nxn.cu and csrc/trellis.cu, on the CPU:
+the kernels' own tables parsed from their sources and held to the plain
+twins, and Python mirrors of the lane arithmetic that the tables feed.
+The kernels themselves run only on the card
+(tests/test_torch_kernels_cuda.py holds them to the twins there).
+Imports only the port, no JAX.  Tolerance 0: all of it is integer or
+compares float32 values exactly."""
+
+import itertools
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from x264_tpu_torch.kernels import build
+from x264_tpu_torch.kernels.intra_nxn import _SUBSTEPS
+from x264_tpu_torch.ops import pixel as P
+from x264_tpu_torch.ops import predict as PR
+from x264_tpu_torch.ops.trellis import BIG, GROUP_IDX, TRANS_EQ1, TRANS_GT1
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "x264_tpu_torch", "csrc")
+
+
+def _source(name: str) -> str:
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
+def _table(src: str, name: str) -> np.ndarray:
+    """A brace-initialised integer table of the source, as an array."""
+    body = re.search(name + r"(?:\[\w+\])+ = \{(.*?)\n\};", src, re.S).group(1)
+    rows = re.findall(r"\{([^{}]*)\}", body)
+    return np.array([[int(v) for v in r.split(",") if v.strip()]
+                     for r in rows])
+
+
+def _f2(e):
+    return (e[:, :-1] + e[:, 1:] + 1) >> 1
+
+
+def _f3(e, lok=None, rok=None):
+    """Three-tap average of each entry of the edge line; a neighbour off
+    the line's ends (or, where lok / rok say so, unavailable) counts as
+    the centre."""
+    left = torch.cat([e[:, :1], e[:, :-1]], 1)
+    right = torch.cat([e[:, 1:], e[:, -1:]], 1)
+    if lok is not None:
+        left = torch.where(lok, left, e)
+        right = torch.where(rok, right, e)
+    return (left + 2 * e + right + 2) >> 2
+
+
+def _dc(at, al, st, sl, n):
+    both = (st + sl + n) >> (3 if n == 4 else 4)
+    one_t = (st + n // 2) >> (2 if n == 4 else 3)
+    one_l = (sl + n // 2) >> (2 if n == 4 else 3)
+    return torch.where(at & al, both, torch.where(
+        at, one_t, torch.where(al, one_l, torch.full_like(st, 128))))
+
+
+def _value_rows(n, top, left, tl, at, al, atl, atr):
+    """The kernel's value row [E, F2, F3, DC] of a block (n = 4 or 8)
+    from its raw edges: E = the left column bottom-up, the corner and the
+    top row, the top-right half replaced when unavailable (8.3.1.2.1);
+    for 8x8 after the 8.3.2.2.1 filter, whose neighbour rule is the
+    kernel's (lok / rok of i8_chain)."""
+    top = torch.cat([top[:, :n], torch.where(atr[:, None], top[:, n:],
+                                             top[:, n - 1:n])], 1)
+    e = torch.cat([left.flip(1), tl[:, None], top], 1)
+    if n == 8:
+        lane = torch.arange(e.shape[1])[None]
+        lok = (lane > 0) & ~((lane == 8) & ~al[:, None]) \
+            & ~((lane == 9) & ~atl[:, None])
+        rok = (lane < 24) & ~((lane == 8) & ~at[:, None]) \
+            & ~((lane == 7) & ~atl[:, None])
+        e = _f3(e, lok, rok)
+    st = e[:, n + 1:2 * n + 1].sum(1)
+    sl = e[:, :n].sum(1)
+    return torch.cat([e, _f2(e), _f3(e), _dc(at, al, st, sl, n)[:, None]], 1)
+
+
+def test_nxn_substeps_match_the_twin():
+    """kSubsteps equals the twin's _SUBSTEPS, and every block's left,
+    top, top-left and top-right neighbours inside the MB come in an
+    earlier sub-step, so the two half-warps of a sub-step never wait on
+    each other."""
+    src = _source("intra_nxn.cu")
+    body = re.search(r"kSubsteps\[10\]\[2\]\[2\] = \{(.*?)\n\s*\};",
+                     src, re.S).group(1)
+    steps = [[(int(a), int(b)) for a, b in
+              re.findall(r"\{(-?\d+), (-?\d+)\}", row)]
+             for row in re.findall(r"\{(\{[^{}]*\}, \{[^{}]*\})\}", body)]
+    assert len(steps) == 10
+    got = [[b for b in s if b != (-1, -1)] for s in steps]
+    assert got == [list(map(tuple, s)) for s in _SUBSTEPS]
+    when = {b: i for i, s in enumerate(got) for b in s}
+    assert sorted(when) == [(x, y) for x in range(4) for y in range(4)]
+    for (x, y), s in when.items():
+        assert s == x + 2 * y
+        for nb in ((x - 1, y), (x, y - 1), (x - 1, y - 1), (x + 1, y - 1)):
+            if nb in when:
+                assert when[nb] < s, ((x, y), nb)
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_nxn_prediction_tables_match_the_plain_predictors(n):
+    """Every entry of kPred4 / kPred8 is the one place of the value row
+    that equals the plain predictor's output, on random edges with every
+    neighbour available (the entries differ there)."""
+    tab = _table(_source("intra_nxn.cu"), f"kPred{n}")
+    assert tab.shape == (9, n * n)
+    rng = np.random.default_rng(n)
+    m = 64
+    top = torch.from_numpy(rng.integers(0, 256, (m, 2 * n))).int()
+    left = torch.from_numpy(rng.integers(0, 256, (m, n))).int()
+    tl = torch.from_numpy(rng.integers(0, 256, m)).int()
+    yes = torch.ones(m, dtype=torch.bool)
+    if n == 4:
+        pred = PR.predict_4x4_all(top, left, tl, yes, yes, yes)
+    else:
+        pred = PR.predict_8x8_all(top, left, tl, yes, yes, yes, yes)
+    rows = _value_rows(n, top, left, tl, yes, yes, yes, yes)
+    hit = (rows[:, None, None, :] == pred.reshape(m, 9, n * n, 1)).all(0)
+    assert (hit.sum(-1) == 1).all()
+    assert np.array_equal(hit.int().argmax(-1).numpy(), tab)
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_nxn_value_rows_mirror_every_availability(n):
+    """The kernel's prediction (its value row at kPred's entry) equals the
+    plain predictor for every available mode, in every combination of
+    neighbour availability, on random edges."""
+    tab = torch.from_numpy(_table(_source("intra_nxn.cu"), f"kPred{n}"))
+    rng = np.random.default_rng(10 + n)
+    combos = list(itertools.product([False, True], repeat=4))
+    m = 16 * len(combos)
+    flags = torch.tensor(combos).repeat(16, 1)
+    at, al, atl, atr = flags.unbind(1)
+    top = torch.from_numpy(rng.integers(0, 256, (m, 2 * n))).int()
+    left = torch.from_numpy(rng.integers(0, 256, (m, n))).int()
+    tl = torch.from_numpy(rng.integers(0, 256, m)).int()
+    if n == 4:
+        pred = PR.predict_4x4_all(top, left, tl, at, al, atr)
+        avail = PR.i4x4_mode_avail(at, al, atl)
+    else:
+        pred = PR.predict_8x8_all(top, left, tl, at, al, atl, atr)
+        avail = PR.i8x8_mode_avail(at, al, atl)
+    rows = _value_rows(n, top, left, tl, at, al, atl, atr)
+    got = rows[:, tab.reshape(-1)].reshape(m, 9, n * n)
+    same = (got == pred.reshape(m, 9, n * n)).all(-1)
+    assert (same | ~avail).all()
+    assert avail.sum() > m
+
+
+def _lane_satd(d: torch.Tensor, bits: tuple) -> torch.Tensor:
+    """The kernels' SATD: butterflies across the lane bits ``bits`` (the
+    lower lane keeps the sum, the upper one the difference), the sum of
+    absolute values over all lanes, then the final >> 1."""
+    lane = torch.arange(d.shape[-1])
+    for o in bits:
+        w = d[..., lane ^ o]
+        d = torch.where((lane & o) != 0, w - d, d + w)
+    return d.abs().sum(-1) >> 1
+
+
+def test_nxn_lane_hadamard_equals_satd():
+    """The lane-order Walsh-Hadamard of intra_nxn.cu gives the twin's
+    SATD: a half-warp per 4x4 block (lane bits 0-1 x, 2-3 y) and, for
+    8x8, two pixels a lane (lane bits 0-2 x, 3-4 y, rows y and y + 4)
+    with the four 4x4 transforms inside."""
+    rng = np.random.default_rng(3)
+    d4 = torch.from_numpy(rng.integers(-255, 256, (200, 4, 4))).int()
+    assert torch.equal(_lane_satd(d4.reshape(200, 16), (1, 2, 4, 8)),
+                       P.satd(d4, torch.zeros_like(d4)))
+    d8 = torch.from_numpy(rng.integers(-255, 256, (200, 8, 8))).int()
+    regs = d8.reshape(200, 2, 32)          # rows 0-3, rows 4-7
+    lane = torch.arange(32)
+    for o in (1, 2, 8, 16):
+        w = regs[..., lane ^ o]
+        regs = torch.where((lane & o) != 0, w - regs, regs + w)
+    got = regs.abs().sum((-1, -2)) >> 1
+    assert torch.equal(got, P.satd(d8, torch.zeros_like(d8)))
+
+
+def _groups_of_kernel():
+    """csrc/trellis.cu's groups (kGroupLen, kGroupCol) and kGroupMax."""
+    src = _source("trellis.cu")
+    lens = [int(x) for x in re.search(
+        r"kGroupLen\[9\] = \{([^}]*)\}", src).group(1).split(",")]
+    body = re.search(r"kGroupCol\[9\]\[kGroupMax\] = \{(.*?)\n\s*\};", src,
+                     re.S).group(1)
+    cols = [[int(x) for x in r.split(",") if x.strip()]
+            for r in re.findall(r"\{([^{}]*)\}", body)]
+    gmax = int(re.search(r"kGroupMax = (\d+)", src).group(1))
+    list_len = int(re.search(r"kListLen = (\d+)", src).group(1))
+    return lens, cols, gmax, list_len
+
+
+def _lane_lists(cols, list_len):
+    """The lanes-per-state layout's column lists (trellis_wide): lane t
+    takes target t's group, target 4's first list_len columns, lane 9
+    the rest of target 4's; each padded with its own last column."""
+    lists = []
+    for lane in range(10):
+        t, off = (4, list_len) if lane == 9 else (lane, 0)
+        real = cols[t][off:off + list_len]
+        lists.append(real + [real[-1]] * (list_len - len(real)))
+    return lists
+
+
+def test_trellis_layouts_take_the_twins_first_minimum():
+    """Both layouts of csrc/trellis.cu pick, for every target, the
+    column the twin's argmin over GROUP_IDX picks (first minimum in
+    column order, then the dummy column 45): the lanes-per-state lists
+    with target 4's two halves joined by a strict <, and the thread-per-
+    block code of the winner's place in its group (its length for the
+    dummy), on candidates with ties, BIG and costs past BIG."""
+    lens, cols, gmax, list_len = _groups_of_kernel()
+    real = [[int(c) for c in row if c < 45] for row in GROUP_IDX]
+    assert cols == real and lens == [len(r) for r in real]
+    assert gmax == GROUP_IDX.shape[1] and max(lens) == gmax
+    assert max(n for t, n in enumerate(lens) if t != 4) <= list_len
+    assert lens[4] <= 2 * list_len
+    rng = np.random.default_rng(8)
+    big = np.float32(BIG)
+    vals = np.array([0.5, 1.0, 2.0, big, np.float32(1.5e30)], np.float32)
+    cand = rng.choice(vals, size=(4000, 46)).astype(np.float32)
+    cand[:, 45] = big
+    want = np.argmin(cand[:, GROUP_IDX], axis=2)      # (B, 9) places
+    want_col = np.take_along_axis(
+        np.broadcast_to(GROUP_IDX, (4000, 9, gmax)), want[..., None],
+        2)[..., 0]
+    lists = _lane_lists(cols, list_len)
+    for t in range(9):
+        # lanes per state
+        def first_min(lst):
+            v = cand[:, lst]
+            k = np.argmin(v, axis=1)
+            return v[np.arange(len(v)), k], np.asarray(lst)[k]
+        best, pick = first_min(lists[t])
+        if t == 4:
+            b9, p9 = first_min(lists[9])
+            take = b9 < best
+            best, pick = np.where(take, b9, best), np.where(take, p9, pick)
+        else:
+            dummy = big < best
+            best, pick = np.where(dummy, big, best), np.where(dummy, 45, pick)
+        assert np.array_equal(pick, want_col[:, t]), t
+        # thread per block: the place in the group, the dummy as its length
+        v = cand[:, cols[t]]
+        place = np.argmin(v, axis=1)
+        if lens[t] < gmax:
+            place = np.where(big < v.min(1), lens[t], place)
+        assert np.array_equal(place, want[:, t]), t
+
+
+def test_trellis_finite_moves_keep_the_column_order():
+    """kCand of csrc/trellis.cu (the thread-per-block layout's moves into
+    each state: kind << 4 | source, kind 0 level 0, 1 move 2, 2 move 1
+    or 3, 3 move 4) holds, for every class of a1 (0, 1, 2, >= 3), exactly
+    the columns of GROUP_IDX that the class allows, in their order."""
+    src = _source("trellis.cu")
+    lens = [int(x) for x in re.search(
+        r"kCandLen\[9\] = \{([^}]*)\}", src).group(1).split(",")]
+    body = re.search(r"kCand\[9\]\[kCandMax\] = \{(.*?)\n\s*\};", src,
+                     re.S).group(1)
+    cands = [[int(x) for x in r.split(",") if x.strip()]
+             for r in re.findall(r"\{([^{}]*)\}", body)]
+    assert [len(c) for c in cands] == lens and len(cands) == 9
+    eq1 = [int(x) for x in TRANS_EQ1] + [int(TRANS_EQ1[0])]
+    gt1 = [int(x) for x in TRANS_GT1] + [int(TRANS_GT1[0])]
+    for t, lst in enumerate(cands):
+        assert lst[0] == t                    # level 0 from itself first
+        for e in lst[1:]:
+            kind, s = e >> 4, e & 15
+            assert (gt1 if kind in (1, 3) else eq1)[s] == t, (t, e)
+    # the column of each kind per class of a1; kind 2 is move 1 when
+    # a1 == 1 and move 3 when a1 == 2 (a2 == 1)
+    classes = {0: {0: 0}, 1: {0: 0, 2: 9}, 2: {0: 0, 1: 18, 2: 27},
+               3: {0: 0, 1: 18, 3: 36}}
+    for a1, col in classes.items():
+        allowed = {c for k, base in col.items() for c in range(base, base + 9)}
+        for t, lst in enumerate(cands):
+            mine = [col[e >> 4] + (e & 15) for e in lst if e >> 4 in col]
+            real = [int(c) for c in GROUP_IDX[t] if c in allowed]
+            assert mine == real, (a1, t)
+
+
+def test_trellis_bound_counts_the_finite_moves():
+    """kernels/trellis.FLOPS_PER_STEP, the bound's operations a step,
+    counts the moves the thread-per-block layout computes (kCand, 4 kinds
+    per source state: 36) and one comparison for each move after a
+    target's first (27), beside 17 per block and 18 per state."""
+    from x264_tpu_torch.kernels.trellis import FLOPS_PER_STEP
+    lens = [int(x) for x in re.search(
+        r"kCandLen\[9\] = \{([^}]*)\}", _source("trellis.cu")).group(1)
+        .split(",")]
+    assert sum(lens) == 4 * 9
+    assert FLOPS_PER_STEP == 17 + 18 * 9 + sum(lens) - 9 == 206
+
+
+def test_kernel_resources_reads_shared_memory_and_stack():
+    """kernels/build.kernel_resources: registers, spills, the
+    static shared memory and the stack frame of each kernel, as
+    chip_smoke.py prints them."""
+    log = """ptxas info    : Compiling entry function '_Z4tallPKi' for 'sm_90a'
+ptxas info    : Function properties for _Z4tallPKi
+    40 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 95 registers, used 1 barriers, 40 bytes cumulative stack size, 22140 bytes smem
+ptxas info    : Compiling entry function '_Z4widePKi' for 'sm_90a'
+ptxas info    : Function properties for _Z4widePKi
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, 368 bytes cmem[0]
+"""
+    got = build.kernel_resources(log)
+    assert got == {"_Z4tallPKi": (95, 0, 0, 22140, 40),
+                   "_Z4widePKi": (40, 8, 4, 0, 0)}
+    assert got["_Z4tallPKi"].smem == 22140 and got["_Z4tallPKi"].stack == 40

@@ -408,6 +408,88 @@ def test_trellis_bad_launches_raise(cuda):
         k_tr.trellis_quant(c, dq.cpu(), np.float32(1.0), tbl, 16)
 
 
+def _trellis_case(cuda, nblocks, nc, qp, seed):
+    """Inputs, the tables of a slice type at qp and the twin's levels."""
+    stype, cat = ("I", {15: 1, 16: 2, 64: 5}[nc]) if qp == 0 else \
+        ("P", {15: 4, 16: 2, 64: 5}[nc])
+    c, dq = _trellis_inputs(cuda, nblocks, nc, qp, 255, seed)
+    tbl = tr.tables_tuple(qp, stype, cat)
+    lam2f = tr.frame_trellis(qp, stype, me_lambda(qp), True)[2]
+    return c, dq, lam2f, tbl, tr.trellis_quant_plain(c, dq, lam2f, tbl, nc)
+
+
+def _trellis_layouts_equal(c, dq, lam2f, tbl, nc, want):
+    """The launcher's choice and both forced layouts equal the twin."""
+    for layout in ("auto", *k_tr.LAYOUTS):
+        got = k_tr.trellis_quant_(c, dq, lam2f, tbl, nc) if layout == "auto" \
+            else k_tr._trellis_quant_layout(c, dq, lam2f, tbl, nc, layout)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (layout, c.shape)
+
+
+@pytest.mark.parametrize("nc", [15, 16, 64])
+@pytest.mark.parametrize("nblocks", [1, 2, 3, 15, 17, 33, 8, 16, 240, 480,
+                                     960])
+def test_trellis_layouts_match_plain(cuda, nblocks, nc):
+    """Both layouts (thread per block, lanes per state) and the
+    launcher's choice bit-exact against the twin at block counts that
+    leave a CTA or a warp part-filled, and at the I4x4 IDR's step shapes
+    (8 and 16 x 1, 30 and 60 MBs), at QP 0 (I tables, levels past the
+    escape) and 26 (P tables)."""
+    for qp in (0, 26):
+        args = _trellis_case(cuda, nblocks, nc, qp, 31 * nblocks + nc + qp)
+        _trellis_layouts_equal(*args[:4], nc, args[4])
+
+
+@pytest.mark.parametrize("nc", [15, 16, 64])
+@pytest.mark.parametrize("nblocks", [40, 20000])
+def test_trellis_layouts_edge_rows(cuda, nc, nblocks):
+    """Rows of zeros (every started path ties at BIG, so the first
+    minimum and the dummy column decide), rows past the escape (+-16320
+    at QP 0: levels above 15), rows of one repeated value (equal
+    candidates at every step) and random rows, mixed in one call: both
+    layouts equal the twin, at a small and a large block count."""
+    rng = np.random.default_rng(nc + nblocks)
+    c, dq = _trellis_inputs(cuda, nblocks, nc, 0, 255, 5)
+    kind = torch.from_numpy(rng.integers(0, 4, nblocks)).to(cuda)
+    sign = torch.from_numpy(rng.choice([-1, 1], (nblocks, nc))).to(cuda)
+    c = torch.where(kind[:, None] == 0, 0, c)
+    c = torch.where(kind[:, None] == 1, 16320 * sign, c)
+    c = torch.where(kind[:, None] == 2, 40 * sign, c).to(torch.int32)
+    tbl = tr.tables_tuple(0, "I", {15: 1, 16: 2, 64: 5}[nc])
+    lam2f = tr.frame_trellis(0, "I", me_lambda(0), True)[2]
+    want = tr.trellis_quant_plain(c, dq, lam2f, tbl, nc)
+    assert (want.abs() > 15).any() and (want[kind == 0] == 0).all()
+    _trellis_layouts_equal(c, dq, lam2f, tbl, nc, want)
+
+
+def test_trellis_repeatable(cuda):
+    """20 launches of each layout on the same inputs give the same
+    levels, at an IDR step shape and at a P frame's 8x8 count."""
+    for nblocks, nc in ((960, 15), (32640, 64)):
+        c, dq, lam2f, tbl, want = _trellis_case(cuda, nblocks, nc, 26, nc)
+        for layout in k_tr.LAYOUTS:
+            runs = [k_tr._trellis_quant_layout(c, dq, lam2f, tbl, nc, layout)
+                    for _ in range(20)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(r, want) for r in runs), layout
+
+
+def test_trellis_auto_layout(cuda):
+    """The launcher takes lanes per state for the I wavefront's calls
+    and a thread per block for a 1080p P frame's; it switches after 4096
+    blocks of 15 or 16 and after 2048 of 64."""
+    from x264_tpu_torch.kernels.build import library
+    auto = library().trellis_auto_layout
+    lanes, thread = k_tr.LAYOUTS["lanes"], k_tr.LAYOUTS["thread"]
+    assert all(auto(n, 15) == lanes for n in (1, 8, 480, 960))
+    assert all(auto(n, nc) == thread for n, nc in ((130560, 16),
+                                                   (32640, 64), (65280, 15)))
+    assert [auto(n, nc) for n, nc in ((4096, 15), (4097, 15), (4096, 16),
+                                      (4097, 16), (2048, 64), (2049, 64))
+            ] == [lanes, thread, lanes, thread, lanes, thread]
+
+
 @pytest.mark.parametrize("bframes,p8x8", [(0, False), (0, True), (2, True)])
 def test_t8_trellis_encoder_on_card_matches_cpu(cuda, bframes, p8x8):
     """The 8x8 transform and trellis on P16, P8x8 and a B pair
@@ -495,6 +577,83 @@ def test_nxn_kernel_matches_plain_thin_frames(cuda, mbw, mbh, t8_mode):
         if intra_nxn.knight_lanes(d, mbw, mbh)[1]:    # mbw 1: odd d empty
             state = _nxn_check(cuda, state, d, mbw, mbh, t8_mode,
                                sad_lambda(30))
+
+
+@pytest.mark.parametrize("t8_mode", [False, True])
+def test_nxn_kernel_matches_plain_every_1080p_step(cuda, t8_mode):
+    """All 254 knight steps of a 1080p IDR in order (chip_smoke.py's
+    clip as source, a zero recon and a DC mode grid to start), kernel
+    and twin each carrying their own recon plane and mode grid forward."""
+    from chip_smoke import make_clip
+    mbw, mbh = 120, 68
+    y = make_clip(1)[0][0]
+    src = np.zeros((16 * mbh, 16 * mbw), np.int32)
+    src[:y.shape[0], :y.shape[1]] = y
+    src = torch.from_numpy(src).to(cuda)
+    state = (torch.zeros_like(src), torch.full((4 * mbh, 4 * mbw), 2,
+                                               dtype=torch.int32,
+                                               device=cuda),
+             src, torch.full((mbw * mbh,), 26, dtype=torch.int32,
+                             device=cuda))
+    for d in range(mbw + 2 * mbh - 2):
+        state = _nxn_check(cuda, state, d, mbw, mbh, t8_mode, sad_lambda(26))
+
+
+@pytest.mark.parametrize("qp", [0, 51])
+@pytest.mark.parametrize("t8_mode", [False, True])
+def test_nxn_kernel_qp_extremes_every_corner(cuda, qp, t8_mode):
+    """Every step of a 5x4-MB frame (each availability corner: no top,
+    no left, neither, no top-right at the right edge, all) on a random
+    state at a uniform QP 0 or 51."""
+    mbw, mbh = 5, 4
+    ry, grid, src, _ = _nxn_state(cuda, mbw, mbh, qp + 3)
+    state = (ry, grid, src, torch.full((mbw * mbh,), qp, dtype=torch.int32,
+                                       device=cuda))
+    for d in range(mbw + 2 * mbh - 2):
+        state = _nxn_check(cuda, state, d, mbw, mbh, t8_mode, sad_lambda(qp))
+
+
+@pytest.mark.parametrize("t8_mode", [False, True])
+@pytest.mark.parametrize("flat", ["constant", "ramp"])
+def test_nxn_kernel_flat_sources_tie(cuda, flat, t8_mode):
+    """Flat content, where several modes predict the same block and tie
+    on cost (lambda 0 too, where only the first-minimum order decides):
+    every step of a 4x3-MB frame from a flat recon and source."""
+    mbw, mbh = 4, 3
+    h, w = 16 * mbh, 16 * mbw
+    if flat == "constant":
+        src = torch.full((h, w), 97, dtype=torch.int32, device=cuda)
+    else:
+        src = (torch.arange(w, device=cuda)[None] * 3 + 20).expand(h, w)
+        src = src.to(torch.int32).contiguous()
+    for lam in (0, sad_lambda(26)):
+        state = (src.clone(), torch.full((4 * mbh, 4 * mbw), 2,
+                                         dtype=torch.int32, device=cuda),
+                 src, torch.full((mbw * mbh,), 26, dtype=torch.int32,
+                                 device=cuda))
+        for d in range(mbw + 2 * mbh - 2):
+            state = _nxn_check(cuda, state, d, mbw, mbh, t8_mode, lam)
+
+
+def test_nxn_kernel_repeatable(cuda):
+    """20 launches at a 60-MB 1080p step, each on a fresh copy of one
+    random state, give the same outputs, recon plane and mode grid."""
+    mbw, mbh = 120, 68
+    counts = [intra_nxn.knight_lanes(d, mbw, mbh)[1]
+              for d in range(mbw + 2 * mbh - 2)]
+    d = counts.index(60)
+    ry, grid, src, qp = _nxn_state(cuda, mbw, mbh, 77)
+    lam = torch.tensor([sad_lambda(26)], dtype=torch.int32, device=cuda)
+    first = None
+    for _ in range(20):
+        rk, gk = ry.clone(), grid.clone()
+        out = intra_nxn.nxn_candidates(rk, gk, src, qp, lam, d, mbw, mbh,
+                                       True)
+        torch.cuda.synchronize()
+        run = [out[k] for k in sorted(out)] + [rk, gk]
+        if first is None:
+            first = run
+        assert all(torch.equal(a, b) for a, b in zip(run, first))
 
 
 def test_nxn_bad_launches_raise(cuda):

@@ -177,10 +177,10 @@ def main() -> int:
     libs = build_all(variants(os.path.join(REPO, "x264_tpu_torch", "csrc"),
                               args.parent))
     for name, (_, so, log) in libs.items():
-        for fn, (regs, st, ld) in sorted(kernel_resources(log).items()):
+        for fn, r in sorted(kernel_resources(log).items()):
             if "esa" in fn or "search" in fn:
-                print(f"{name} {fn}: {regs} registers, spills {st}/{ld} "
-                      "bytes")
+                print(f"{name} {fn}: {r.registers} registers, spills "
+                      f"{r.spill_stores}/{r.spill_loads} bytes")
         for fn, mix in sass_mix(so, args.sass, name).items():
             print(f"{name} {fn} SASS: {sum(mix.values())} instructions; "
                   + " ".join(f"{op} {c}" for op, c in mix.most_common(14)))

@@ -12,6 +12,7 @@ point returns ``cudaGetLastError()``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import fcntl
 import hashlib
@@ -38,6 +39,8 @@ SIGNATURES = {
     "deblock_launch": [_P] * 11 + [_I] * 4 + [_P],
     "deblock_chain_probe_launch": [_P, _P, _P, _P, _I, _I, _P],
     "trellis_launch": [_P, _P, _P, _P, _I, _I, _P],
+    "trellis_launch_layout": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "trellis_auto_layout": [_I, _I],
     "trellis_params_len": [_I],
     "intra_nxn_launch": [_P] * 7 + [_I] * 6 + [_P],
 }
@@ -114,25 +117,32 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+Resources = collections.namedtuple(
+    "Resources", "registers spill_stores spill_loads smem stack")
+
+
 def kernel_resources(log: str) -> dict:
     """ptxas's report in a build log (``-Xptxas -v``) -> {mangled kernel
-    name: (registers, spill store bytes, spill load bytes)}."""
+    name: Resources}: registers, spill store and load bytes, static
+    shared memory and stack frame bytes."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([\w$.]+)'?", line)
         if m:
             name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name:
-            regs = out.get(name, (0,))[0]
-            out[name] = (regs, int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            spills = out.get(name, (0, 0, 0))[1:]
-            out[name] = (int(m.group(1)), *spills)
-    return out
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and (spill or regs):
+            r = out.setdefault(name, [0, 0, 0, 0, 0])
+            if spill:
+                r[4], r[1], r[2] = (int(x) for x in spill.groups())
+            if regs:
+                r[0] = int(regs.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                r[3] = int(sm.group(1)) if sm else 0
+    return {k: Resources(*v) for k, v in out.items()}
 
 
 def check(err: int, name: str) -> None:

@@ -1,6 +1,7 @@
 """The I4x4 and I8x8 candidates of one knight step of the I-frame wavefront:
 the wrapper of the CUDA kernel ``csrc/intra_nxn.cu`` (one launch per step,
-a block per MB, the I4x4 chain in one warp and the I8x8 chain beside it),
+a block per MB, lanes over pixels: the I4x4 chain in one warp, two 4x4
+blocks of a sub-step at a time, and the I8x8 chain in a second warp),
 its plain twin ``nxn_candidates_plain`` and the work it does, for its
 bound.
 
@@ -46,7 +47,8 @@ OUT_WORDS = sum(int(np.prod(s)) for _, s in _ROW)
 
 # Knight-order sub-steps of the 16 4x4 blocks inside an MB, s = x4 + 2*y4:
 # the reference's order (intra_device.py:234); every block's left, top and
-# top-right neighbours come earlier
+# top-right neighbours come earlier.  csrc/intra_nxn.cu's kSubsteps holds
+# the same table (tests/test_torch_kernel_layouts.py)
 _SUBSTEPS = [[(0, 0)], [(1, 0)], [(2, 0), (0, 1)], [(3, 0), (1, 1)],
              [(2, 1), (0, 2)], [(3, 1), (1, 2)], [(2, 2), (0, 3)],
              [(3, 2), (1, 3)], [(2, 3)], [(3, 3)]]

@@ -1,6 +1,7 @@
 """Trellis quantisation: the wrapper of the CUDA kernel ``csrc/trellis.cu``
-(one thread per block runs the 9-state Viterbi and its backtrack) and the
-work it does, for its bound.
+(the 9-state Viterbi and its backtrack, a thread per block for large
+calls, 16 lanes per block for small ones, chosen by the launcher from
+the block count) and the work it does, for its bound.
 
 Replaces x264_tpu/ops/device/trellis.py::trellis_quant, which the
 reference runs as XLA (no Pallas kernel); the plain twin is
@@ -19,15 +20,19 @@ from x264_tpu_torch.ops.trellis import (lambda_tables, position_gains,
                                         trellis_quant_plain)
 
 NCS = (15, 16, 64)
+# csrc/trellis.cu's layouts as trellis_launch_layout numbers them; the
+# encoder's calls leave the choice to the launcher (trellis_auto_layout)
+LAYOUTS = {"thread": 1, "lanes": 2}
 
-# float operations of one Viterbi step of one block in csrc/trellis.cu,
-# an FMA counted as two: the target, seed and distortion (c, c/dq, +0.5,
-# (w*c)*c: 5); for each of the two candidate levels the error (FMA 2),
-# its distortion (2), min(a, 15) - 2 (2) and per state the entry and
-# level costs (base_e 2, gt_base 1, lcg FMA 2 + 2 adds, two move sums
-# 3: 10 x 9); the level-0 moves (2 x 9); the first minimum over the 45
-# transitions and 8 dummies (53)
-FLOPS_PER_STEP = 5 + 2 * (2 + 2 + 2 + 10 * 9) + 2 * 9 + 53
+# float operations of one Viterbi step of one block, an FMA counted as
+# two: the fewest that give the step's levels, as csrc/trellis.cu's
+# thread-per-block layout computes them (kCand: 36 moves, 27 comparisons).
+# Per block: c, c/dq, +0.5 and (w*c)*c (5), each candidate level's error
+# (FMA 2) and distortion (2), min(a, 15) - 2 of both (4): 17.  Per state:
+# level 0 (2 adds), the entry term base_e (2) and its level-1 move (1),
+# gt_base (1), lcg of both levels (FMA 2 + 2 adds each: 8) and their moves
+# (2 each: 4): 18.  The first minimum of each target over its moves: 27.
+FLOPS_PER_STEP = 17 + 18 * 9 + 27
 
 
 def params_block(tbl, lam2f, nc: int, device) -> torch.Tensor:
@@ -62,9 +67,21 @@ def work(nblocks: int, nc: int) -> tuple:
 
 def trellis_quant_(coefs_zz, dq_zz, lam2f, tbl, nc: int):
     """Launch the kernel on CUDA tensors: (B, nc) int32 coefficients and
-    float32 dq -> (B, nc) int32 signed levels.  tbl: the cost tables, or
-    their parameter block already on the card (``params_block``; a CUDA
-    graph's own buffer, ``models/graph.py``)."""
+    float32 dq -> (B, nc) int32 signed levels, in the layout the launcher
+    picks from B.  tbl: the cost tables, or their parameter block already
+    on the card (``params_block``; a CUDA graph's own buffer,
+    ``models/graph.py``)."""
+    return _launch(coefs_zz, dq_zz, lam2f, tbl, nc, None)
+
+
+def _trellis_quant_layout(coefs_zz, dq_zz, lam2f, tbl, nc: int,
+                          layout: str):
+    """``trellis_quant_`` in a forced layout, a key of ``LAYOUTS``: the
+    card's tests and chip_smoke.py hold both layouts to the twin."""
+    return _launch(coefs_zz, dq_zz, lam2f, tbl, nc, LAYOUTS[layout])
+
+
+def _launch(coefs_zz, dq_zz, lam2f, tbl, nc: int, layout):
     if nc not in NCS:
         raise ValueError(f"trellis: nc {nc} not in {NCS}")
     if coefs_zz.dim() != 2 or coefs_zz.shape[1] != nc \
@@ -79,9 +96,12 @@ def trellis_quant_(coefs_zz, dq_zz, lam2f, tbl, nc: int):
     params = tbl if torch.is_tensor(tbl) else params_block(tbl, lam2f, nc,
                                                            dev)
     out = torch.empty_like(c)
-    err = library().trellis_launch(
-        c.data_ptr(), dq.data_ptr(), params.data_ptr(), out.data_ptr(),
-        c.shape[0], nc, torch.cuda.current_stream(dev).cuda_stream)
+    args = (c.data_ptr(), dq.data_ptr(), params.data_ptr(), out.data_ptr(),
+            c.shape[0], nc)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = library()
+    err = lib.trellis_launch(*args, stream) if layout is None else \
+        lib.trellis_launch_layout(*args, layout, stream)
     check(err, "trellis")
     LAUNCHES["trellis"] += 1
     return out
