@@ -11,8 +11,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      bit-exact, with both times (CUDA events over several runs after a
      warm-up) and the kernel's bound: the ESA kernels (16x16 and
      partitions, with their registers and spills from the build log) on a
-     1080p frame against a shifted, noised copy at range 8 (lookahead's)
-     and 16 (the main path's, the one recorded), the partition kernel's
+     1080p frame against a shifted, noised copy at range 8 (lookahead's),
+     24 (the three-reference run's) and 16 (the main path's, the one
+     recorded), the partition kernel's
      16x16 unit against esa16, their bound's operation rate the lower of
      the nominal one and the one the probe esa_sad_probe measures; the
      deblock kernel (one launch for Y, Cb and Cr) on the recon planes and
@@ -34,17 +35,24 @@ Phases, each of which raises (exit code != 0) when it fails:
      make_clip) with P16x16 only (then the I16 core's graph: capture and
      replay ms, replay == eager core), then again with P8x8 partitions,
      the 8x8 transform and trellis, then 10 frames as bench.py's GOP (IDR
-     + 3 x (B B P): bframes=2, full_recon off, P8x8 anchors, I4x4, the
-     8x8 transform and trellis); fps, bytes, Y-PSNR, the partition shapes
-     chosen, the share of 8x8-transform MBs, per-frame ms by frame type
-     and, where tools/avdec runs, a decode that must equal the encoder's
-     recon (keyed by display index: B frames are final after their
-     anchor);
+     + 3 x (B B P): bench.py's whole config, bframes=2, full_recon off,
+     P8x8 anchors, I4x4, the 8x8 transform, trellis and weightp=1), then
+     6 frames on three references (I/P8x8, ref_frames=3, weightp=1, the
+     8x8 transform, trellis, I4x4, range 24: the slower preset without
+     aq_mode); fps, bytes, Y-PSNR, the partition shapes chosen, the share
+     of 8x8-transform MBs, the P frames with a non-neutral weight, the
+     esa_parts launches of each P frame (one per active reference) and
+     the share of MBs on each reference, per-frame ms by frame type and,
+     where tools/avdec runs, a decode that must equal the encoder's recon
+     (keyed by display index: B frames are final after their anchor);
   5. 352x288 streams encoded on the card must equal, byte for byte, the
      streams the port encodes on the CPU (the kernels' plain twins), with
      and without partitions, with B frames (one pair, one single tail B,
      full_recon on), with the 8x8 transform and trellis on P8x8 and
-     on a B pair, and with I4x4 on I/P8x8 (two IDRs).
+     on a B pair, with I4x4 on I/P8x8 (two IDRs), and on a fading clip
+     with weightp=1 on several references (P16 on three, P8x8 with the
+     tools on two, B frames on P8x8 anchors on two), each with a
+     non-neutral weight and MBs on ref_idx > 0.
 Every I frame's core on the card is a CUDA graph replay
 (x264_tpu_torch/models/graph.py).
 The line before the last is the kernels' JSON record; the last line is
@@ -74,6 +82,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 FP32_FLOPS_PER_S = 67e12     # H100 SXM, published, outside the tensor cores
 INT32_LANES_PER_SM = 64      # sm_90 integer add / min / sad per clock
 TOOLS = dict(transform_8x8=True, trellis=1)   # bench.py's, ported in A8
+MULTIREF_FRAMES = 6          # the 1080p run on three references
 
 
 def make_clip(n: int):
@@ -122,6 +131,33 @@ def split_motion_clip(w: int, h: int, n: int):
     return frames
 
 
+def fade_clip(w: int, h: int, n: int, pan=(3, 2), flash=(2,), cut=None):
+    """tests/test_weightp.py's fade (own copy of its formula, seed 9): a
+    textured pan whose luma is scaled by 0.92**t and shifted by -4*t, so
+    weighted prediction pays.  On the frames in ``flash`` the left half
+    shows another texture (seed 11), so the next frame finds its left
+    half two frames back, on ref_idx 1; from frame ``cut`` on, another
+    scene (seed 10) fading the same way."""
+    def tex(seed):
+        rng = np.random.default_rng(seed)
+        t = rng.integers(0, 160, (h * 2 + 4 * n, w * 2 + 4 * n))
+        t = t.astype(np.float64)
+        return (t + np.roll(t, 1, 0) + np.roll(t, 1, 1)) / 3 + 48
+
+    a, b, other = tex(9), tex(10), tex(11)
+    frames = []
+    for t in range(n):
+        dy, dx = pan[1] * t, pan[0] * t
+        src = b if cut is not None and t >= cut else a
+        y = src[dy:dy + h, dx:dx + w] * 0.92 ** t - 4 * t
+        if t in flash:
+            y[:, :w // 2] = other[:h, :w // 2]
+        frames.append((np.clip(y, 0, 255).astype(np.uint8),
+                       np.full((h // 2, w // 2), 120 + 2 * t, np.uint8),
+                       np.full((h // 2, w // 2), 132 - t, np.uint8)))
+    return frames
+
+
 def _spy(enc, key: str = "shape") -> list:
     """Record out[key] of every I or P core run of ``enc`` that has it:
     the partition shapes or the 8x8-transform flags of the P frames."""
@@ -136,6 +172,28 @@ def _spy(enc, key: str = "shape") -> list:
 
     enc._run_core = spy
     return found
+
+
+def _weights_spy(enc) -> list:
+    """Record the (weight, offset) list of every P frame ``enc`` submits
+    (weightp's host analysis, one pair per active reference)."""
+    found = []
+    submit = enc._submit_device
+
+    def spy(*a, **kw):
+        job = submit(*a, **kw)
+        if job["weights"] is not None:
+            found.append(job["weights"])
+        return job
+
+    enc._submit_device = spy
+    return found
+
+
+def _weighted(weights: list) -> int:
+    """How many frames carried a non-neutral weight on some reference."""
+    from x264_tpu_torch.models.weightp import NEUTRAL
+    return sum(any(tuple(w) != NEUTRAL for w in ws) for ws in weights)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -800,19 +858,21 @@ def _timed_stages(enc, times: dict) -> None:
 
 def _run_1080p_b(clip, records):
     """The B-GOP main path (counts reset just before, read just after):
-    bench.py's GOP shape, IDR + 3 x (B B P), P8x8 anchors, full_recon
+    bench.py's whole config, IDR + 3 x (B B P), P8x8 anchors, full_recon
     off, I4x4 on (the IDR's I4x4/I8x8 core one CUDA graph replay, the
-    NxN kernel once per knight step).  Prints each encode() call's ms,
-    fps over the calls after the IDR's (display frames 1-9, flush
-    included), and, from a second run with the card synchronised around
-    each stage, the ms per I, P and B frame."""
+    NxN kernel once per knight step), the 8x8 transform, trellis and
+    weightp=1.  Prints each encode() call's ms, fps over the calls after
+    the IDR's (display frames 1-9, flush included), the P frames with a
+    non-neutral weight, and, from a second run with the card synchronised
+    around each stage, the ms per I, P and B frame."""
     import torch
     import x264_tpu_torch
     from x264_tpu_torch.api import Encoder, Frame420
-    kw = dict(bframes=2, full_recon=False, i4x4=True, **TOOLS)
+    kw = dict(bframes=2, full_recon=False, i4x4=True, weightp=1, **TOOLS)
     enc = Encoder(_params(W, H, True, **kw), device="cuda")
     recons = {}
     enc.recon_hook = recons.__setitem__
+    weights = _weights_spy(enc)
     stream, times = b"", []
     torch.cuda.synchronize()
     x264_tpu_torch.reset_launch_counts()
@@ -859,7 +919,9 @@ def _run_1080p_b(clip, records):
           f"Y-PSNR {_check_recon('I/B/P8x8', stream, recons, clip, range(0, len(clip), 3)):.3f} dB,"
           f" launches per B pair: esa16 {launches['esa16'] / n_pairs:g},"
           f" deblock {(launches['deblock'] - n_anchors) / n_pairs:g};"
-          f" trellis {launches['trellis']} in the run (at least {least})")
+          f" trellis {launches['trellis']} in the run (at least {least});"
+          f" {_weighted(weights)} of the {len(weights)} P frames carried a "
+          f"non-neutral weight ({weights})")
     stage = {}
     enc = Encoder(_params(W, H, True, **kw), device="cuda")
     _timed_stages(enc, stage)
@@ -973,6 +1035,155 @@ def _check_small_i4() -> None:
           f"({len(streams['cuda'])} bytes), launches {launches}")
 
 
+def _run_1080p_multiref(clip, records):
+    """I/P8x8 on three references (counts reset just before, read after
+    each encode() call and just after the run): ref_frames=3, weightp=1,
+    the 8x8 transform, trellis and I4x4 at range 24 (the slower preset
+    without aq_mode).  Each P frame launches esa_parts once per active
+    reference, min(3, frames since the IDR).  Prints the share of MBs on
+    each reference, the frames with a non-neutral weight, fps over the
+    P frames on three references (display 3-5), and, from a second run
+    with the card synchronised around each stage, the ms of each frame
+    and of the host's weight analysis in it."""
+    import torch
+    import x264_tpu_torch
+    import x264_tpu_torch.api as api
+    from x264_tpu_torch.api import Encoder, Frame420
+    kw = dict(ref_frames=3, weightp=1, i4x4=True, me_range=24, **TOOLS)
+    enc = Encoder(_params(W, H, True, **kw), device="cuda")
+    recons = {}
+    enc.recon_hook = recons.__setitem__
+    refs = _spy(enc, "ref_mb")
+    weights = _weights_spy(enc)
+    stream, times, per_frame = b"", [], []
+    torch.cuda.synchronize()
+    x264_tpu_torch.reset_launch_counts()
+    for y, u, v in clip:
+        before = x264_tpu_torch.launch_counts()["esa_parts"]
+        t0 = time.perf_counter()
+        stream += enc.encode(Frame420(y, u, v))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_frame.append(x264_tpu_torch.launch_counts()["esa_parts"] - before)
+    stream += enc.flush()
+    torch.cuda.synchronize()
+    launches = x264_tpu_torch.launch_counts()
+    print(f"launches in the 1080p I/P8x8 three-reference run: {launches}")
+    for r in records:
+        r["launches"] += launches[r["name"]]
+    n = len(clip)
+    want = [0] + [min(3, d) for d in range(1, n)]
+    steps = (W + 15) // 16 + 2 * ((H + 15) // 16) - 2
+    least = _trellis_launches(n_i=1, n_p=n - 1, n_b=0, i4=True)
+    if per_frame != want or launches["esa16"] or \
+            launches["deblock"] != n or launches["trellis"] < least or \
+            not launches["intra_nxn"] or launches["intra_nxn"] % steps:
+        raise AssertionError(f"three references: esa_parts per frame "
+                             f"{per_frame} (expected {want}), launches "
+                             f"{launches}")
+    hist = np.bincount(torch.cat(refs).cpu().numpy(), minlength=3)
+    share = hist / hist.sum()
+    tail = times[3:]
+    print("I/P8x8 three references encode() ms: "
+          + " ".join(f"{1000 * t:.1f}" for t in times))
+    print(f"1080p I/P8x8 on three references: esa_parts launches per frame "
+          f"{per_frame} (one per active reference); MBs of the P frames on "
+          f"ref_idx 0/1/2: {' '.join(str(int(c)) for c in hist)} (shares "
+          f"{' '.join(f'{x:.4f}' for x in share)}); {_weighted(weights)} of "
+          f"the {len(weights)} P frames carried a non-neutral weight; "
+          f"{len(tail) / sum(tail):.3f} fps over display 3-{n - 1} (three "
+          f"references), {len(stream)} bytes, "
+          f"{len(stream) * 8 / n / 1000:.1f} kbit/frame, mean Y-PSNR "
+          f"{_check_recon('three references', stream, recons, clip):.3f} dB")
+    stage, analysis = {}, {}
+    enc = Encoder(_params(W, H, True, **kw), device="cuda")
+    real_analysis = api.analyse_weights
+
+    def timed_analysis(y, hist):
+        t0 = time.perf_counter()
+        out = real_analysis(y, hist)
+        analysis.setdefault(len(hist), []).append(
+            1000 * (time.perf_counter() - t0))
+        return out
+    for name in ("_submit_device", "_finalize_cabac"):
+        fn = getattr(enc, name)
+
+        def run(*a, _fn=fn, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            stage.setdefault(enc.frame_idx, []).append(
+                1000 * (time.perf_counter() - t0))
+            return out
+        setattr(enc, name, run)
+    api.analyse_weights = timed_analysis
+    try:
+        for y, u, v in clip:
+            enc.encode(Frame420(y, u, v))
+    finally:
+        api.analyse_weights = real_analysis
+    # _submit_device advances frame_idx: its time lands on the next key
+    ms = [stage[d + 1][0] + stage[d + 1][1] for d in range(n)]
+    print("1080p I/P8x8 three references, ms per frame (second run, the "
+          "card synchronised around each stage; submit + finalize): "
+          + " ".join(f"{t:.1f}" for t in ms) + f" (refs {want}); of it the "
+          "host's weight analysis (models/weightp.analyse_weights) by "
+          "reference count: " + ", ".join(
+              f"{k}: " + " ".join(f"{t:.1f}" for t in analysis[k])
+              for k in sorted(analysis)) + " ms")
+
+
+def _check_small_weightp() -> None:
+    """352x288 on fade_clip with weightp=1 on several references: P16 on
+    three, P8x8 with the 8x8 transform and trellis on two, and B frames
+    (bframes=2, P8x8 anchors, full_recon on) on two; the card stream
+    equals the CPU stream, some P frame carries a non-neutral weight, some
+    MB sits on ref_idx > 0, and each P frame launched its ESA kernel once
+    per active reference."""
+    import torch
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    for label, n, kw, clip_kw in (
+            ("P16, ref_frames=3", 5, dict(ref_frames=3), {}),
+            ("P8x8 + tools, ref_frames=2", 4,
+             dict(p8x8=True, ref_frames=2, **TOOLS), {}),
+            ("B B P8x8, ref_frames=2", 7,
+             dict(p8x8=True, ref_frames=2, bframes=2, full_recon=True),
+             dict(pan=(1, 1), flash=(3,)))):
+        small = [Frame420(*f) for f in fade_clip(CHECK_W, CHECK_H, n,
+                                                 **clip_kw)]
+        p = _params(CHECK_W, CHECK_H, kw.pop("p8x8", False), weightp=1,
+                    me_range=8, **kw)
+        streams = {}
+        for d in ("cuda", "cpu"):
+            e = Encoder(p, device=d)
+            refs, weights = _spy(e, "ref_mb"), _weights_spy(e)
+            x264_tpu_torch.reset_launch_counts()
+            streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
+            if d == "cuda":
+                launches = x264_tpu_torch.launch_counts()
+                n_b = [s.frame_type for s in e.stats].count("B")
+                on_older = int(sum((r > 0).sum() for r in refs))
+                weighted = _weighted(weights)
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"352x288 {label} weightp: card stream != "
+                                 "CPU stream")
+        searches = sum(min(p.ref_frames, i + 1) for i in range(n - 1 - n_b))
+        want = {"esa_parts": searches if p.p8x8 else 0,
+                "esa16": 2 * n_b + (0 if p.p8x8 else searches)}
+        if not (on_older and weighted) or \
+                {k: launches[k] for k in want} != want:
+            raise AssertionError(f"352x288 {label} weightp: {on_older} MBs "
+                                 f"on ref_idx > 0, {weighted} weighted "
+                                 f"frames, launches {launches} (expected "
+                                 f"{want})")
+        print(f"{CHECK_W}x{CHECK_H} {label}, weightp=1, x{n}: card stream =="
+              f" CPU stream ({len(streams['cuda'])} bytes), {weighted} P "
+              f"frames with a non-neutral weight, {on_older} MBs on "
+              f"ref_idx > 0, launches {launches}")
+
+
 def _i16_graph_phase(clip) -> None:
     """The I16 core of the I/P16 run's IDR key (CQP 26, no trellis): its
     graph's capture ms and replay ms, the replay equal to the eager core
@@ -1059,7 +1270,9 @@ def main() -> int:
     src_d = torch.from_numpy(src).to(dev)
     ref_pad = pad_edge(torch.from_numpy(ref).to(dev), PAD).contiguous()
     lam = sad_lambda(QP)
-    for me_range in (8, 16):     # lookahead's range, then the main path's
+    # lookahead's range, the three-reference run's, then the main path's
+    # (the one recorded)
+    for me_range in (8, 24, 16):
         mv_k, cost_k = KE.full_search_16x16(src_d, ref_pad, lam, me_range,
                                             mbw, mbh)
         mv_p, cost_p = KE.full_search_16x16_plain(src_d, ref_pad, lam,
@@ -1193,6 +1406,7 @@ def main() -> int:
     if len(shapes) != n_p or hist.sum() != n_p * n_mb:
         raise AssertionError(f"partition shapes of {len(shapes)} frames")
     _run_1080p_b(make_clip(B_FRAMES), records)
+    _run_1080p_multiref(clip[:MULTIREF_FRAMES], records)
 
     # ---- 5. card streams == CPU (plain twins) streams at 352x288 ----
     small = [Frame420(*f) for f in split_motion_clip(CHECK_W, CHECK_H,
@@ -1218,6 +1432,7 @@ def main() -> int:
     _check_small_b()
     _check_small_tools()
     _check_small_i4()
+    _check_small_weightp()
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -122,14 +122,16 @@ def test_unported_settings_and_missing_card_raise():
                dict(bframes=2, scenecut_threshold=40),
                dict(cabac=False), dict(i4x4=True, cabac=False),
                dict(subpel=0), dict(backend="reference"),
-               dict(p8x8=True, ref_frames=2), dict(trellis=1, weightp=1),
-               dict(p8x8=True, transform_8x8=True, i4x4=True, weightp=1),
-               dict(p8x8=True, aq_mode=1), dict(p8x8=True, weightp=1),
+               dict(p8x8=True, aq_mode=1),
                dict(slices=2), dict(mbtree=True), dict(me_range=PAD + 1),
                dict(vbv_maxrate=500, vbv_bufsize=500,
                     rc_method=RC_ABR, bitrate=500)):
         with pytest.raises(NotImplementedError):
             Encoder(_params(64, 48, 26, **kw), device="cpu")
+    for kw in (dict(p8x8=True, ref_frames=2), dict(trellis=1, weightp=1),
+               dict(p8x8=True, transform_8x8=True, i4x4=True, weightp=1),
+               dict(p8x8=True, weightp=2, ref_frames=4)):
+        Encoder(_params(64, 48, 26, **kw), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             Encoder(_params(64, 48, 26), device="cuda")

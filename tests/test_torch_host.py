@@ -6,8 +6,10 @@ chip_smoke.py) imports x264_tpu."""
 
 import ast
 import dataclasses
+import inspect
 import os
 import tempfile
+import textwrap
 
 import numpy as np
 import pytest
@@ -22,7 +24,9 @@ import x264_tpu.params as r_params  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.bitstream import cabac_init as r_cabac_init  # noqa: E402
 from x264_tpu.bitstream import tables as r_tables  # noqa: E402
+from x264_tpu.models import inter_device as r_inter_device  # noqa: E402
 from x264_tpu.models import inter_frame as r_inter  # noqa: E402
+from x264_tpu.models import weightp as r_weightp  # noqa: E402
 from x264_tpu.models import residual_device as r_residual  # noqa: E402
 from x264_tpu.ops.device import me_parts as r_me_parts  # noqa: E402
 from x264_tpu.ops.reference import deblock as r_deblock  # noqa: E402
@@ -32,6 +36,8 @@ import x264_tpu_torch.params as t_params  # noqa: E402
 from x264_tpu_torch import state  # noqa: E402
 from x264_tpu_torch.bitstream import cabac_init as t_cabac_init  # noqa: E402
 from x264_tpu_torch.api import Encoder  # noqa: E402
+from x264_tpu_torch.models import inter as t_inter  # noqa: E402
+from x264_tpu_torch.models import weightp as t_weightp  # noqa: E402
 from x264_tpu_torch.ops import me_parts as t_me_parts  # noqa: E402
 from x264_tpu_torch.utils.yuv import Frame420  # noqa: E402
 
@@ -60,6 +66,8 @@ TABLES = [
     ("FIRST_QUAD", r_me_parts, t_me_parts),
     ("N_PARTS", r_me_parts, t_me_parts),
     ("SHAPE_BITS", r_me_parts, t_me_parts),
+    ("LOG2_DENOM", r_weightp, t_weightp),
+    ("NEUTRAL", r_weightp, t_weightp),
 ]
 
 
@@ -77,6 +85,51 @@ def test_copied_table_equals_reference(name, ref_mod, port_mod):
     a, b = getattr(port_mod, name), getattr(ref_mod, name)
     assert np.asarray(a).dtype == np.asarray(b).dtype
     np.testing.assert_array_equal(a, b)
+
+
+# host functions the port copies verbatim: (name, reference module, port
+# module)
+FUNCTIONS = [
+    ("weight_cost", r_weightp, t_weightp),
+    ("_mc_pairs", r_weightp, t_weightp),
+    ("analyse_weights", r_weightp, t_weightp),
+    ("_te_ref_bits", r_inter_device, t_inter),
+]
+
+
+@pytest.mark.parametrize("name,ref_mod,port_mod", FUNCTIONS,
+                         ids=[f[0] for f in FUNCTIONS])
+def test_copied_function_equals_reference(name, ref_mod, port_mod):
+    """The same source text (docstrings aside: a copy may name its
+    origin), and the same results on a fading pan and on noise."""
+    def code(fn):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        body = tree.body[0].body
+        if isinstance(body[0], ast.Expr) and \
+                isinstance(body[0].value, ast.Constant):
+            tree.body[0].body = body[1:]
+        return ast.dump(tree)
+
+    port_fn, ref_fn = getattr(port_mod, name), getattr(ref_mod, name)
+    assert code(port_fn) == code(ref_fn)
+    rng = np.random.default_rng(5)
+    tex = rng.integers(0, 200, (80, 100)).astype(np.uint8)
+    cur = np.clip(tex[4:52, 6:70] * 0.85 - 6, 0, 255).astype(np.uint8)
+    refs = [tex[2:50, 3:67], tex[:48, :64],
+            rng.integers(0, 256, (48, 64)).astype(np.uint8)]
+    args = {"weight_cost": [(cur.astype(np.int64), r.astype(np.int64),
+                             w, off) for r in refs
+                            for w, off in ((64, 0), (54, -6))],
+            "_mc_pairs": [(cur, r) for r in refs],
+            "analyse_weights": [(cur, refs[:k]) for k in (1, 2, 3)],
+            "_te_ref_bits": [(k,) for k in range(1, 6)]}[name]
+    for a in args:
+        got, want = port_fn(*a), ref_fn(*a)
+        if isinstance(want, tuple):
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_array_equal(got, want)
 
 
 def test_lambda_and_mv_bits_equal_reference():

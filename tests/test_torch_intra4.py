@@ -15,8 +15,9 @@ tolerance 0 (all integer arithmetic):
 - streams with ``i4x4=True`` byte-identical to the reference and
   decoded by tools/avdec (libavcodec) bit-exact to the port's recon:
   I/P16 under CQP, ABR and a scenecut IDR (bframes=0), I/P8x8 with the
-  8x8 transform and trellis, bench.py's GOP (bframes=2, full_recon off,
-  P8x8, the 8x8 transform, trellis, weightp 0), and 350x286.
+  8x8 transform and trellis, bench.py's whole config (bframes=2,
+  full_recon off, P8x8, the 8x8 transform, trellis, weightp 1), and
+  350x286.
 
 Each test holds the cases that share the reference's compiled programs."""
 
@@ -289,7 +290,7 @@ STREAM_GROUPS = {
             ("scenecut", dict(scenecut_threshold=40, keyint_min=1), 3, 2)],
     "p8x8_tools": [("p8x8", dict(TOOLS, p8x8=True), 3, None)],
     "bench_gop": [("bench", dict(TOOLS, p8x8=True, bframes=2,
-                                 full_recon=False, weightp=0), 7, None)],
+                                 full_recon=False, weightp=1), 7, None)],
     "odd_350x286": [("odd", dict(width=350, height=286), 2, None)],
 }
 

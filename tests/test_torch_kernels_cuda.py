@@ -344,6 +344,63 @@ def test_b_encoder_on_card_matches_cpu(cuda, bframes, p8x8):
     assert streams[0] == streams[1]
 
 
+@pytest.mark.parametrize("k", [1, 2])
+def test_esa_kernels_on_stacked_refs(cuda, k):
+    """A P frame on several references searches each plane of the stacked
+    (K, H+2PAD, W+2PAD) padded luma in turn: both ESA kernels on the
+    second and third plane (a view at an offset into the stack) against
+    their twins, each one launch."""
+    mbw, mbh, me_range, lam = 7, 5, 16, 14
+    s, r = _esa_inputs(cuda, mbw, mbh, me_range, lam)
+    stack = torch.stack([torch.roll(r, (2 * j, -3 * j), (0, 1))
+                         for j in range(3)])
+    plane = stack[k]
+    assert plane.data_ptr() != stack.data_ptr()
+    before = x264_tpu_torch.launch_counts()
+    mv_k, c_k = esa16.full_search_16x16(s, plane, lam, me_range, mbw, mbh)
+    got = esa_parts.full_search_parts(s, plane, lam, me_range, mbw, mbh)
+    after = x264_tpu_torch.launch_counts()
+    assert after["esa16"] == before["esa16"] + 1
+    assert after["esa_parts"] == before["esa_parts"] + 1
+    mv_p, c_p = esa16.full_search_16x16_plain(s, plane, lam, me_range, mbw,
+                                              mbh)
+    assert torch.equal(mv_k, mv_p) and torch.equal(c_k, c_p)
+    want = esa_parts.full_search_parts_plain(s, plane, lam, me_range, mbw,
+                                             mbh)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("kw,n", [
+    (dict(ref_frames=3), 5),
+    (dict(ref_frames=2, p8x8=True, transform_8x8=True, trellis=1), 4),
+    (dict(ref_frames=2, p8x8=True, bframes=2, full_recon=True), 7)])
+def test_multiref_weightp_encoder_on_card_matches_cpu(cuda, kw, n):
+    """Weighted prediction on several references: the card stream equals
+    the CPU stream, and each P frame launches its ESA kernel once per
+    active reference (min(ref_frames, anchors since the IDR))."""
+    from chip_smoke import fade_clip
+    w, h = 96, 64
+    frames = [Frame420(*f) for f in fade_clip(w, h, n)]
+    p = EncoderParams(**dict(dict(
+        width=w, height=h, qp=26, cabac=True, bframes=0, me_range=8,
+        scenecut_threshold=0, backend="device", weightp=1), **kw))
+    streams = []
+    for d in (cuda, "cpu"):
+        enc = Encoder(p, device=d)
+        x264_tpu_torch.reset_launch_counts()
+        streams.append(b"".join(enc.encode(f) for f in frames) + enc.flush())
+        if d is cuda:
+            c = x264_tpu_torch.launch_counts()
+            n_b = [s.frame_type for s in enc.stats].count("B")
+            n_p = n - 1 - n_b
+            searches = sum(min(p.ref_frames, i + 1) for i in range(n_p))
+            want = {"esa_parts": searches if p.p8x8 else 0,
+                    "esa16": 2 * n_b + (0 if p.p8x8 else searches)}
+            assert {k: c[k] for k in want} == want, c
+    assert streams[0] == streams[1]
+
+
 def _trellis_inputs(cuda, nblocks, nc, qp, scale, seed):
     """Zigzag coefficients of random residual blocks (amplitudes from
     noise to 255, so levels reach the escape range at low QP) and the dq

@@ -13,9 +13,11 @@ what ran on the TPU runs on PyTorch tensors:
               me, me_parts, header, entropy_pack, deblock) and the
               trellis's host tables and plain twin (trellis)
   models/   — frame cores: the I16 wavefront (intra), the P pipeline
-              (inter, P16x16 or P8x8 partitions) and the B frames
-              (b_frame), with their residual paths (4x4 or 8x8,
-              deadzone or trellis)
+              (inter, P16x16 or P8x8 partitions, one or more
+              references) and the B frames (b_frame), with their
+              residual paths (4x4 or 8x8, deadzone or trellis), and
+              weighted prediction (weightp: the host analysis, the
+              weighting step)
   kernels/  — wrappers, plain twins and the nvcc build of the
               hand-written CUDA kernels in csrc/
   state.py  — constant tables (copied from x264_tpu) on a device,

@@ -11,13 +11,15 @@ the frame cores, the deblock and the upload.  The decoded picture buffer
     enc = Encoder(EncoderParams(..., cabac=True, bframes=0), device="cuda")
     stream = b"".join(enc.encode(Frame420(y, u, v)) for ...) + enc.flush()
 
-The port runs the single-slice, single-reference CABAC path: I frames
-(I16x16, or with ``i4x4`` the I16x16 / I4x4 / I8x8 choice), P frames,
+The port runs the single-slice CABAC path: I frames (I16x16, or with
+``i4x4`` the I16x16 / I4x4 / I8x8 choice), P frames on ``ref_frames``
+references with explicit weighted prediction when asked (``weightp``),
 with or without P8x8 partitions, and B frames in fixed mini-GOPs
-(``bframes`` > 0, temporal direct), with the adaptive 8x8 transform and
-trellis quantisation when asked; the settings in ``_NOT_PORTED`` and
-``_NOT_PORTED_B`` raise ``NotImplementedError``.  On the card an I
-frame's core is one CUDA graph replay (``models/graph.py``).
+(``bframes`` > 0, temporal direct, one reference per list), with the
+adaptive 8x8 transform and trellis quantisation when asked; the settings
+in ``_NOT_PORTED`` and ``_NOT_PORTED_B`` raise ``NotImplementedError``.
+On the card an I frame's core is one CUDA graph replay
+(``models/graph.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from x264_tpu_torch.models.b_frame import b_frame_core, b_pair_core
 from x264_tpu_torch.models.graph import run_core
 from x264_tpu_torch.models.inter import p_frame_core
 from x264_tpu_torch.models.intra import i4_frame_core, i_frame_core
+from x264_tpu_torch.models.weightp import analyse_weights
 from x264_tpu_torch.ops.deblock import deblock_frame, deblock_frame_b
 from x264_tpu_torch.ops.entropy_pack import blob_stride, write_slice_cabac
 from x264_tpu_torch.ops.trellis import frame_trellis
@@ -53,7 +56,7 @@ MB_I16, MB_I4, MB_PSKIP = 0, 1, 3
 
 # parameters whose paths are not ported yet (ROADMAP queue A), with the
 # value the port runs
-_NOT_PORTED = dict(cabac=True, ref_frames=1, weightp=0,
+_NOT_PORTED = dict(cabac=True,
                    aq_mode=0, mbtree=False, intra_refresh=False, slices=1,
                    vbv_maxrate=0, vbv_bufsize=0)
 # with B frames: the adaptive mini-GOP and the pre-encode lowres
@@ -145,6 +148,7 @@ class Encoder:
         self.frame_num = 0
         self.idr_pic_id = 0
         self.dpb: list[ReconFrame] = []
+        self._src_hist: list = []       # source luma per dpb slot (weightp)
         self.stats: list[FrameStats] = []
         self.last_recon: ReconFrame | None = None
         self.rc = RateControl(self.p)
@@ -203,12 +207,15 @@ class Encoder:
         return np.asarray(blob).reshape(-1)[:n * st].reshape(n, st)
 
     def _run_core(self, yd, ud, vd, ref, idr: bool, base_qp: int, qp_arr,
-                  n_words: int, mbw: int, mbh: int):
+                  n_words: int, mbw: int, mbh: int, wts=None):
         """Run the I or P core; ``host_blob`` comes back as a
         ``_HostCopy``, the one device-to-host copy of a frame.  An I
         frame takes ``i4_frame_core`` with i4x4 (at the lambda of the
         frame QP, as the reference), else ``i_frame_core``; on the card
-        as a CUDA graph replay."""
+        as a CUDA graph replay.  A P frame searches every reference of
+        ``ref`` (the DPB in list0 order, stacked on the device when
+        there are several) and weights its prediction by ``wts`` (K, 2)
+        when given."""
         qp = torch.as_tensor(np.asarray(qp_arr, np.int32),
                              device=self.device)
         if idr or ref is None:
@@ -223,8 +230,12 @@ class Encoder:
                 if self.device.type == "cuda" else core(*args, **kw)
             slice_type = SLICE_I
         else:
-            r = ref[0]
-            out = p_frame_core(yd, ud, vd, r.y, r.u, r.v, qp,
+            if len(ref) == 1:
+                ry, ru, rv = ref[0].y, ref[0].u, ref[0].v
+            else:
+                ry, ru, rv = (torch.stack([getattr(r, c) for r in ref])
+                              for c in "yuv")
+            out = p_frame_core(yd, ud, vd, ry, ru, rv, qp,
                                sad_lambda(base_qp), mbw=mbw, mbh=mbh,
                                me_range=self.p.me_range,
                                cqp_off=self.p.chroma_qp_offset,
@@ -232,7 +243,8 @@ class Encoder:
                                parts=self.p.p8x8,
                                decimate=self.p.dct_decimate,
                                t8=self.p.transform_8x8,
-                               trellis_tbl=self._trellis_tbl(base_qp, "P"))
+                               trellis_tbl=self._trellis_tbl(base_qp, "P"),
+                               wts=wts)
             slice_type = SLICE_P
         out["host_blob"] = _HostCopy(out["host_blob"])
         return out, slice_type
@@ -320,8 +332,16 @@ class Encoder:
         yd, ud, vd = self._upload((y, u, v))
         qp_arr = np.int32(qp)
         ref = None if (idr or not self.dpb) else self.dpb
+        wts = weights = None
+        if self.p.weightp and ref is not None:
+            # weight analysis from the source frames (models/weightp.py),
+            # on the host: the decision waits on nothing from the card;
+            # one (K, 2) upload per frame
+            weights = analyse_weights(y, self._src_hist[:len(ref)])
+            wts = torch.as_tensor(np.asarray(weights, np.int32),
+                                  device=self.device)
         out, slice_type = self._run_core(yd, ud, vd, ref, idr, qp, qp_arr,
-                                         n_words, mbw, mbh)
+                                         n_words, mbw, mbh, wts=wts)
         if (ref is not None and self.p.scenecut_threshold > 0
                 and self.frame_idx - self._last_idr_idx
                 >= self.p.keyint_min):
@@ -348,10 +368,17 @@ class Encoder:
                    slice_qp=qp, mbw=mbw, mbh=mbh, n_words=n_words,
                    ladder=ladder, frame_num=self.frame_num,
                    idr_pic_id=self.idr_pic_id, ftype=ftype,
-                   planes=(yd, ud, vd), ref=ref)
-        # advance encoder state now (dpb is list0 order, sliding window)
+                   planes=(yd, ud, vd), ref=ref,
+                   wts=None if idr else wts,
+                   weights=None if idr else weights)
+        # advance encoder state now (dpb is list0 order, sliding window;
+        # the source history follows it and restarts at every IDR, a
+        # scenecut-promoted one included)
         new = ReconFrame(*recon, frame_num=self.frame_num)
         self.dpb = ([new] + ([] if idr else self.dpb))[:self.p.ref_frames]
+        if self.p.weightp:
+            self._src_hist = ([y] + ([] if idr else self._src_hist)
+                              )[:self.p.ref_frames]
         self.last_recon = new
         if idr:
             self.idr_pic_id = (self.idr_pic_id + 1) % 65536
@@ -379,7 +406,8 @@ class Encoder:
                 job["n_words"] = K
                 out, _ = self._run_core(yd, ud, vd, job["ref"], job["idr"],
                                         job["qp"], job["qp_arr"], K,
-                                        job["mbw"], job["mbh"])
+                                        job["mbw"], job["mbh"],
+                                        wts=job["wts"])
                 blob = out["host_blob"].numpy()
                 rows = self._cab_rows(blob, n, parts=parts, i4=i4)
                 total = int(rows[:, 14 + 8].astype(np.int64).sum())
@@ -397,14 +425,16 @@ class Encoder:
                            frame_num=job["frame_num"],
                            idr_pic_id=job["idr_pic_id"], qp=job["slice_qp"],
                            num_ref=job["num_ref"],
-                           poc_lsb=job.get("poc_lsb", 0))
+                           poc_lsb=job.get("poc_lsb", 0),
+                           weights=job["weights"])
         pad = (-bs.bit_length) % 8
         if pad:
             bs.put(pad, (1 << pad) - 1)    # cabac_alignment_one_bit
         kind = 0 if job["slice_type"] == SLICE_I else 1
         payload = write_slice_cabac(blob, job["mbw"], job["mbh"], kind,
                                     job["slice_qp"], K, parts=parts,
-                                    t8_mode=self.p.transform_8x8, i4=i4)
+                                    t8_mode=self.p.transform_8x8, i4=i4,
+                                    num_ref=job["num_ref"] if kind else 1)
         out_bytes += wrap_slice_nal(bs.to_bytes_aligned() + payload,
                                     job["idr"])
         cost = int(rows[:, 14 + 9].astype(np.int64).sum())
@@ -533,10 +563,15 @@ class Encoder:
         return [torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
                 for p in planes]
 
+    def _col_ref(self, nxt: ReconFrame):
+        """The future anchor's quadrant refs, which bar direct where one
+        is above 0: only with several references (with one, every
+        colocated ref is 0 and the reference passes None)."""
+        return nxt.col_ref if self.p.ref_frames > 1 else None
+
     def _b_core(self, y, u, v, prev: ReconFrame, nxt: ReconFrame, dsf: int,
                 qp: int, n_words: int) -> dict:
-        """One B frame through ``b_frame_core`` at its own lambda.  With
-        one reference per anchor, col_ref is never consulted."""
+        """One B frame through ``b_frame_core`` at its own lambda."""
         return b_frame_core(
             y, u, v, prev.y, prev.u, prev.v, nxt.y, nxt.u, nxt.v,
             nxt.col_mv, nxt.col_intra, dsf, qp, sad_lambda(qp),
@@ -544,7 +579,8 @@ class Encoder:
             me_range=self.p.me_range, cqp_off=self.p.chroma_qp_offset,
             lv_cap=n_words, subpel=self.p.subpel,
             decimate=self.p.dct_decimate, t8_mode=self.p.transform_8x8,
-            trellis_tbl=self._trellis_tbl(qp, "B"))
+            trellis_tbl=self._trellis_tbl(qp, "B"),
+            col_ref=self._col_ref(nxt))
 
     def _b_job(self, out: dict, disp: int, qp: int, poc_cur: int, ladder,
                n_words: int, args: tuple) -> dict:
@@ -585,7 +621,8 @@ class Encoder:
             me_range=self.p.me_range, cqp_off=self.p.chroma_qp_offset,
             lv_cap=n_words, subpel=self.p.subpel,
             decimate=self.p.dct_decimate, t8_mode=self.p.transform_8x8,
-            trellis_tbl=self._trellis_tbl(qps[0], "B"))
+            trellis_tbl=self._trellis_tbl(qps[0], "B"),
+            col_ref=self._col_ref(nxt))
         return [self._b_job(outs[i], d, qps[i], pocs[i], ladder, n_words,
                             (*planes[i], prev, nxt, dsfs[i]))
                 for i, (_, d) in enumerate((b1, b2))]

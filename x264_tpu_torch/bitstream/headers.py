@@ -2,9 +2,8 @@
 reference encoder/set.c x264_sps_write/x264_pps_write and
 encoder/encoder.c slice_header_write).
 
-Copied from x264_tpu/bitstream/headers.py; the port's imports, no
-``auto_level``, and the weighted-prediction table raises (weightp is not
-ported).
+Copied from x264_tpu/bitstream/headers.py; the port's imports and no
+``auto_level``.
 """
 
 from __future__ import annotations
@@ -306,8 +305,20 @@ def write_slice_header(bs: BitWriter, p: EncoderParams, sps: SpsInfo, *,
         if slice_type == SLICE_B:
             bs.put1(0)                      # ref_pic_list_modification_flag_l1
     if slice_type == SLICE_P and p.weightp:
-        # pred_weight_table (7.3.3.2): weighted prediction is not ported
-        raise NotImplementedError("weightp")
+        # pred_weight_table (7.3.3.2) — mandatory once the PPS sets
+        # weighted_pred_flag; luma explicit, chroma default weights
+        from x264_tpu_torch.models.weightp import LOG2_DENOM, NEUTRAL
+        w_list = weights if weights is not None else [NEUTRAL] * num_ref
+        bs.ue(LOG2_DENOM)                   # luma_log2_weight_denom
+        bs.ue(LOG2_DENOM)                   # chroma_log2_weight_denom
+        for (w, off) in w_list[:num_ref]:
+            if (w, off) == NEUTRAL:
+                bs.put1(0)                  # luma_weight_l0_flag
+            else:
+                bs.put1(1)
+                bs.se(w)
+                bs.se(off)
+            bs.put1(0)                      # chroma_weight_l0_flag
     # dec_ref_pic_marking (reference pictures only)
     if idr:
         bs.put1(0)                          # no_output_of_prior_pics

@@ -1,7 +1,8 @@
 """B-frame core: bi-predictive 16x16 encoding with temporal direct mode
 (port of x264_tpu/models/b_frame_device.py: ``b_frame_core``,
 ``b_pair_core`` and ``_b_body`` on the CABAC, single-reference-per-list
-path, with the adaptive 8x8 transform and trellis when asked).
+path, with the adaptive 8x8 transform and trellis when asked, and the
+col_ref gate on direct when the anchors use several references).
 
 Temporal direct (8.4.1.2.3) derives every MB's direct mvs from the
 colocated quadrant of the future anchor's motion field, so the whole B
@@ -51,14 +52,19 @@ def b_frame_core(y, u, v, l0_y, l0_u, l0_v, l1_y, l1_u, l1_v, col_mv,
                  col_intra, dist_scale: int, qp, lam: int, mbw: int,
                  mbh: int, me_range: int, cqp_off: int, lv_cap: int,
                  subpel: int = 2, decimate: bool = True,
-                 t8_mode: bool = False, trellis_tbl=None):
+                 t8_mode: bool = False, trellis_tbl=None, col_ref=None):
     """Encode one B frame.  y/u/v uint8 source planes; l0_* / l1_* the
     past and future anchors' recon planes; col_mv (N,4,2) the future
     anchor's quadrant motion field, col_intra (N,) bool its intra MBs;
     dist_scale the temporal-direct DistScaleFactor (8.4.1.2.3); qp int;
     lam int; t8_mode: the adaptive 8x8 transform; trellis_tbl: the
-    ``ops/trellis.frame_trellis`` bundle or None.  Returns the per-MB
-    syntax tensors, the pre-deblock recon planes and ``host_blob``."""
+    ``ops/trellis.frame_trellis`` bundle or None; col_ref (N,4) the
+    future anchor's quadrant ref_idx or None.  With multi-reference
+    anchors a colocated quadrant that referenced an older anchor
+    (ref_idx > 0) would point temporal direct outside the B slice's
+    one-entry list0, so such MBs never choose direct.  Returns the
+    per-MB syntax tensors, the pre-deblock recon planes and
+    ``host_blob``."""
     a = _anchors(l0_y, l0_u, l0_v, l1_y, l1_u, l1_v)
     mv0, c0 = full_search_16x16(y, a["l0y"], lam, me_range, mbw, mbh)
     mv1, c1 = full_search_16x16(y, a["l1y"], lam, me_range, mbw, mbh)
@@ -66,14 +72,14 @@ def b_frame_core(y, u, v, l0_y, l0_u, l0_v, l1_y, l1_u, l1_v, col_mv,
                    mv0, c0, mv1, c1, mbw=mbw, mbh=mbh, me_range=me_range,
                    cqp_off=cqp_off, lv_cap=lv_cap, subpel=subpel,
                    decimate=decimate, t8_mode=t8_mode,
-                   trellis_tbl=trellis_tbl)
+                   trellis_tbl=trellis_tbl, col_ref=col_ref)
 
 
 def b_pair_core(ys, us, vs, l0_y, l0_u, l0_v, l1_y, l1_u, l1_v, col_mv,
                 col_intra, dist_scales, qps, lam: int, mbw: int, mbh: int,
                 me_range: int, cqp_off: int, lv_cap: int, subpel: int = 2,
                 decimate: bool = True, t8_mode: bool = False,
-                trellis_tbl=None):
+                trellis_tbl=None, col_ref=None):
     """Both B frames of a mini-GOP: ys/us/vs the two frames' planes,
     dist_scales/qps their two values, lam and the trellis bundle
     shared.  The padded anchors
@@ -88,14 +94,15 @@ def b_pair_core(ys, us, vs, l0_y, l0_u, l0_v, l1_y, l1_u, l1_v, col_mv,
                     dist_scales[i], qps[i], lam, *fp[2 * i], *fp[2 * i + 1],
                     mbw=mbw, mbh=mbh, me_range=me_range, cqp_off=cqp_off,
                     lv_cap=lv_cap, subpel=subpel, decimate=decimate,
-                    t8_mode=t8_mode, trellis_tbl=trellis_tbl)
+                    t8_mode=t8_mode, trellis_tbl=trellis_tbl,
+                    col_ref=col_ref)
             for i in range(2)]
 
 
 def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
             mv0_fp, cost0_fp, mv1_fp, cost1_fp, mbw: int, mbh: int,
             me_range: int, cqp_off: int, lv_cap: int, subpel: int,
-            decimate: bool, t8_mode: bool, trellis_tbl):
+            decimate: bool, t8_mode: bool, trellis_tbl, col_ref=None):
     """One B frame from the shared anchor work ``a`` and the frame's
     fullpel ME results."""
     n = mbw * mbh
@@ -126,6 +133,11 @@ def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
     # mode decision (SATD + mv bits + ue(mb_type) bits, analyse.c B path);
     # argmin takes the first least cost in the order direct, L0, L1, bi
     cost_dir = P.satd(src_mbs, pred_dir) + lam * 1
+    if col_ref is not None:
+        # multi-reference anchors: direct is barred where a colocated
+        # quadrant referenced an older anchor (see b_frame_core)
+        dir_ok = (col_ref.to(_I32) == 0).all(dim=1)
+        cost_dir = torch.where(dir_ok, cost_dir, 1 << 29)
     cost_bi = (P.satd(src_mbs, pred_bi) + (cost0 - P.satd(src_mbs, pred0))
                + (cost1 - P.satd(src_mbs, pred1)) + lam * 5)
     costs = torch.stack([cost_dir, cost0 + lam * 3, cost1 + lam * 3,

@@ -1,15 +1,17 @@
 """P-frame core: the whole per-frame pixel pipeline — exhaustive fullpel
-ME, subpel refinement, luma/chroma MC, residual (the adaptive 8x8
-transform and trellis when asked), reconstruction, intra-in-P,
-P_Skip/MVP classification and the CABAC blob — over all MBs at once
-(port of x264_tpu/models/inter_device.py: ``p_frame_pipeline`` on the
-single-reference, no-PIR, no-weights path, P16x16 only or with P8x8
-partitions, the CABAC branch of ``p_entropy_tail`` and
+ME on each list0 reference, subpel refinement, explicit weighted
+prediction, luma/chroma MC, residual (the adaptive 8x8 transform and
+trellis when asked), reconstruction, intra-in-P, P_Skip/MVP
+classification and the CABAC blob — over all MBs at once (port of
+x264_tpu/models/inter_device.py: ``p_frame_pipeline`` on the no-PIR
+path, one or more references, with or without weights, P16x16 only or
+with P8x8 partitions, the CABAC branch of ``p_entropy_tail`` and
 ``p_frame_core``).  The reference runs the partition path as two device
 programs to dodge a TPU miscompile; here it is one eager pass."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -17,6 +19,7 @@ from x264_tpu_torch.models.intra import pick_mode, qp_per_mb
 from x264_tpu_torch.models.residual import (encode_chroma, encode_i16_luma,
                                             encode_p_luma, encode_p_luma_t8,
                                             trellis_args)
+from x264_tpu_torch.models.weightp import apply_weights
 from x264_tpu_torch.ops import pixel as P
 from x264_tpu_torch.ops import predict as PR
 from x264_tpu_torch.ops import transform as T
@@ -31,6 +34,17 @@ from x264_tpu_torch.state import PAD, tables
 
 _I32 = torch.int32
 _BIG = 1 << 30
+
+
+def _te_ref_bits(num_ref: int) -> np.ndarray:
+    """te() bit count per ref_idx (CAVLC cost model for ref selection);
+    copied from x264_tpu/models/inter_device.py."""
+    if num_ref <= 1:
+        return np.zeros(1, np.int32)
+    if num_ref == 2:
+        return np.ones(2, np.int32)
+    return np.array([2 * int(k + 1).bit_length() - 1
+                     for k in range(num_ref)], np.int32)
 
 
 def _neigh(plane, s: int, mbw: int, mbh: int):
@@ -82,14 +96,17 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
                      lam: int, mbw: int, mbh: int, me_range: int,
                      cqp_off: int, subpel: int, lv_cap: int,
                      parts: bool = False, decimate: bool = True,
-                     t8: bool = False, trellis_tbl=None):
+                     t8: bool = False, trellis_tbl=None, wts=None):
     """P-frame pipeline on pre-padded reference planes (PAD luma, PAD//2
-    chroma).  y/u/v uint8 source planes; qp int or per-MB (N,); lam int;
-    parts: P8x8 partitions (16x16/16x8/8x16/8x8 per MB); t8: the adaptive
-    8x8 transform; trellis_tbl: the ``ops/trellis.frame_trellis`` bundle
-    or None.  Returns the per-MB syntax tensors, pre-deblock recon planes
-    and the CABAC ``host_blob``; with partitions also shape, mv8, ref8
-    and mvd_part."""
+    chroma): one reference (H, W) or stacked (K, H, W) in list0 order,
+    most recent first.  y/u/v uint8 source planes; qp int or per-MB (N,);
+    lam int; parts: P8x8 partitions (16x16/16x8/8x16/8x8 per MB); t8: the
+    adaptive 8x8 transform; trellis_tbl: the ``ops/trellis.frame_trellis``
+    bundle or None; wts: (K, 2) int32 [weight, offset] per reference
+    (``models/weightp``) or None.  Returns the per-MB syntax tensors
+    (ref_mb each MB's list0 ref_idx), pre-deblock recon planes and the
+    CABAC ``host_blob``; with partitions also shape, mv8, ref8 and
+    mvd_part."""
     if subpel < 1:
         raise NotImplementedError("the fullpel-only P path (subpel=0) is "
                                   "not ported")
@@ -98,23 +115,68 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     qp = qp_per_mb(qp, n, dev)
     qpc = tables(dev).chroma_qp[(qp + cqp_off).clamp(0, 51).long()]
     src_mbs = T.plane_to_mbs(y.to(_I32), mbh, mbw, 16)
+    if ref_y_pad.dim() == 2:
+        ref_y_pad, ref_u_pad, ref_v_pad = (ref_y_pad[None], ref_u_pad[None],
+                                           ref_v_pad[None])
+    n_refs = ref_y_pad.shape[0]
+    refbits = _te_ref_bits(n_refs)
+    # one reference: its plane, as before; several: the stack and each
+    # MB's ref_idx
+    multi = n_refs > 1
+
+    def stack_or_one(planes):
+        return planes if multi else planes[0]
 
     ref = torch.zeros(n, dtype=_I32, device=dev)
     if parts:
-        # one exhaustive pass gives all nine unit argmins; the shape is
-        # decided at fullpel and the subpel refine runs at quadrant
-        # granularity with partition-pooled costs (ops/me_parts.py)
-        units = full_search_parts(y, ref_y_pad, lam, me_range, mbw, mbh)
+        # one exhaustive pass per reference gives all nine unit argmins;
+        # a later reference takes an MB only on a strictly lower 16x16
+        # unit cost (plus its te() bits), and then brings all nine units;
+        # the shape is decided at fullpel and the subpel refine runs at
+        # quadrant granularity with partition-pooled costs (me_parts.py)
+        units = best16 = None
+        for k in range(n_refs):
+            u_k = full_search_parts(y, ref_y_pad[k], lam, me_range, mbw, mbh)
+            c16_k = u_k["cost_f"] + lam * int(refbits[k])
+            if units is None:
+                units, best16 = u_k, c16_k
+                continue
+            better = c16_k < best16
+            best16 = torch.where(better, c16_k, best16)
+            ref = torch.where(better, k, ref)
+            units = {key: torch.where(
+                better.reshape((n,) + (1,) * (u_k[key].dim() - 1)),
+                u_k[key], units[key]) for key in units}
         shape, mv8, _ = choose_shape(units, lam)
         mv8, part_costs, pred = subpel_refine_parts(
-            src_mbs, mv8, shape, lam, me_range, subpel, mbw, mbh, ref_y_pad)
+            src_mbs, mv8, shape, lam, me_range, subpel, mbw, mbh,
+            stack_or_one(ref_y_pad), ref_idx=ref if multi else None)
         mb_cost = part_costs.sum(1, dtype=_I32)
         mv = mv8[:, 0]
     else:
-        mv, _ = full_search_16x16(y, ref_y_pad, lam, me_range, mbw, mbh)
-        mv, mb_cost, pred = subpel_refine(src_mbs, ref_y_pad, mv, lam,
-                                          me_range, subpel, mbw, mbh,
-                                          return_pred=True)
+        # fullpel search per reference; each MB takes the least cost plus
+        # its ref's te() bits, a later ref only when strictly lower
+        mv = best = None
+        for k in range(n_refs):
+            mv_k, cost_k = full_search_16x16(y, ref_y_pad[k], lam, me_range,
+                                             mbw, mbh)
+            cost_k = cost_k + lam * int(refbits[k])
+            if mv is None:
+                mv, best = mv_k, cost_k
+                continue
+            better = cost_k < best
+            best = torch.where(better, cost_k, best)
+            mv = torch.where(better[:, None], mv_k, mv)
+            ref = torch.where(better, k, ref)
+        mv, mb_cost, pred = subpel_refine(src_mbs, stack_or_one(ref_y_pad),
+                                          mv, lam, me_range, subpel, mbw,
+                                          mbh, return_pred=True,
+                                          ref_idx=ref if multi else None)
+    if wts is not None:
+        # explicit weighted prediction (8.4.2.3.3: interpolate, then
+        # weight); the search stayed unweighted.  P_Skip MBs use this
+        # prediction too.
+        pred = apply_weights(pred, wts, ref)
     tr4, tr8, tr16, trc = trellis_args(trellis_tbl)
     recon_y_mbs, ac_zz, nnz, cbp_l = encode_p_luma(src_mbs, pred, qp,
                                                    trellis=tr4,
@@ -128,11 +190,13 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
                                        decimate=decimate)
 
     if parts:
-        pred_u, pred_v = mc_chroma_uv_quad(ref_u_pad, ref_v_pad, mv8, mbw,
-                                           mbh, PAD // 2)
+        pred_u, pred_v = mc_chroma_uv_quad(
+            stack_or_one(ref_u_pad), stack_or_one(ref_v_pad), mv8, mbw, mbh,
+            PAD // 2, ref_idx=ref if multi else None)
     else:
-        pred_u, pred_v = mc_chroma_uv(ref_u_pad, ref_v_pad, mv, mbw, mbh,
-                                      PAD // 2)
+        pred_u, pred_v = mc_chroma_uv(
+            stack_or_one(ref_u_pad), stack_or_one(ref_v_pad), mv, mbw, mbh,
+            PAD // 2, ref_idx=ref if multi else None)
     src_u = T.plane_to_mbs(u.to(_I32), mbh, mbw, 8)
     src_v = T.plane_to_mbs(v.to(_I32), mbh, mbw, 8)
     ru_mbs, rv_mbs, cdc, cac, cnnz, cbp_c = encode_chroma(
@@ -219,6 +283,7 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
         shape = torch.where(intra_mask | (mb_class == MB_PSKIP_D), 0, shape)
     else:
         mb_class, mvd = classify_p(mv, cbp_l, cbp_c, mbw, mbh,
+                                   ref=ref if multi else None,
                                    intra=intra_mask)
     ref = torch.where(mb_class == MB_PSKIP_D, 0, ref)
     out = dict(
@@ -241,19 +306,20 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     out["host_blob"] = cabac_blob(luma_dc, ac_zz, cdc, cac, mb_class, mvd,
                                   i16_mode, chroma_mode, cbp_l, cbp_c, qp,
                                   mb_cost, icost, K=lv_cap, t8=t8_flag,
-                                  **blob_parts)
+                                  ref=ref if multi else None, **blob_parts)
     return out
 
 
 def p_frame_core(y, u, v, ref_y, ref_u, ref_v, qp, lam: int, mbw: int,
                  mbh: int, me_range: int, cqp_off: int, subpel: int,
                  lv_cap: int, parts: bool = False, decimate: bool = True,
-                 t8: bool = False, trellis_tbl=None):
-    """Single-reference entry: edge-pad the reference planes (PAD luma,
-    PAD//2 chroma), then run ``p_frame_pipeline``."""
+                 t8: bool = False, trellis_tbl=None, wts=None):
+    """Single-chip entry: edge-pad the reference planes (PAD luma, PAD//2
+    chroma), one reference (H, W) or stacked (K, H, W) in list0 order,
+    then run ``p_frame_pipeline``."""
     return p_frame_pipeline(y, u, v, pad_edge(ref_y, PAD),
                             pad_edge(ref_u, PAD // 2),
                             pad_edge(ref_v, PAD // 2), qp, lam, mbw, mbh,
                             me_range, cqp_off, subpel, lv_cap,
                             parts=parts, decimate=decimate, t8=t8,
-                            trellis_tbl=trellis_tbl)
+                            trellis_tbl=trellis_tbl, wts=wts)

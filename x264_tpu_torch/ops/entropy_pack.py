@@ -1,6 +1,7 @@
 """Compact syntax blob for the host CABAC coder (port of
 x264_tpu/ops/device/entropy_pack.py for I frames, I16x16 or I_NxN,
-single-reference P frames, with or without P partitions, and B frames),
+P frames on one or more references, with or without P partitions, and B
+frames),
 and the host coder itself:
 the C source ``native/cabac.c`` (a copy of x264_tpu/native/cabac.c),
 built with gcc at first use and called through ctypes.  The coder reads
@@ -97,11 +98,12 @@ def _wrap_i32(x):
 
 def cabac_blob(luma_dc, luma_ac, chroma_dc, chroma_ac, mb_class, mvd,
                i16_mode, chroma_mode, cbp_luma, cbp_chroma, qp, mb_cost,
-               icost, K: int, bmode=None, mvd1=None, t8=None, shape=None,
-               mvd_part=None, ref_part=None, i4_modes=None):
+               icost, K: int, bmode=None, mvd1=None, t8=None, ref=None,
+               shape=None, mvd_part=None, ref_part=None, i4_modes=None):
     """All inputs per-MB int32 tensors; K even.  In a B slice, bmode (N,)
-    and mvd1 (N,2) (list 1's mvd) add the three B fields and t8 (N,) is
-    the transform flag (zeros when None).  With partitions, shape (N,),
+    and mvd1 (N,2) (list 1's mvd) add the three B fields; ref (N,) is
+    the list0 ref_idx (zeros when None) and t8 (N,) the transform flag
+    (zeros when None).  With partitions, shape (N,),
     mvd_part (N,4,2) and ref_part (N,4) add the 10 partition fields;
     i4_modes (N,16) adds the two I_NxN mode words (4-bit nibbles, raster
     blocks; -1, the value of non-I_NxN MBs, packs as 0).  Returns the flat int32 blob: n*stride row words + n*K/2 stream
@@ -140,8 +142,8 @@ def cabac_blob(luma_dc, luma_ac, chroma_dc, chroma_ac, mb_class, mvd,
               icost]
     if bmode is not None:
         fields += [bmode, mvd1[:, 0], mvd1[:, 1]]
-    # list 0 ref_idx 0, then transform_size_8x8_flag always last
-    fields += [zeros, zeros if t8 is None else t8]
+    # list 0 ref_idx, then transform_size_8x8_flag always last
+    fields += [zeros if ref is None else ref, zeros if t8 is None else t8]
     if shape is not None:
         # P partitions: shape code, mvd of partition slots 1-3 (slot 0
         # travels in the base mvd fields), refs of slots 1-3
@@ -164,16 +166,18 @@ def cabac_blob(luma_dc, luma_ac, chroma_dc, chroma_ac, mb_class, mvd,
 
 def write_slice_cabac(blob: np.ndarray, mbw: int, mbh: int, slice_kind: int,
                       slice_qp: int, K: int, parts: bool = False,
-                      t8_mode: bool = False, i4: bool = False):
+                      t8_mode: bool = False, i4: bool = False,
+                      num_ref: int = 1):
     """CABAC-code one slice from the host copy of the blob with
     ``native/cabac.c`` (the reference's
-    ``cabac_host.write_slice_cabac_packed`` for single-reference I/P/B
-    slices).  slice_kind 0 = I, 1 = P, 2 = B (the blob then carries the
-    B fields); parts: the blob carries the partition fields (P slices
-    with p8x8); i4: the blob carries the I_NxN mode words (I slices with
-    i4x4); t8_mode: the PPS transform_8x8_mode_flag (codes
-    each MB's transform_size_8x8_flag and its 8x8 blocks).  Returns the
-    slice_data() payload bytes."""
+    ``cabac_host.write_slice_cabac_packed``).  slice_kind 0 = I, 1 = P,
+    2 = B (the blob then carries the B fields); parts: the blob carries
+    the partition fields (P slices with p8x8); i4: the blob carries the
+    I_NxN mode words (I slices with i4x4); t8_mode: the PPS
+    transform_8x8_mode_flag (codes each MB's transform_size_8x8_flag and
+    its 8x8 blocks); num_ref: the active list0 size of a P slice (above
+    1 the coder writes each MB's ref_idx_l0, te() over that size).
+    Returns the slice_data() payload bytes."""
     n = mbw * mbh
     cap = 1024 + n * 512
     out = np.zeros(cap, np.uint8)
@@ -182,7 +186,7 @@ def write_slice_cabac(blob: np.ndarray, mbw: int, mbh: int, slice_kind: int,
     sz = _lib().encode_slice_cabac_packed(
         mbw, mbh, slice_kind, int(slice_qp), 0, blob, K,
         blob_stride(slice_kind == 2, parts, i4),
-        int(t8_mode), 1, int(parts), int(i4), out, cap, None)
+        int(t8_mode), int(num_ref), int(parts), int(i4), out, cap, None)
     if sz < 0:
         raise OverflowError("CABAC level cap or buffer overflow")
     return out[:sz].tobytes()

@@ -1,7 +1,8 @@
 """P skip / MV-prediction classification (port of
-x264_tpu/ops/device/header.py: ``classify_p`` for one reference and
-``classify_p_parts`` for partitioned MBs; parity: reference
-common/mvpred.c x264_mb_predict_mv / x264_mb_predict_mv_pskip)."""
+x264_tpu/ops/device/header.py: ``classify_p`` for P16x16 MBs and
+``classify_p_parts`` for partitioned MBs, each with per-MB refs;
+parity: reference common/mvpred.c x264_mb_predict_mv /
+x264_mb_predict_mv_pskip)."""
 
 from __future__ import annotations
 
@@ -29,15 +30,19 @@ def shifted(g, dy: int, dx: int, fill):
     return out, av
 
 
-def classify_p(mv, cbp_luma, cbp_chroma, mbw: int, mbh: int, intra=None):
+def classify_p(mv, cbp_luma, cbp_chroma, mbw: int, mbh: int, ref=None,
+               intra=None):
     """P16x16 skip/MVP classification (8.4.1), fully parallel: every
-    decoded mv equals the chosen one, so MVP and P_Skip of all MBs are
-    functions of the mv field.  mv (N,2) int32 qpel; intra (N,) bool or
+    decoded (mv, ref) equals the chosen one, so MVP and P_Skip of all
+    MBs are functions of the mv and ref fields.  mv (N,2) int32 qpel;
+    ref (N,) list0 ref_idx or None (all 0): each MB's MVP counts the
+    neighbours with its own ref, P_Skip needs ref 0; intra (N,) bool or
     None — intra MBs contribute (mv 0, ref -1) to their neighbours
     (8.4.1.3.2) and are classed MB_I16_D.  Returns (mb_class (N,),
     mvd (N,2)), int32."""
     m = mv.to(_I32).reshape(mbh, mbw, 2)
-    r = torch.zeros((mbh, mbw), dtype=_I32, device=mv.device)
+    r = (torch.zeros((mbh, mbw), dtype=_I32, device=mv.device)
+         if ref is None else ref.to(_I32).reshape(mbh, mbw))
     if intra is not None:
         ig = intra.reshape(mbh, mbw)
         m = torch.where(ig[..., None], 0, m)

@@ -51,9 +51,12 @@ def hpel_planes(plane):
     return torch.stack([plane.to(_I32), hh, hv, hc])
 
 
-def _chroma_windows(planes, mv, mbw: int, mbh: int, pad_c: int):
+def _chroma_windows(planes, mv, mbw: int, mbh: int, pad_c: int,
+                    ref_idx=None):
     """(P, Hc, Wc) stacked padded planes -> (P, N, 9, 9) int32 windows at
-    each MB's integer chroma position, plus the (N,1,1) fractions."""
+    each MB's integer chroma position, plus the (N,1,1) fractions; with
+    ref_idx (N,), planes (P, K, Hc, Wc) and each MB reads its own
+    reference."""
     n = mbw * mbh
     dev = mv.device
     mb = torch.arange(n, dtype=_I32, device=dev)
@@ -63,7 +66,8 @@ def _chroma_windows(planes, mv, mbw: int, mbh: int, pad_c: int):
     r9 = torch.arange(9, dtype=_I32, device=dev)
     yi = (y0[:, None, None] + r9[None, :, None]).long()
     xi = (x0[:, None, None] + r9[None, None, :]).long()
-    a = planes[:, yi, xi].to(_I32)
+    a = (planes[:, yi, xi] if ref_idx is None
+         else planes[:, ref_idx.long()[:, None, None], yi, xi]).to(_I32)
     return a, (mv[:, 0] & 7)[:, None, None], (mv[:, 1] & 7)[:, None, None]
 
 
@@ -82,23 +86,26 @@ def mc_chroma(ref_c_pad, mv, mbw: int, mbh: int, pad_c: int):
 
 
 def mc_chroma_uv(ref_u_pad, ref_v_pad, mv, mbw: int, mbh: int,
-                 pad_c: int):
-    """Both chroma planes from one window gather.  Returns (pred_u,
-    pred_v), each (N,8,8) int32; bit-identical to two mc_chroma calls."""
+                 pad_c: int, ref_idx=None):
+    """Both chroma planes from one window gather; ref_*_pad (Hc, Wc), or
+    stacked (K, Hc, Wc) with ref_idx (N,) each MB's reference.  Returns
+    (pred_u, pred_v), each (N,8,8) int32; bit-identical to two mc_chroma
+    calls."""
     a, fx, fy = _chroma_windows(torch.stack([ref_u_pad, ref_v_pad]), mv,
-                                mbw, mbh, pad_c)
+                                mbw, mbh, pad_c, ref_idx)
     pred = _bilinear(a, fx[None], fy[None])
     return pred[0], pred[1]
 
 
 def mc_chroma_uv_quad(ref_u_pad, ref_v_pad, mv8, mbw: int, mbh: int,
-                      pad_c: int):
+                      pad_c: int, ref_idx=None):
     """Per-quadrant chroma MC (port of x264_tpu/ops/device/mc.py
-    ``mc_chroma_uv_quad``, one reference): mv8 (N,4,2) luma qpel mvs
-    (quadrant q = 2*qy + qx) -> each 4x4 chroma block interpolated at its
-    own mv (8.4.2.2.2, the partitioned-MB case).  Returns (pred_u,
-    pred_v) (N,8,8) int32; equals mc_chroma_uv when all quads share one
-    mv."""
+    ``mc_chroma_uv_quad``): mv8 (N,4,2) luma qpel mvs (quadrant q =
+    2*qy + qx) -> each 4x4 chroma block interpolated at its own mv
+    (8.4.2.2.2, the partitioned-MB case); ref_*_pad (Hc, Wc), or stacked
+    (K, Hc, Wc) with ref_idx (N,) each MB's reference, shared by its
+    quadrants.  Returns (pred_u, pred_v) (N,8,8) int32; equals
+    mc_chroma_uv when all quads share one mv."""
     n = mbw * mbh
     m = 4 * n
     dev = mv8.device
@@ -114,7 +121,12 @@ def mc_chroma_uv_quad(ref_u_pad, ref_v_pad, mv8, mbw: int, mbh: int,
     r5 = torch.arange(5, dtype=_I32, device=dev)
     yi = (y0[:, None, None] + r5[None, :, None]).long()
     xi = (x0[:, None, None] + r5[None, None, :]).long()
-    a = torch.stack([ref_u_pad, ref_v_pad])[:, yi, xi].to(_I32)  # (2,M,5,5)
+    uv = torch.stack([ref_u_pad, ref_v_pad])
+    if ref_idx is None:
+        a = uv[:, yi, xi].to(_I32)                         # (2, M, 5, 5)
+    else:
+        rix = ref_idx.long().repeat_interleave(4)
+        a = uv[:, rix[:, None, None], yi, xi].to(_I32)
     fx = (mvf[:, 0] & 7)[None, :, None, None]
     fy = (mvf[:, 1] & 7)[None, :, None, None]
     p00, p01 = a[:, :, :4, :4], a[:, :, :4, 1:]

@@ -1,8 +1,9 @@
 """Motion estimation (port of x264_tpu/ops/device/me.py): the exhaustive
 fullpel 16x16 search (kernel ``kernels/esa16``) and the SATD subpel
 refinement on its direct-gather branch (me.py:135-146, ``ref_pad=``):
-each MB's 23x23 fullpel window is gathered and the 6-tap half-pel chain
-runs inside it.  The reference's P core takes the one-hot window gather
+each MB's 23x23 fullpel window is gathered, from its own reference when
+the references are stacked, and the 6-tap half-pel chain runs inside
+it.  The reference's P core takes the one-hot window gather
 (``wingather``) instead; the two branches are bit-exact
 (tests/test_device_parity.py)."""
 
@@ -48,13 +49,16 @@ def hpel_windows(g):
 
 
 def subpel_refine(src_mbs, ref_pad, mv0, lam: int, me_range: int,
-                  steps: int, mbw: int, mbh: int, return_pred=False):
+                  steps: int, mbw: int, mbh: int, return_pred=False,
+                  ref_idx=None):
     """SATD subpel refinement, exhaustive over the qpel window of the
     fullpel best (parity intent: reference encoder/me.c refine_subpel).
 
     src_mbs (N,16,16); ref_pad (H+2PAD, W+2PAD) the padded reference
-    luma; mv0 (N,2) fullpel-aligned qpel mvs.  Returns (mv (N,2), cost
-    (N,)) and, with return_pred, the winner's (N,16,16) prediction."""
+    luma, or stacked (K, H+2PAD, W+2PAD) with ref_idx (N,) each MB's
+    reference (the reference's ``ref_pad[ref_idx, yi, xi]`` gather);
+    mv0 (N,2) fullpel-aligned qpel mvs.  Returns (mv (N,2), cost (N,))
+    and, with return_pred, the winner's (N,16,16) prediction."""
     n = mbw * mbh
     dev = src_mbs.device
     off = 4 * me_range + 4
@@ -70,10 +74,12 @@ def subpel_refine(src_mbs, ref_pad, mv0, lam: int, me_range: int,
     # same SAD at fewer mv bits (tests/test_torch_bframes.py holds it at
     # me_range 29-32); the clamp only keeps the gather in bounds
     yi = ((y0 - 2)[:, None, None] + r23[None, :, None]).clamp(
-        0, ref_pad.shape[0] - 1).long()
+        0, ref_pad.shape[-2] - 1).long()
     xi = ((x0 - 2)[:, None, None] + r23[None, None, :]).clamp(
-        0, ref_pad.shape[1] - 1).long()
-    win = hpel_windows(ref_pad[yi, xi].to(_I32))          # (4, N, 18, 18)
+        0, ref_pad.shape[-1] - 1).long()
+    g = (ref_pad[yi, xi] if ref_pad.dim() == 2
+         else ref_pad[ref_idx.long()[:, None, None], yi, xi])
+    win = hpel_windows(g.to(_I32))                        # (4, N, 18, 18)
 
     # candidates in chunks of 7 stacked into one batched SATD, as in the
     # reference: argmin takes the first min within a chunk, strict <

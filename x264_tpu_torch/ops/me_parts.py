@@ -97,7 +97,8 @@ def _hpel_windows10(g):
 
 
 def subpel_refine_parts(src_mbs, mv8, shape, lam: int, me_range: int,
-                        steps: int, mbw: int, mbh: int, ref_pad):
+                        steps: int, mbw: int, mbh: int, ref_pad,
+                        ref_idx=None):
     """SATD subpel refinement at quadrant granularity with candidate costs
     pooled per partition: every quadrant evaluates the same qpel deltas
     around its partition's shared fullpel mv, the per-delta SATDs are
@@ -105,7 +106,9 @@ def subpel_refine_parts(src_mbs, mv8, shape, lam: int, me_range: int,
     cost, and the winning delta goes back to its member quadrants.
 
     src_mbs (N,16,16) int32; mv8 (N,4,2) fullpel qpel; shape (N,);
-    ref_pad (H+2PAD, W+2PAD) the padded reference luma.  Returns (mv8',
+    ref_pad (H+2PAD, W+2PAD) the padded reference luma, or stacked
+    (K, H+2PAD, W+2PAD) with ref_idx (N,) each MB's reference, shared by
+    its four quadrants.  Returns (mv8',
     cost (N,4) per-partition-slot costs, pred (N,16,16) the winning
     prediction)."""
     n = mbw * mbh
@@ -133,10 +136,15 @@ def subpel_refine_parts(src_mbs, mv8, shape, lam: int, me_range: int,
     # same SAD at fewer mv bits (tests/test_torch_bframes.py holds it at
     # me_range 29-32); the clamp only keeps the gather in bounds
     yi = ((y0 - 2)[:, None, None] + r15[None, :, None]).clamp(
-        0, ref_pad.shape[0] - 1).long()
+        0, ref_pad.shape[-2] - 1).long()
     xi = ((x0 - 2)[:, None, None] + r15[None, None, :]).clamp(
-        0, ref_pad.shape[1] - 1).long()
-    win = _hpel_windows10(ref_pad[yi, xi].to(_I32))        # (4, M, 10, 10)
+        0, ref_pad.shape[-1] - 1).long()
+    if ref_pad.dim() == 2:
+        g = ref_pad[yi, xi]
+    else:
+        rix = ref_idx.long().repeat_interleave(4)
+        g = ref_pad[rix[:, None, None], yi, xi]
+    win = _hpel_windows10(g.to(_I32))                      # (4, M, 10, 10)
 
     # partition pooling from the chosen shape
     shape_l = shape.long()
