@@ -27,8 +27,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      eager against its CUDA graph (capture and replay ms), and the NxN
      candidate kernel against its twin on every knight step of that IDR,
      with t8_mode on and off, with its bound and one MB's chain; the
-     registers, spills and shared memory of the ESA, trellis and NxN
-     kernels (ptxas);
+     CAVLC block coder (cavlc_blocks) and bit packer (bitpack) on the
+     slot grids of a 1080p P8x8 frame and a B frame, the packer at both
+     word rungs, with the launch alone and the bound; the registers,
+     spills and shared memory of the ESA, trellis, NxN and CAVLC kernels
+     (ptxas);
   4. the main paths, each with the kernels' launch counts reset just
      before and read just after: Encoder(device="cuda") encodes a 1080p
      clip of one IDR and 5 P frames (the clip formula of bench.py's
@@ -39,7 +42,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      P8x8 anchors, I4x4, the 8x8 transform, trellis and weightp=1), then
      6 frames on three references (I/P8x8, ref_frames=3, weightp=1, the
      8x8 transform, trellis, I4x4, range 24: the slower preset without
-     aq_mode); fps, bytes, Y-PSNR, the partition shapes chosen, the share
+     aq_mode), then bench.py's GOP again with CAVLC (cabac=False, so no
+     trellis and no I4x4: the library's default entropy coder, every
+     core's slice body coded and packed on the card); fps, bytes,
+     Y-PSNR, the partition shapes chosen, the share
      of 8x8-transform MBs, the P frames with a non-neutral weight, the
      esa_parts launches of each P frame (one per active reference) and
      the share of MBs on each reference, per-frame ms by frame type and,
@@ -52,7 +58,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      on a B pair, with I4x4 on I/P8x8 (two IDRs), and on a fading clip
      with weightp=1 on several references (P16 on three, P8x8 with the
      tools on two, B frames on P8x8 anchors on two), each with a
-     non-neutral weight and MBs on ref_idx > 0.
+     non-neutral weight and MBs on ref_idx > 0, and with CAVLC: I/P16 at
+     QP 26 and I/B/P8x8 with the 8x8 transform and weightp=1 on two
+     references.
 Every I frame's core on the card is a CUDA graph replay
 (x264_tpu_torch/models/graph.py).
 The line before the last is the kernels' JSON record; the last line is
@@ -850,7 +858,7 @@ def _timed_stages(enc, times: dict) -> None:
         setattr(enc, name, run)
 
     wrap("_submit_anchor", lambda a: a[2])
-    wrap("_finalize_cabac", lambda a: a[0]["ftype"])
+    wrap("_finalize_device", lambda a: a[0]["ftype"])
     wrap("_submit_b_pair", lambda a: "B")
     wrap("_submit_b", lambda a: "B")
     wrap("_finalize_b", lambda a: "B")
@@ -897,7 +905,8 @@ def _run_1080p_b(clip, records):
     if types != ["IDR"] + ["P", "B", "B"] * 3 or \
             dict(launches, trellis=0, intra_nxn=0) != {
                 "esa16": 4 * n_b // 2, "esa_parts": 3, "deblock": 4,
-                "trellis": 0, "intra_nxn": 0} \
+                "trellis": 0, "intra_nxn": 0, "cavlc_blocks": 0,
+                "bitpack": 0} \
             or launches["trellis"] < least or not nxn or nxn % steps:
         raise AssertionError(f"I/B/P8x8: frame types {types}, launches "
                              f"{launches} (expected esa16 12, esa_parts 3, "
@@ -934,8 +943,8 @@ def _run_1080p_b(clip, records):
         n = types.count(ftype)
         return sum(calls) / n
     print(f"1080p I/B/P8x8 ms per frame (second run, the card synchronised "
-          f"around each stage): I {ms('IDR', '_submit_anchor', '_finalize_cabac'):.1f}"
-          f", P {ms('P', '_submit_anchor', '_finalize_cabac'):.1f}, B "
+          f"around each stage): I {ms('IDR', '_submit_anchor', '_finalize_device'):.1f}"
+          f", P {ms('P', '_submit_anchor', '_finalize_device'):.1f}, B "
           f"{ms('B', '_submit_b_pair', '_submit_b', '_finalize_b'):.1f} "
           "(B pair submit "
           + " ".join(f"{t:.1f}" for t in stage[("_submit_b_pair", "B")])
@@ -966,7 +975,7 @@ def _check_small_b() -> None:
         raise AssertionError("352x288 B: card stream != CPU stream")
     if types != ["IDR", "P", "B", "B", "P", "B"] or launches != {
             "esa16": 6, "esa_parts": 2, "deblock": CHECK_B_FRAMES,
-            "trellis": 0, "intra_nxn": 0}:
+            "trellis": 0, "intra_nxn": 0, "cavlc_blocks": 0, "bitpack": 0}:
         raise AssertionError(f"352x288 B: frame types {types}, launches "
                              f"{launches}")
     print(f"{CHECK_W}x{CHECK_H} I/B/P8x8 x{CHECK_B_FRAMES}: card stream == "
@@ -1105,7 +1114,7 @@ def _run_1080p_multiref(clip, records):
         analysis.setdefault(len(hist), []).append(
             1000 * (time.perf_counter() - t0))
         return out
-    for name in ("_submit_device", "_finalize_cabac"):
+    for name in ("_submit_device", "_finalize_device"):
         fn = getattr(enc, name)
 
         def run(*a, _fn=fn, **k):
@@ -1208,6 +1217,247 @@ def _i16_graph_phase(clip) -> None:
           + " ".join(f"{t:.2f}" for t in replay))
 
 
+def _cavlc_inputs(out, b: bool):
+    """A core's fields -> the CAVLC kernels' inputs as the main path makes
+    them: the block coder's (coefs, blen, nC, gate) and the header slots
+    (a P8x8 frame's 22 per MB or a B frame's 10)."""
+    from x264_tpu_torch.ops import cavlc as CV
+    from x264_tpu_torch.ops import header as HD
+    mbw, mbh = (W + 15) // 16, (H + 15) // 16
+    intra = out["mb_class"] == 0
+    blocks = CV.block_inputs(
+        out["luma_dc"], out["luma_ac"], out["luma_nnz"], out["chroma_dc"],
+        out["chroma_ac"], out["chroma_nnz"], out["cbp_luma"],
+        out["cbp_chroma"], intra, mbw, mbh)
+    if b:
+        hdr = HD.header_slots_b(out["bmode"], out["mb_class"] == 3,
+                                out["mvd0"], out["mvd1"], out["cbp_luma"],
+                                out["cbp_chroma"], out["qp_mb"],
+                                t8_mode=True, intra=intra,
+                                i16_mode=out["i16_mode"],
+                                chroma_mode=out["chroma_mode"])
+    else:
+        hdr = HD.header_slots_parts(
+            out["mb_class"], out["shape"], out["i16_mode"],
+            out["chroma_mode"], out["mvd_part"], out["ref8"],
+            out["cbp_luma"], out["cbp_chroma"], out["qp_mb"], num_ref=1,
+            t8=out["t8"])
+    return blocks, hdr
+
+
+def _cavlc_phase(frames: dict, record, int_ops_per_s: float) -> None:
+    """The CAVLC block coder and bit packer against their twins,
+    bit-exact, at the 1080p shapes of a P8x8 frame and a B frame (the
+    cores' fields, ``frames``: label -> (out, is_b)), the packer at both
+    rungs (64 and 416 words); ms through the wrapper and of the launch
+    alone, the twin's ms, the bound.  The P8x8 frame's numbers are
+    recorded."""
+    import torch
+    from x264_tpu_torch.kernels import bitpack as KB
+    from x264_tpu_torch.kernels import build, cavlc as KC
+    from x264_tpu_torch.kernels.build import check
+    from x264_tpu_torch.ops import cavlc as CV
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    rec = {}
+    for label, (out, is_b) in frames.items():
+        (coefs, blen, nc, gate), (hv, hl) = _cavlc_inputs(out, is_b)
+        nb, n, dev = coefs.shape[0], hv.shape[0], coefs.device
+        kv, kl = KC.code_blocks_(coefs, blen, nc, gate)
+        pv, pl = CV.code_blocks_plain(coefs, blen, nc)
+        pl = torch.where(gate[:, None], pl, 0)
+        err_b = max(_max_err(kv, pv), _max_err(kl, pl))
+        if err_b:
+            raise AssertionError(f"cavlc_blocks disagrees with its twin on "
+                                 f"the 1080p {label} frame: {err_b}")
+        vals = torch.cat([hv, kv.reshape(n, -1)], 1).contiguous()
+        lens = torch.cat([hl, kl.reshape(n, -1)], 1).contiguous()
+        s = vals.shape[1]
+        err_p = 0
+        for n_words in (64, 416):
+            kw_, kn = KB.pack_tokens_(vals, lens, n_words)
+            pw, pn = KB.pack_tokens_plain(vals, lens, n_words)
+            err_p = max(err_p, _max_err(kw_, pw), _max_err(kn, pn))
+        if err_p:
+            raise AssertionError(f"bitpack disagrees with its twin on the "
+                                 f"1080p {label} frame: {err_p}")
+        # the launches alone, on outputs and inputs made once
+        tab = KC.tables_on(str(dev))["block"]
+        g8 = gate.to(torch.uint8)
+        bv, bl = torch.empty_like(kv), torch.empty_like(kl)
+        words = torch.empty((n, 64), dtype=torch.int32, device=dev)
+        nbits = torch.empty(n, dtype=torch.int32, device=dev)
+
+        def blocks_alone():
+            check(lib.cavlc_blocks_launch(
+                coefs.data_ptr(), blen.data_ptr(), nc.data_ptr(),
+                g8.data_ptr(), tab.data_ptr(), bv.data_ptr(), bl.data_ptr(),
+                nb, stream), "cavlc_blocks")
+
+        def pack_alone():
+            check(lib.bitpack_launch(vals.data_ptr(), lens.data_ptr(),
+                                     words.data_ptr(), nbits.data_ptr(), n,
+                                     s, 64, stream), "bitpack")
+
+        nonzero = int((coefs != 0).sum())
+        t = dict(
+            cavlc_blocks=(_time_ms(lambda: KC.code_blocks_(coefs, blen, nc,
+                                                           gate), 20),
+                          _time_ms(blocks_alone, 50),
+                          _time_ms(lambda: CV.code_blocks_plain(coefs, blen,
+                                                                nc), 3),
+                          # bytes; operations: ~48 a block and ~24 a
+                          # nonzero level (this frame's count)
+                          KC.work(nb) / HBM_BYTES_PER_S * 1e3,
+                          (48 * nb + 24 * nonzero) / int_ops_per_s * 1e3),
+            bitpack=(_time_ms(lambda: KB.pack_tokens_(vals, lens, 64), 20),
+                     _time_ms(pack_alone, 50),
+                     _time_ms(lambda: KB.pack_tokens_plain(vals, lens, 64),
+                              3),
+                     KB.work(n, s, 64) / HBM_BYTES_PER_S * 1e3,
+                     # operations: the 5-step scan and ~10 more a slot
+                     15 * n * s / int_ops_per_s * 1e3))
+        for name, (ms, alone, plain, by_bytes, by_ops) in t.items():
+            bound = (max(by_bytes, by_ops),
+                     "bytes" if by_bytes >= by_ops else "operations")
+            print(f"{name}, 1080p {label} frame ({nb} blocks, {n} x {s} "
+                  f"slots): bit-exact, {ms:.4f} ms through the wrapper "
+                  f"(launch alone {alone:.4f} ms), twin {plain:.3f} ms, "
+                  f"bound {bound[0]:.4f} ms by {bound[1]} (bytes "
+                  f"{by_bytes:.4f}, operations {by_ops:.4f})")
+            rec.setdefault(name, (ms, plain, bound, err_b if name ==
+                                  "cavlc_blocks" else err_p))
+        nov = int((kn > 32 * 64).sum())
+        print(f"1080p {label} frame: max MB {int(kn.max())} bits, {nov} MBs "
+              "past 64 words")
+    record("cavlc_blocks", "x264_tpu_torch/csrc/cavlc_blocks.cu",
+           "x264_tpu/ops/device/cavlc.py:72", rec["cavlc_blocks"][3],
+           *rec["cavlc_blocks"][:3])
+    record("bitpack", "x264_tpu_torch/csrc/bitpack.cu",
+           "x264_tpu/ops/device/bitpack.py:24", rec["bitpack"][3],
+           *rec["bitpack"][:3])
+
+
+def _run_1080p_cavlc(clip, records):
+    """The CAVLC main path (counts reset just before, read just after):
+    bench.py's GOP (IDR + 3 x (B B P), P8x8 anchors, full_recon off, the
+    8x8 transform, weightp=1) with cabac=False, so trellis and I4x4 off.
+    Every core codes its blocks (cavlc_blocks) and packs its MBs
+    (bitpack) once, more when an MB overflows the first word rung.
+    Prints each encode() call's ms, fps over display frames 1-9, bytes,
+    Y-PSNR, the rung floor, and from a second run with the card
+    synchronised around each stage the ms per I, P and B frame, submit
+    and finalize apart."""
+    import torch
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    kw = dict(bframes=2, full_recon=False, weightp=1, transform_8x8=True,
+              cabac=False)
+    enc = Encoder(_params(W, H, True, **kw), device="cuda")
+    recons = {}
+    enc.recon_hook = recons.__setitem__
+    weights = _weights_spy(enc)
+    stream, times = b"", []
+    torch.cuda.synchronize()
+    x264_tpu_torch.reset_launch_counts()
+    for y, u, v in clip:
+        t0 = time.perf_counter()
+        stream += enc.encode(Frame420(y, u, v))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    stream += enc.flush()
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+    launches = x264_tpu_torch.launch_counts()
+    print(f"launches in the 1080p CAVLC I/B/P8x8 run: {launches}")
+    for r in records:
+        r["launches"] += launches[r["name"]]
+    types = [s.frame_type for s in enc.stats]
+    n_b = types.count("B")
+    cv = launches["cavlc_blocks"]
+    if types != ["IDR"] + ["P", "B", "B"] * 3 or \
+            dict(launches, cavlc_blocks=0, bitpack=0) != {
+                "esa16": 4 * n_b // 2, "esa_parts": 3, "deblock": 4,
+                "trellis": 0, "intra_nxn": 0, "cavlc_blocks": 0,
+                "bitpack": 0} or cv != launches["bitpack"] \
+            or cv < len(clip):
+        raise AssertionError(f"CAVLC I/B/P8x8: frame types {types}, "
+                             f"launches {launches} (expected esa16 12, "
+                             "esa_parts 3, deblock 4, no trellis or NxN, "
+                             f"cavlc_blocks == bitpack >= {len(clip)}: one "
+                             "per core run)")
+    tail = times[1:]
+    print("CAVLC I/B/P8x8 encode() ms (display 0-9, then flush): "
+          + " ".join(f"{1000 * t:.1f}" for t in times))
+    psnr = _check_recon("CAVLC I/B/P8x8", stream, recons, clip,
+                        range(0, len(clip), 3))
+    print(f"1080p CAVLC I/B/P8x8: {(len(clip) - 1) / sum(tail):.3f} fps "
+          f"over display frames 1-{len(clip) - 1} (the calls after the "
+          f"IDR's, flush included), {len(stream)} bytes, "
+          f"{len(stream) * 8 / len(clip) / 1000:.1f} kbit/frame, mean "
+          f"Y-PSNR {psnr:.3f} dB,"
+          f" cavlc_blocks and bitpack {cv} launches each ({len(clip)} core"
+          f" runs; the rest the I16 graph's warm-up at its capture and "
+          f"re-runs past the first rung), rung floor "
+          f"{enc._rung_floor} words; {_weighted(weights)} of the "
+          f"{len(weights)} P frames carried a non-neutral weight")
+    stage = {}
+    enc = Encoder(_params(W, H, True, **kw), device="cuda")
+    _timed_stages(enc, stage)
+    for y, u, v in clip:
+        enc.encode(Frame420(y, u, v))
+    enc.flush()
+
+    def ms(ftype, *names):
+        calls = [t for nm in names for t in stage.get((nm, ftype), [])]
+        return sum(calls) / types.count(ftype)
+    print("1080p CAVLC I/B/P8x8 ms per frame (second run, the card "
+          "synchronised around each stage): "
+          + ", ".join(
+              f"{f} {ms(k, sub, fin):.1f} (submit {ms(k, sub):.1f}, "
+              f"finalize {ms(k, fin):.1f})"
+              for f, k, sub, fin in (
+                  ("I", "IDR", "_submit_anchor", "_finalize_device"),
+                  ("P", "P", "_submit_anchor", "_finalize_device"),
+                  ("B", "B", "_submit_b_pair", "_finalize_b"))))
+
+
+def _check_small_cavlc() -> None:
+    """352x288 CAVLC: I/P16 at QP 26 (BASELINE.json's first config's
+    shape) and I/B/P8x8 with the 8x8 transform and weightp=1 on two
+    references (fade_clip, full_recon on); the card stream equals the CPU
+    stream, and every core launched both CAVLC kernels."""
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    for label, frames, p8x8, kw in (
+            ("I/P16", split_motion_clip(CHECK_W, CHECK_H, CHECK_FRAMES),
+             False, {}),
+            ("I/B/P8x8, 8x8 transform, weightp=1, ref_frames=2",
+             fade_clip(CHECK_W, CHECK_H, 7, pan=(1, 1), flash=(3,)), True,
+             dict(bframes=2, full_recon=True, transform_8x8=True, weightp=1,
+                  ref_frames=2, me_range=8))):
+        small = [Frame420(*f) for f in frames]
+        streams = {}
+        for d in ("cuda", "cpu"):
+            e = Encoder(_params(CHECK_W, CHECK_H, p8x8, cabac=False, **kw),
+                        device=d)
+            x264_tpu_torch.reset_launch_counts()
+            streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
+            if d == "cuda":
+                launches = x264_tpu_torch.launch_counts()
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"352x288 CAVLC {label}: card stream != "
+                                 "CPU stream")
+        if not (launches["cavlc_blocks"] == launches["bitpack"]
+                >= len(small)) or launches["trellis"]:
+            raise AssertionError(f"352x288 CAVLC {label}: launches "
+                                 f"{launches}")
+        print(f"{CHECK_W}x{CHECK_H} CAVLC {label} x{len(small)}: card stream"
+              f" == CPU stream ({len(streams['cuda'])} bytes), launches "
+              f"{launches}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1217,6 +1467,7 @@ def main() -> int:
     from x264_tpu_torch.api import Encoder, Frame420
     from x264_tpu_torch.kernels import build, deblock as KD
     from x264_tpu_torch.kernels import esa16 as KE, esa_parts as KP
+    from x264_tpu_torch.models.b_frame import b_frame_core
     from x264_tpu_torch.models.inter import p_frame_core
     from x264_tpu_torch.models.intra import i_frame_core
     from x264_tpu_torch.ops.deblock import deblock_frame, deblock_prep
@@ -1240,7 +1491,8 @@ def main() -> int:
           f"({build.build_info['path']})")
     print(build.build_info["log"], file=sys.stderr)
     _print_resources(build.build_info["log"],
-                     ("search_kernel", "esa", "trellis", "intra_nxn"))
+                     ("search_kernel", "esa", "trellis", "intra_nxn",
+                      "cavlc", "bitpack"))
     probe_rate = _esa_probe_rate(build.library(), n_sm)
     print(f"esa_sad_probe: {probe_rate / 1e12:.3f} T vabsdiff4/s, "
           f"{probe_rate / (n_sm * clk_mhz * 1e6):.2f} per SM per clock at "
@@ -1344,6 +1596,16 @@ def main() -> int:
     out_p = p_frame_core(*planes, *ref_planes, QP, lam, mbw=mbw, mbh=mbh,
                          me_range=16, cqp_off=0, subpel=2, lv_cap=408,
                          parts=True)
+    # a CAVLC B frame between the IDR's recon and this P frame: with the
+    # P8x8 frame, the CAVLC kernels' inputs at 1080p
+    b_planes = [torch.from_numpy(_pad_to_mb(p, s)).to(dev)
+                for p, s in zip(clip[2], (16, 8, 8))]
+    out_b = b_frame_core(*b_planes, *ref_planes, out_p["recon_y"],
+                         out_p["recon_u"], out_p["recon_v"], out_p["mv8"],
+                         out_p["mb_class"] == 0, 128, QP, lam, mbw=mbw,
+                         mbh=mbh, me_range=16, cqp_off=0, n_words=64,
+                         t8_mode=True)
+    cavlc_frames = {"P8x8": (out_p, False), "B": (out_b, True)}
     bs_v, bs_h, qp_mb, qpc_mb = deblock_prep(
         out_p["mb_class"], out_p["cbp_luma"], out_p["cbp_chroma"],
         out_p["nnz_deblock"], out_p["mv8"], out_p["ref8"], out_p["qp_mb"],
@@ -1378,6 +1640,7 @@ def main() -> int:
           f"zeroing): {alone:.4f} ms")
     _trellis_phase(clip, record)
     _nxn_phase(clip, record, int_ops_per_s)
+    _cavlc_phase(cavlc_frames, record, int_ops_per_s)
     for r in records:
         print(f"kernel {r['name']}: bit-exact, {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
@@ -1405,8 +1668,10 @@ def main() -> int:
           + " ".join(str(int(c)) for c in hist))
     if len(shapes) != n_p or hist.sum() != n_p * n_mb:
         raise AssertionError(f"partition shapes of {len(shapes)} frames")
-    _run_1080p_b(make_clip(B_FRAMES), records)
+    bclip = make_clip(B_FRAMES)
+    _run_1080p_b(bclip, records)
     _run_1080p_multiref(clip[:MULTIREF_FRAMES], records)
+    _run_1080p_cavlc(bclip, records)
 
     # ---- 5. card streams == CPU (plain twins) streams at 352x288 ----
     small = [Frame420(*f) for f in split_motion_clip(CHECK_W, CHECK_H,
@@ -1433,6 +1698,7 @@ def main() -> int:
     _check_small_tools()
     _check_small_i4()
     _check_small_weightp()
+    _check_small_cavlc()
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
     f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 pytest.importorskip("jax")
 
+from _jax_maps import free_jax_executables  # noqa: E402,F401
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.params import EncoderParams as RefParams  # noqa: E402
 from x264_tpu.utils.oracle import decode_annexb  # noqa: E402
@@ -120,7 +121,7 @@ def test_scenecut_promotes_like_reference():
 def test_unported_settings_and_missing_card_raise():
     for kw in (dict(bframes=2, b_adapt=1),
                dict(bframes=2, scenecut_threshold=40),
-               dict(cabac=False), dict(i4x4=True, cabac=False),
+               dict(i4x4=True, cabac=False),
                dict(subpel=0), dict(backend="reference"),
                dict(p8x8=True, aq_mode=1),
                dict(slices=2), dict(mbtree=True), dict(me_range=PAD + 1),
@@ -130,7 +131,8 @@ def test_unported_settings_and_missing_card_raise():
             Encoder(_params(64, 48, 26, **kw), device="cpu")
     for kw in (dict(p8x8=True, ref_frames=2), dict(trellis=1, weightp=1),
                dict(p8x8=True, transform_8x8=True, i4x4=True, weightp=1),
-               dict(p8x8=True, weightp=2, ref_frames=4)):
+               dict(p8x8=True, weightp=2, ref_frames=4), dict(cabac=False),
+               dict(cabac=False, p8x8=True, transform_8x8=True, bframes=2)):
         Encoder(_params(64, 48, 26, **kw), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

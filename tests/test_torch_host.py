@@ -20,9 +20,12 @@ os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
     f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 pytest.importorskip("jax")
 
+from _jax_maps import free_jax_executables  # noqa: E402,F401
 import x264_tpu.params as r_params  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
+import x264_tpu.bitstream.bits as r_bits  # noqa: E402
 from x264_tpu.bitstream import cabac_init as r_cabac_init  # noqa: E402
+from x264_tpu.bitstream import slice_assemble as r_sa  # noqa: E402
 from x264_tpu.bitstream import tables as r_tables  # noqa: E402
 from x264_tpu.models import inter_device as r_inter_device  # noqa: E402
 from x264_tpu.models import inter_frame as r_inter  # noqa: E402
@@ -34,7 +37,10 @@ from x264_tpu.ops.reference import mc as r_mc  # noqa: E402
 from x264_tpu.utils.yuv import Frame420 as RefFrame  # noqa: E402
 import x264_tpu_torch.params as t_params  # noqa: E402
 from x264_tpu_torch import state  # noqa: E402
+import x264_tpu_torch.bitstream.bits as t_bits  # noqa: E402
 from x264_tpu_torch.bitstream import cabac_init as t_cabac_init  # noqa: E402
+from x264_tpu_torch.bitstream import slice_assemble as t_sa  # noqa: E402
+from x264_tpu_torch.bitstream import tables as t_tables  # noqa: E402
 from x264_tpu_torch.api import Encoder  # noqa: E402
 from x264_tpu_torch.models import inter as t_inter  # noqa: E402
 from x264_tpu_torch.models import weightp as t_weightp  # noqa: E402
@@ -68,6 +74,17 @@ TABLES = [
     ("SHAPE_BITS", r_me_parts, t_me_parts),
     ("LOG2_DENOM", r_weightp, t_weightp),
     ("NEUTRAL", r_weightp, t_weightp),
+    ("COEFF_TOKEN_VAL", r_tables, t_tables),
+    ("COEFF_TOKEN_LEN", r_tables, t_tables),
+    ("TOTAL_ZEROS_VAL", r_tables, t_tables),
+    ("TOTAL_ZEROS_LEN", r_tables, t_tables),
+    ("TZ_2x2_VAL", r_tables, t_tables),
+    ("TZ_2x2_LEN", r_tables, t_tables),
+    ("TZ_2x4_VAL", r_tables, t_tables),
+    ("TZ_2x4_LEN", r_tables, t_tables),
+    ("RUN_BEFORE_VAL", r_tables, t_tables),
+    ("RUN_BEFORE_LEN", r_tables, t_tables),
+    ("CBP_TO_GOLOMB", r_tables, t_tables),
 ]
 
 
@@ -94,7 +111,21 @@ FUNCTIONS = [
     ("_mc_pairs", r_weightp, t_weightp),
     ("analyse_weights", r_weightp, t_weightp),
     ("_te_ref_bits", r_inter_device, t_inter),
+    ("_pack_ct", r_tables, t_tables),
+    ("_pack_rect", r_tables, t_tables),
+    ("merge_mb_strings", r_sa, t_sa),
+    ("append_payload", r_sa, t_sa),
 ]
+
+
+def _written(fn, writer):
+    """append_payload as a function of its payload: the bytes it leaves
+    in a fresh writer."""
+    def run(*a):
+        bs = writer()
+        fn(bs, *a)
+        return np.frombuffer(bs.to_rbsp(), np.uint8)
+    return run
 
 
 @pytest.mark.parametrize("name,ref_mod,port_mod", FUNCTIONS,
@@ -112,6 +143,9 @@ def test_copied_function_equals_reference(name, ref_mod, port_mod):
 
     port_fn, ref_fn = getattr(port_mod, name), getattr(ref_mod, name)
     assert code(port_fn) == code(ref_fn)
+    if name == "append_payload":
+        port_fn = _written(port_fn, t_bits.BitWriter)
+        ref_fn = _written(ref_fn, r_bits.BitWriter)
     rng = np.random.default_rng(5)
     tex = rng.integers(0, 200, (80, 100)).astype(np.uint8)
     cur = np.clip(tex[4:52, 6:70] * 0.85 - 6, 0, 255).astype(np.uint8)
@@ -122,7 +156,17 @@ def test_copied_function_equals_reference(name, ref_mod, port_mod):
                             for w, off in ((64, 0), (54, -6))],
             "_mc_pairs": [(cur, r) for r in refs],
             "analyse_weights": [(cur, refs[:k]) for k in (1, 2, 3)],
-            "_te_ref_bits": [(k,) for k in range(1, 6)]}[name]
+            "_te_ref_bits": [(k,) for k in range(1, 6)],
+            "_pack_ct": [()],
+            "_pack_rect": [(r_tables._TZ, 15, 16), (r_tables._RB, 7, 15)],
+            "merge_mb_strings": [
+                (rng.integers(0, 1 << 32, (6, 8), dtype=np.uint64)
+                 .astype(np.uint32), rng.integers(0, 257, 6))
+                for _ in range(3)],
+            "append_payload": [
+                (rng.integers(0, 1 << 32, 9, dtype=np.uint64)
+                 .astype(np.uint32), t) for t in (0, 31, 32, 200, 288)]
+            }[name]
     for a in args:
         got, want = port_fn(*a), ref_fn(*a)
         if isinstance(want, tuple):
@@ -262,3 +306,22 @@ def test_host_paths_match_reference():
                      enc.close(), enc.summary_lines())
     assert out["port"] == out["ref"]
     assert out["port"][1] == ["IDR", "P", "IDR", "P"]
+
+
+def test_crowded_jax_executables_are_unmapped():
+    """tests/_jax_maps.py frees the reference's compiled programs: 40
+    jitted programs add mappings, a clear below the threshold does
+    nothing, and one past it takes the mappings back."""
+    import jax
+    import jax.numpy as jnp
+    from _jax_maps import free_if_crowded, maps_held
+
+    base = maps_held()
+    fns = [jax.jit(lambda x, k=k: x * k + 1) for k in range(40)]
+    for k, f in enumerate(fns):
+        f(jnp.zeros(k + 1)).block_until_ready()
+    held = maps_held()
+    assert held >= base + 40
+    assert not free_if_crowded(limit=4 * held + 4000)
+    assert free_if_crowded(limit=4)
+    assert maps_held() < held - 40

@@ -36,6 +36,7 @@ os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
+from _jax_maps import free_jax_executables  # noqa: E402,F401
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.models import intra_device  # noqa: E402
 from x264_tpu.models.inter_frame import me_lambda, sad_lambda  # noqa: E402

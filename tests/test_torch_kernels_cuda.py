@@ -792,3 +792,140 @@ def test_i4_encoder_on_card_matches_cpu(cuda):
         assert [s.frame_type for s in enc.stats] == ["IDR", "P", "P", "IDR"]
     assert streams[0] == streams[1]
     assert launches["intra_nxn"] >= 2 * (w // 16 + 2 * (h // 16) - 2)
+
+
+# ---- CAVLC: the block coder and the bit packer ----
+
+def _cavlc_blocks(levels: str, b: int, seed: int):
+    """Random zigzag blocks (lengths 4/15/16, nC -1/-2 on length 4 else
+    0-16, magnitudes by ``levels``) and a gate."""
+    rng = np.random.default_rng(seed)
+    blen = rng.choice([4, 15, 16], b).astype(np.int32)
+    nc = rng.integers(0, 17, b).astype(np.int32)
+    dc = blen == 4
+    nc[dc] = rng.choice([-1, -2], int(dc.sum()))
+    mag = {"ones": np.ones((b, 16), np.int64),
+           "small": rng.integers(1, 4, (b, 16)),
+           "large": rng.integers(1, 60, (b, 16)),
+           "escape": rng.integers(1, 9000, (b, 16))}[levels]
+    live = rng.random((b, 16)) < rng.random((b, 1))
+    coefs = np.where(live, rng.choice([-1, 1], (b, 16)) * mag, 0)
+    coefs[np.arange(16)[None, :] >= blen[:, None]] = 0
+    gate = rng.random(b) < 0.8
+    return [torch.from_numpy(a) for a in (coefs.astype(np.int32), blen, nc,
+                                          gate)]
+
+
+@pytest.mark.parametrize("levels", ["ones", "small", "large", "escape"])
+@pytest.mark.parametrize("nblocks", [1, 63, 64, 65, 1000, 220320])
+def test_cavlc_blocks_kernel_matches_plain(cuda, levels, nblocks):
+    """Bit-exact against the twin, with and without the gate; 220320 is
+    a 1080p frame's 8160 MBs x 27 blocks."""
+    from x264_tpu_torch.kernels import cavlc as k_cv
+    from x264_tpu_torch.ops import cavlc as cv
+    coefs, blen, nc, gate = _cavlc_blocks(levels, nblocks, nblocks)
+    for g in (gate, None):
+        pv, pl = cv.code_blocks(coefs, blen, nc, g)
+        kv, kl = k_cv.code_blocks_(*(t.to(cuda) for t in (coefs, blen, nc)),
+                                   None if g is None else g.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(kv.cpu(), pv) and torch.equal(kl.cpu(), pl)
+
+
+def test_cavlc_blocks_wrapper_launches_and_counts(cuda):
+    from x264_tpu_torch.ops import cavlc as cv
+    coefs, blen, nc, gate = (t.to(cuda) for t in
+                             _cavlc_blocks("small", 100, 3))
+    before = x264_tpu_torch.launch_counts()["cavlc_blocks"]
+    cv.code_blocks(coefs, blen, nc, gate)
+    assert x264_tpu_torch.launch_counts()["cavlc_blocks"] == before + 1
+    with pytest.raises(ValueError):
+        cv.code_blocks(coefs[:, :15], blen, nc, gate)
+
+
+def _tokens(n: int, s: int, seed: int):
+    """(N, S) tokens of 1-30 bits whose values fit them, densities per MB
+    from sparse to past 64 words."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 31, (n, s))
+    dens = 0.02 + 0.48 * rng.random((n, 1))
+    lens = np.where(rng.random((n, s)) < dens, lens, 0)
+    vals = rng.integers(0, 1 << 30, (n, s)) & ((1 << lens) - 1)
+    return (torch.from_numpy(vals.astype(np.int32)),
+            torch.from_numpy(lens.astype(np.int32)))
+
+
+@pytest.mark.parametrize("n,s", [(1, 981), (5, 7), (37, 994), (8160, 982)])
+@pytest.mark.parametrize("n_words", [1, 4, 64, 416])
+def test_bitpack_kernel_matches_plain(cuda, n, s, n_words):
+    """Bit-exact against the twin, MBs past the budget included (their
+    first words and whole nbits); 8160 x 982 is a 1080p B frame's slot
+    grid."""
+    from x264_tpu_torch.kernels import bitpack
+    vals, lens = _tokens(n, s, n * 7 + n_words)
+    pw, pn = bitpack.pack_tokens(vals, lens, n_words)
+    kw, kn = bitpack.pack_tokens(vals.to(cuda), lens.to(cuda), n_words)
+    torch.cuda.synchronize()
+    assert torch.equal(kw.cpu(), pw) and torch.equal(kn.cpu(), pn)
+
+
+def test_bitpack_wrapper_launches_and_counts(cuda):
+    from x264_tpu_torch.kernels import bitpack
+    vals, lens = (t.to(cuda) for t in _tokens(4, 981, 1))
+    before = x264_tpu_torch.launch_counts()["bitpack"]
+    bitpack.pack_tokens(vals, lens, 64)
+    assert x264_tpu_torch.launch_counts()["bitpack"] == before + 1
+    for bad in (0, bitpack.max_words() + 1):
+        with pytest.raises(ValueError):
+            bitpack.pack_tokens(vals, lens, bad)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(qp=0), dict(p8x8=True, transform_8x8=True, weightp=1,
+                             ref_frames=2),
+    dict(bframes=2, p8x8=True, full_recon=True, transform_8x8=True)],
+    ids=["p16", "p16_qp0", "p8x8_tools_ref2", "bframes"])
+def test_cavlc_encoder_on_card_matches_cpu(cuda, kw):
+    """CAVLC streams: card == CPU, every frame's core launching the block
+    coder and the packer once (more when an MB overflows its words and
+    the core re-runs at the next rung), the I frames' inside the graph."""
+    from chip_smoke import split_motion_clip
+    w, h, n = 96, 64, 7
+    frames = [Frame420(*f) for f in split_motion_clip(w, h, n)]
+    p = EncoderParams(**dict(dict(
+        width=w, height=h, qp=26, cabac=False, bframes=0, me_range=8,
+        scenecut_threshold=0, backend="device"), **kw))
+    streams = []
+    for d in (cuda, "cpu"):
+        enc = Encoder(p, device=d)
+        x264_tpu_torch.reset_launch_counts()
+        streams.append(b"".join(enc.encode(f) for f in frames) + enc.flush())
+        if d is cuda:
+            c = x264_tpu_torch.launch_counts()
+    assert streams[0] == streams[1]
+    assert c["cavlc_blocks"] == c["bitpack"] >= n, c
+    if kw.get("qp") != 0:
+        # one per core run, and the I16 graph's warm-up when this run
+        # captured it (models/graph.py counts the warm-up's launches)
+        assert n <= c["bitpack"] <= n + 1, c
+    assert c["trellis"] == c["intra_nxn"] == 0, c
+
+
+def test_cavlc_i16_graph_matches_eager_core(cuda):
+    """The CAVLC I16 core replayed as a CUDA graph equals the eager core
+    (host_blob included), at two word budgets, each its own graph."""
+    w, h = 96, 64
+    planes = _intra_planes(cuda, w, h, 4)
+    qp_t = torch.full((1,), 26, dtype=torch.int32, device=cuda)
+    for n_words in (64, 416):
+        kw = dict(mbw=w // 16, mbh=h // 16, cqp_off=0, n_words=n_words)
+        eager = intra.i_frame_core(*planes, qp_t, **kw)
+        g = graph.graph_for(intra.i_frame_core, planes, qp_t, **kw)
+        got = graph.run_core(intra.i_frame_core, *planes, qp_t, **kw)
+        torch.cuda.synchronize()
+        assert g.launches["cavlc_blocks"] == g.launches["bitpack"] == 1
+        assert set(got) == set(eager)
+        for k in eager:
+            assert torch.equal(got[k], eager[k]), (n_words, k)
+        assert got["host_blob"].shape == (kw["mbw"] * kw["mbh"],
+                                          n_words + 3)

@@ -40,6 +40,7 @@ os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
+from _jax_maps import free_jax_executables  # noqa: E402,F401
 import x264_tpu.bitstream.bits as r_bits  # noqa: E402
 import x264_tpu.bitstream.headers as r_headers  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402

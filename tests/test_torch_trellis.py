@@ -32,6 +32,7 @@ os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
+from _jax_maps import free_jax_executables  # noqa: E402,F401
 from x264_tpu.models import (b_frame_device, inter_device,  # noqa: E402
                              intra_device, residual_device)
 from x264_tpu.models.inter_frame import me_lambda  # noqa: E402

@@ -6,12 +6,15 @@ what ran on the TPU runs on PyTorch tensors:
 
   params.py, utils/, bitstream/, rc/
             — host layer copied from x264_tpu: parameters, the frame
-              container, SPS/PPS/SEI/slice-header writers, rate control
+              container, SPS/PPS/SEI/slice-header writers, CAVLC's
+              tables and the merge of its packed MB strings, rate
+              control
   native/   — the C CABAC coder (a copy of x264_tpu/native), built with
               gcc at first use (ops/entropy_pack.py)
   ops/      — primitive ops on tensors (pixel, transform, predict, mc,
-              me, me_parts, header, entropy_pack, deblock) and the
-              trellis's host tables and plain twin (trellis)
+              me, me_parts, header, entropy_pack, deblock), CAVLC's
+              block inputs and the block coder's plain twin (cavlc),
+              and the trellis's host tables and plain twin (trellis)
   models/   — frame cores: the I16 wavefront (intra), the P pipeline
               (inter, P16x16 or P8x8 partitions, one or more
               references) and the B frames (b_frame), with their

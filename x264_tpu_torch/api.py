@@ -11,15 +11,18 @@ the frame cores, the deblock and the upload.  The decoded picture buffer
     enc = Encoder(EncoderParams(..., cabac=True, bframes=0), device="cuda")
     stream = b"".join(enc.encode(Frame420(y, u, v)) for ...) + enc.flush()
 
-The port runs the single-slice CABAC path: I frames (I16x16, or with
-``i4x4`` the I16x16 / I4x4 / I8x8 choice), P frames on ``ref_frames``
+The port runs the single-slice path with either entropy coder: CABAC
+(the C coder on the host) or CAVLC (the library's default; every MB's
+codes packed into words on the device, the host only merges them,
+``bitstream/slice_assemble.py``).  I frames (I16x16, or with ``i4x4``
+and CABAC the I16x16 / I4x4 / I8x8 choice), P frames on ``ref_frames``
 references with explicit weighted prediction when asked (``weightp``),
 with or without P8x8 partitions, and B frames in fixed mini-GOPs
 (``bframes`` > 0, temporal direct, one reference per list), with the
-adaptive 8x8 transform and trellis quantisation when asked; the settings
-in ``_NOT_PORTED`` and ``_NOT_PORTED_B`` raise ``NotImplementedError``.
-On the card an I frame's core is one CUDA graph replay
-(``models/graph.py``).
+adaptive 8x8 transform and, with CABAC, trellis quantisation when asked;
+the settings in ``_NOT_PORTED`` and ``_NOT_PORTED_B`` and I4x4 with
+CAVLC raise ``NotImplementedError``.  On the card an I frame's core is
+one CUDA graph replay (``models/graph.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from x264_tpu_torch.bitstream.headers import (SLICE_B, SLICE_I, SLICE_P,
                                               wrap_slice_nal, write_pps,
                                               write_slice_header, write_sps)
 from x264_tpu_torch.bitstream.sei import version_sei
+from x264_tpu_torch.bitstream.slice_assemble import (append_payload,
+                                                     merge_mb_strings)
 from x264_tpu_torch.models.b_frame import b_frame_core, b_pair_core
 from x264_tpu_torch.models.graph import run_core
 from x264_tpu_torch.models.inter import p_frame_core
@@ -56,8 +61,7 @@ MB_I16, MB_I4, MB_PSKIP = 0, 1, 3
 
 # parameters whose paths are not ported yet (ROADMAP queue A), with the
 # value the port runs
-_NOT_PORTED = dict(cabac=True,
-                   aq_mode=0, mbtree=False, intra_refresh=False, slices=1,
+_NOT_PORTED = dict(aq_mode=0, mbtree=False, intra_refresh=False, slices=1,
                    vbv_maxrate=0, vbv_bufsize=0)
 # with B frames: the adaptive mini-GOP and the pre-encode lowres
 # scenecut need the lookahead (ROADMAP A13)
@@ -74,6 +78,9 @@ def _check_params(p: EncoderParams) -> None:
         bad["backend"] = p.backend
     if p.subpel < 1:
         bad["subpel"] = p.subpel
+    # the reference codes I4x4 with CAVLC on its host-syntax path
+    if p.i4x4 and not p.cabac:
+        bad["i4x4"] = "on with CAVLC"
     # the reference gathers P16 and B windows from 80-row bands, which
     # hold every window only up to me_range PAD - 1: at PAD its streams
     # stop decoding to its recon (ROADMAP C)
@@ -83,6 +90,23 @@ def _check_params(p: EncoderParams) -> None:
     if bad:
         raise NotImplementedError(
             f"x264_tpu_torch does not run these settings yet: {bad}")
+
+
+def _append_mbs(bs: BitWriter, blob: np.ndarray, n_words: int,
+                skip_class) -> None:
+    """Append a CAVLC blob's per-MB strings to ``bs`` (one merge of the
+    packed words) and, when ``skip_class`` is given (P and B slices), the
+    ue(mb_skip_run) of the skipped MBs after the last coded one."""
+    nbits = blob[:, n_words]
+    words = np.ascontiguousarray(blob[:, :n_words]).view(np.uint32)
+    payload, total = merge_mb_strings(words, nbits)
+    append_payload(bs, payload, total)
+    if skip_class is not None:
+        coded = blob[:, n_words + 1] != skip_class
+        last = np.nonzero(coded)[0][-1] if coded.any() else -1
+        trailing = int(len(coded) - 1 - last)
+        if trailing:
+            bs.ue(trailing)
 
 
 @dataclass
@@ -131,9 +155,14 @@ class FrameStats:
 class Encoder:
     """x264_encoder_open + x264_encoder_encode for the port's path: every
     frame is one job — upload, frame core, deblock on ``device`` — then
-    the host CABAC coder and the Annex-B bytes.  ``device`` is where the
+    the host CABAC coder or the merge of the CAVLC words packed on the
+    device, and the Annex-B bytes.  ``device`` is where the
     frames are encoded: a CUDA device runs the hand-written kernels, the
     CPU their plain twins."""
+
+    # the entropy ladders (levels per MB for CABAC, words per MB for
+    # CAVLC), the reference's fixed two rungs each
+    _RUNGS = {True: (96, 408), False: (64, 416)}
 
     def __init__(self, params: EncoderParams, device="cuda"):
         self.device = torch.device(device)
@@ -200,6 +229,11 @@ class Encoder:
         self._au_meta = []
         return m
 
+    def _entropy_kw(self, budget: int) -> dict:
+        """The cores' entropy argument: the CABAC blob's level capacity
+        or the CAVLC word budget per MB."""
+        return dict(lv_cap=budget) if self.p.cabac else dict(n_words=budget)
+
     def _cab_rows(self, blob, n: int, is_b: bool = False,
                   parts: bool = False, i4: bool = False):
         """Per-MB field rows of a flat CABAC blob (entropy_pack layout)."""
@@ -220,8 +254,8 @@ class Encoder:
                              device=self.device)
         if idr or ref is None:
             kw = dict(mbw=mbw, mbh=mbh, cqp_off=self.p.chroma_qp_offset,
-                      lv_cap=n_words,
-                      trellis_tbl=self._trellis_tbl(base_qp, "I"))
+                      trellis_tbl=self._trellis_tbl(base_qp, "I"),
+                      **self._entropy_kw(n_words))
             core, args = i_frame_core, (yd, ud, vd, qp)
             if self.p.i4x4:
                 core, args = i4_frame_core, args + (sad_lambda(base_qp),)
@@ -239,21 +273,21 @@ class Encoder:
                                sad_lambda(base_qp), mbw=mbw, mbh=mbh,
                                me_range=self.p.me_range,
                                cqp_off=self.p.chroma_qp_offset,
-                               subpel=self.p.subpel, lv_cap=n_words,
-                               parts=self.p.p8x8,
+                               subpel=self.p.subpel, parts=self.p.p8x8,
                                decimate=self.p.dct_decimate,
                                t8=self.p.transform_8x8,
                                trellis_tbl=self._trellis_tbl(base_qp, "P"),
-                               wts=wts)
+                               wts=wts, **self._entropy_kw(n_words))
             slice_type = SLICE_P
         out["host_blob"] = _HostCopy(out["host_blob"])
         return out, slice_type
 
     def _trellis_tbl(self, qp: int, slice_type: str):
         """The frame's trellis cost bundle (``frame_trellis`` at the RD
-        slope me_lambda), or None when trellis is off; the reference's
-        static ctx-init tables, never the coder's live states."""
-        if not self.p.trellis:
+        slope me_lambda), or None when trellis is off or the coder is
+        CAVLC; the reference's static ctx-init tables, never the coder's
+        live states."""
+        if not (self.p.trellis and self.p.cabac):
             return None
         return frame_trellis(qp, slice_type, me_lambda(qp),
                              self.p.transform_8x8)
@@ -280,26 +314,28 @@ class Encoder:
         """Re-derive the frame QP when a P frame is promoted to IDR."""
         return max(self.p.qp_min, qp - self.rc.IP_OFFSET)
 
-    # Entropy budget: the reference's fixed two-rung ladder of level-stream
-    # capacities (lv_cap K, levels per MB on average).  After an overflow
-    # the floor ratchets up and stays up; the bytes handed to the CABAC
-    # coder depend on K only through the overflow re-run.
+    # Entropy budget: the reference's fixed two-rung ladder, of level-stream
+    # capacities for CABAC (lv_cap K, levels per MB on average) or of
+    # words per MB for CAVLC.  After an overflow the floor ratchets up and
+    # stays up; the bytes depend on the rung only through the overflow
+    # re-run.
     _rung_floor = 0
 
     def _ladder(self, qp: int) -> list:
-        full = [96, 408]
+        full = self._RUNGS[self.p.cabac]
         keep = [r for r in full if r >= self._rung_floor]
-        return keep if keep else full[-1:]
+        return keep if keep else [full[-1]]
 
-    def _note_budget(self, observed: int):
+    def _note_budget(self, cabac: bool, observed: int):
         """Record a frame's observed entropy size; ratchet the ladder
         floor so a rung that overflowed once is never retried."""
-        for r in (96, 408):
+        full = self._RUNGS[cabac]
+        for r in full:
             if observed <= r:
                 if r > self._rung_floor:
                     self._rung_floor = r
                 return
-        self._rung_floor = 408
+        self._rung_floor = full[-1]
 
     def _deblock_device(self, out, qp, mbw, mbh):
         ry, ru, rv = out["recon_y"], out["recon_u"], out["recon_v"]
@@ -348,10 +384,14 @@ class Encoder:
             # post-encode scenecut (x264 slicetype.c:1430 rule, no
             # lookahead): promote to IDR when inter is no cheaper than
             # intra, from the costs the P core already computed
-            rows = self._cab_rows(out["host_blob"].numpy(), mbw * mbh,
-                                  parts=self.p.p8x8)
-            p_cost = float(rows[:, 14 + 9].astype(np.int64).sum())
-            i_cost = float(rows[:, 14 + 10].astype(np.int64).sum())
+            blob = out["host_blob"].numpy()
+            if self.p.cabac:
+                rows = self._cab_rows(blob, mbw * mbh, parts=self.p.p8x8)
+                p_cost = float(rows[:, 14 + 9].astype(np.int64).sum())
+                i_cost = float(rows[:, 14 + 10].astype(np.int64).sum())
+            else:
+                p_cost = float(blob[:, n_words + 2].astype(np.int64).sum())
+                i_cost = float(blob[:, n_words + 3].astype(np.int64).sum())
             if p_cost >= (1.0 - self.p.scenecut_threshold / 100.0) * i_cost:
                 idr = True
                 ftype = "IDR"
@@ -387,6 +427,33 @@ class Encoder:
         self.frame_idx += 1
         return job
 
+    def _finalize_device(self, job: dict) -> bytes:
+        """An I or P frame's bytes, by the stream's entropy coder."""
+        return (self._finalize_cabac(job) if self.p.cabac
+                else self._finalize_cavlc(job))
+
+    def _slice_writer(self, job: dict) -> BitWriter:
+        """A BitWriter holding the frame's slice header."""
+        bs = BitWriter()
+        write_slice_header(bs, self.p, self.sps, init_qp=self._init_qp,
+                           slice_type=job["slice_type"], idr=job["idr"],
+                           frame_num=job["frame_num"],
+                           idr_pic_id=job["idr_pic_id"], qp=job["slice_qp"],
+                           num_ref=job["num_ref"],
+                           poc_lsb=job.get("poc_lsb", 0),
+                           weights=job["weights"])
+        return bs
+
+    def _account(self, job: dict, nbytes: int, cost: int,
+                 mb_class) -> None:
+        """Stats, rate control and the access-unit log of an I or P
+        frame."""
+        self.stats.append(FrameStats(job["ftype"], nbytes * 8, job["qp"]))
+        self.rc.update(job["ftype"], nbytes * 8, cost)
+        self._record_stats(job["ftype"], job["qp"], nbytes * 8, cost,
+                           mb_class)
+        self._note_au(nbytes, job["ftype"], job.get("poc_lsb", 0))
+
     def _finalize_cabac(self, job: dict) -> bytes:
         """The frame's bytes (the reference's ``_finalize_device`` on its
         CABAC branch): re-run the core at the next entropy rung when the
@@ -413,20 +480,13 @@ class Encoder:
                 total = int(rows[:, 14 + 8].astype(np.int64).sum())
                 if total <= n * K:
                     break
-        self._note_budget(-(-total // n))
+        self._note_budget(True, -(-total // n))
         mb_class = rows[:, 14]
 
         out_bytes = b""
         if job["ftype"] == "IDR" and self.p.repeat_headers:
             out_bytes += self.headers()
-        bs = BitWriter()
-        write_slice_header(bs, self.p, self.sps, init_qp=self._init_qp,
-                           slice_type=job["slice_type"], idr=job["idr"],
-                           frame_num=job["frame_num"],
-                           idr_pic_id=job["idr_pic_id"], qp=job["slice_qp"],
-                           num_ref=job["num_ref"],
-                           poc_lsb=job.get("poc_lsb", 0),
-                           weights=job["weights"])
+        bs = self._slice_writer(job)
         pad = (-bs.bit_length) % 8
         if pad:
             bs.put(pad, (1 << pad) - 1)    # cabac_alignment_one_bit
@@ -437,13 +497,45 @@ class Encoder:
                                     num_ref=job["num_ref"] if kind else 1)
         out_bytes += wrap_slice_nal(bs.to_bytes_aligned() + payload,
                                     job["idr"])
-        cost = int(rows[:, 14 + 9].astype(np.int64).sum())
-        self.stats.append(FrameStats(job["ftype"], len(out_bytes) * 8,
-                                     job["qp"]))
-        self.rc.update(job["ftype"], len(out_bytes) * 8, cost)
-        self._record_stats(job["ftype"], job["qp"], len(out_bytes) * 8,
-                           cost, mb_class)
-        self._note_au(len(out_bytes), job["ftype"], job.get("poc_lsb", 0))
+        self._account(job, len(out_bytes),
+                      int(rows[:, 14 + 9].astype(np.int64).sum()), mb_class)
+        return out_bytes
+
+    def _finalize_cavlc(self, job: dict) -> bytes:
+        """The frame's bytes (the reference's ``_finalize_device`` on its
+        CAVLC branch): re-run the core at the next word budget when an
+        MB's packed string overflowed, then the slice header, the merged
+        per-MB strings and, in a P slice, the trailing ue(mb_skip_run)."""
+        blob = job["blob"].numpy()
+        n_words = job["n_words"]
+        nbits = blob[:, n_words]
+        if int(nbits.max(initial=0)) > 32 * n_words:
+            # an MB past its word budget: re-run the entropy at a bigger
+            # one (reference encoder/encoder.c:2893 re-encode pattern)
+            yd, ud, vd = job["planes"]
+            for n_words in job["ladder"][1:]:
+                out, _ = self._run_core(yd, ud, vd, job["ref"], job["idr"],
+                                        job["qp"], job["qp_arr"], n_words,
+                                        job["mbw"], job["mbh"],
+                                        wts=job["wts"])
+                blob = out["host_blob"].numpy()
+                nbits = blob[:, n_words]
+                if int(nbits.max(initial=0)) <= 32 * n_words:
+                    break
+        self._note_budget(False, -(-int(nbits.max(initial=0)) // 32))
+        mb_class = blob[:, n_words + 1]
+
+        out_bytes = b""
+        if job["ftype"] == "IDR" and self.p.repeat_headers:
+            out_bytes += self.headers()
+        bs = self._slice_writer(job)
+        _append_mbs(bs, blob, n_words,
+                    skip_class=MB_PSKIP if job["slice_type"] == SLICE_P
+                    else None)
+        out_bytes += wrap_slice_nal(bs.to_rbsp(), job["idr"])
+        self._account(job, len(out_bytes),
+                      int(blob[:, n_words + 2].astype(np.int64).sum()),
+                      mb_class)
         return out_bytes
 
     # ---- B-frame mini-GOPs (I/P anchors, B frames between them, temporal
@@ -492,7 +584,7 @@ class Encoder:
     def _drain_gop_q(self) -> bytes:
         out = b""
         for kind, job in (self._gop_q or []):
-            out += (self._finalize_cabac(job) if kind == "a"
+            out += (self._finalize_device(job) if kind == "a"
                     else self._finalize_b(job))
         self._gop_q = []
         return out
@@ -518,7 +610,7 @@ class Encoder:
         return out
 
     def _encode_anchor(self, fr: Frame420, disp: int, ftype: str) -> bytes:
-        return self._finalize_cabac(self._submit_anchor(fr, disp, ftype))
+        return self._finalize_device(self._submit_anchor(fr, disp, ftype))
 
     def _frame_qp_at(self, disp: int, ftype: str) -> int:
         """The QP of the frame at ``disp``: rate control, zones, then a
@@ -577,10 +669,10 @@ class Encoder:
             nxt.col_mv, nxt.col_intra, dsf, qp, sad_lambda(qp),
             mbw=y.shape[1] // 16, mbh=y.shape[0] // 16,
             me_range=self.p.me_range, cqp_off=self.p.chroma_qp_offset,
-            lv_cap=n_words, subpel=self.p.subpel,
-            decimate=self.p.dct_decimate, t8_mode=self.p.transform_8x8,
+            subpel=self.p.subpel, decimate=self.p.dct_decimate,
+            t8_mode=self.p.transform_8x8,
             trellis_tbl=self._trellis_tbl(qp, "B"),
-            col_ref=self._col_ref(nxt))
+            col_ref=self._col_ref(nxt), **self._entropy_kw(n_words))
 
     def _b_job(self, out: dict, disp: int, qp: int, poc_cur: int, ladder,
                n_words: int, args: tuple) -> dict:
@@ -619,10 +711,10 @@ class Encoder:
             nxt.col_mv, nxt.col_intra, dsfs, qps, sad_lambda(qps[0]),
             mbw=y1.shape[1] // 16, mbh=y1.shape[0] // 16,
             me_range=self.p.me_range, cqp_off=self.p.chroma_qp_offset,
-            lv_cap=n_words, subpel=self.p.subpel,
-            decimate=self.p.dct_decimate, t8_mode=self.p.transform_8x8,
+            subpel=self.p.subpel, decimate=self.p.dct_decimate,
+            t8_mode=self.p.transform_8x8,
             trellis_tbl=self._trellis_tbl(qps[0], "B"),
-            col_ref=self._col_ref(nxt))
+            col_ref=self._col_ref(nxt), **self._entropy_kw(n_words))
         return [self._b_job(outs[i], d, qps[i], pocs[i], ladder, n_words,
                             (*planes[i], prev, nxt, dsfs[i]))
                 for i, (_, d) in enumerate((b1, b2))]
@@ -630,29 +722,32 @@ class Encoder:
     def _finalize_b(self, job: dict) -> bytes:
         """A B frame's bytes: the overflow ladder re-runs ``b_frame_core``
         at the frame's own lambda; then the non-reference slice (the
-        current frame_num, not advanced), the deblocked recon when
-        ``full_recon`` is on, and the stats."""
+        current frame_num, not advanced) through the CABAC coder or the
+        merged CAVLC strings, the deblocked recon when ``full_recon`` is
+        on, and the stats."""
         out = job["out"]
         mbw, mbh, qp = job["mbw"], job["mbh"], job["qp"]
         n = mbw * mbh
         n_words = job["n_words"]
         blob = job["blob"].numpy()
+        cab = self.p.cabac
 
-        def total_of(blob):
-            rows = self._cab_rows(blob, n, is_b=True)
-            return int(rows[:, 14 + 8].astype(np.int64).sum())
+        def used(blob, n_words):
+            """The blob's entropy size in its ladder's unit: levels per
+            MB (CABAC, the frame's total) or words of the largest MB."""
+            if cab:
+                rows = self._cab_rows(blob, n, is_b=True)
+                return -(-int(rows[:, 14 + 8].astype(np.int64).sum()) // n)
+            return -(-int(blob[:, n_words].max(initial=0)) // 32)
 
-        if total_of(blob) > n * n_words:
+        if used(blob, n_words) > n_words:
             y, u, v, prev, nxt, dsf = job["args"]
             for n_words in job["ladder"][1:]:
                 out = self._b_core(y, u, v, prev, nxt, dsf, qp, n_words)
                 blob = out["host_blob"].cpu().numpy()
-                if total_of(blob) <= n * n_words:
+                if used(blob, n_words) <= n_words:
                     break
-        rows = self._cab_rows(blob, n, is_b=True)
-        self._note_budget(-(-total_of(blob) // n))
-        mb_class = rows[:, 14]
-        cost_total = int(rows[:, 14 + 9].astype(np.int64).sum())
+        self._note_budget(cab, used(blob, n_words))
 
         bs = BitWriter()
         write_slice_header(bs, self.p, self.sps, init_qp=self._init_qp,
@@ -660,13 +755,22 @@ class Encoder:
                            frame_num=job["frame_num"], qp=qp, num_ref=1,
                            num_ref_l1=1, poc_lsb=job["poc_cur"],
                            is_ref=False)
-        pad = (-bs.bit_length) % 8
-        if pad:
-            bs.put(pad, (1 << pad) - 1)    # cabac_alignment_one_bit
-        payload = write_slice_cabac(blob, mbw, mbh, 2, qp, n_words,
-                                    t8_mode=self.p.transform_8x8)
-        data = wrap_slice_nal(bs.to_bytes_aligned() + payload, False,
-                              is_ref=False)
+        if cab:
+            rows = self._cab_rows(blob, n, is_b=True)
+            mb_class = rows[:, 14]
+            cost_total = int(rows[:, 14 + 9].astype(np.int64).sum())
+            pad = (-bs.bit_length) % 8
+            if pad:
+                bs.put(pad, (1 << pad) - 1)    # cabac_alignment_one_bit
+            payload = write_slice_cabac(blob, mbw, mbh, 2, qp, n_words,
+                                        t8_mode=self.p.transform_8x8)
+            data = wrap_slice_nal(bs.to_bytes_aligned() + payload, False,
+                                  is_ref=False)
+        else:
+            mb_class = blob[:, n_words + 1]
+            cost_total = int(blob[:, n_words + 2].astype(np.int64).sum())
+            _append_mbs(bs, blob, n_words, skip_class=MB_PSKIP)
+            data = wrap_slice_nal(bs.to_rbsp(), False, is_ref=False)
 
         # the deblocked recon for output (a B frame is no reference; the
         # b_full_recon analog skips it when full_recon is off)
@@ -801,7 +905,7 @@ class Encoder:
             self.frame_num = 0
         job = self._submit_device(y, u, v, ftype, qp)
         self._note_recon(disp, self.dpb[0])
-        return self._finalize_cabac(job)
+        return self._finalize_device(job)
 
     def close(self) -> dict:
         """Summary stats (analog of encoder_close's log summary); writes

@@ -43,6 +43,10 @@ SIGNATURES = {
     "trellis_auto_layout": [_I, _I],
     "trellis_params_len": [_I],
     "intra_nxn_launch": [_P] * 7 + [_I] * 6 + [_P],
+    "cavlc_blocks_launch": [_P] * 7 + [_I, _P],
+    "cavlc_table_len": [],
+    "bitpack_launch": [_P] * 4 + [_I] * 3 + [_P],
+    "bitpack_max_words": [],
 }
 
 _lib = None

@@ -1,15 +1,17 @@
 """B-frame core: bi-predictive 16x16 encoding with temporal direct mode
 (port of x264_tpu/models/b_frame_device.py: ``b_frame_core``,
-``b_pair_core`` and ``_b_body`` on the CABAC, single-reference-per-list
-path, with the adaptive 8x8 transform and trellis when asked, and the
-col_ref gate on direct when the anchors use several references).
+``b_pair_core`` and ``_b_body`` on the single-reference-per-list path,
+CABAC or CAVLC, with the adaptive 8x8 transform (CABAC only, as in the
+reference) and trellis when asked, and the col_ref gate on direct when
+the anchors use several references).
 
 Temporal direct (8.4.1.2.3) derives every MB's direct mvs from the
 colocated quadrant of the future anchor's motion field, so the whole B
 frame is one batch over all MBs: fullpel ME per list (kernel
 ``kernels/esa16``), subpel refinement, direct / L0 / L1 / bi predictions
 and the SATD + lambda-bits mode decision, the inter residual, the
-intra-in-B I16x16 escape, the per-list MVPs and the CABAC blob.  The
+intra-in-B I16x16 escape, the per-list MVPs and the CABAC blob or the
+CAVLC packed words.  The
 slice signals direct_spatial_mv_pred_flag = 0.
 
 Parity anchors: reference encoder/analyse.c B paths, common/mvpred.c
@@ -26,9 +28,10 @@ from x264_tpu_torch.models.residual import (encode_chroma, encode_i16_luma,
 from x264_tpu_torch.ops import pixel as P
 from x264_tpu_torch.ops import predict as PR
 from x264_tpu_torch.ops import transform as T
+from x264_tpu_torch.ops.cavlc import cavlc_blob, residual_slots
 from x264_tpu_torch.ops.entropy_pack import cabac_blob
 from x264_tpu_torch.ops.header import (B_BI, B_DIRECT, B_L0, B_L1,
-                                       mvp_for_list, shifted)
+                                       header_slots_b, mvp_for_list, shifted)
 from x264_tpu_torch.ops.mc import (hpel_planes, mc_chroma_uv_quad,
                                    mc_luma_qpel_quad, pad_edge)
 from x264_tpu_torch.ops.me import full_search_16x16, subpel_refine
@@ -50,16 +53,19 @@ def _anchors(l0_y, l0_u, l0_v, l1_y, l1_u, l1_v):
 
 def b_frame_core(y, u, v, l0_y, l0_u, l0_v, l1_y, l1_u, l1_v, col_mv,
                  col_intra, dist_scale: int, qp, lam: int, mbw: int,
-                 mbh: int, me_range: int, cqp_off: int, lv_cap: int,
+                 mbh: int, me_range: int, cqp_off: int, lv_cap: int = 0,
                  subpel: int = 2, decimate: bool = True,
-                 t8_mode: bool = False, trellis_tbl=None, col_ref=None):
+                 t8_mode: bool = False, trellis_tbl=None, col_ref=None,
+                 n_words: int = 0):
     """Encode one B frame.  y/u/v uint8 source planes; l0_* / l1_* the
     past and future anchors' recon planes; col_mv (N,4,2) the future
     anchor's quadrant motion field, col_intra (N,) bool its intra MBs;
     dist_scale the temporal-direct DistScaleFactor (8.4.1.2.3); qp int;
     lam int; t8_mode: the adaptive 8x8 transform; trellis_tbl: the
     ``ops/trellis.frame_trellis`` bundle or None; col_ref (N,4) the
-    future anchor's quadrant ref_idx or None.  With multi-reference
+    future anchor's quadrant ref_idx or None; n_words > 0 codes CAVLC
+    into that many words per MB (``host_blob`` = words, nbits, mb_class,
+    mb_cost), else lv_cap sizes the CABAC blob.  With multi-reference
     anchors a colocated quadrant that referenced an older anchor
     (ref_idx > 0) would point temporal direct outside the B slice's
     one-entry list0, so such MBs never choose direct.  Returns the
@@ -72,14 +78,16 @@ def b_frame_core(y, u, v, l0_y, l0_u, l0_v, l1_y, l1_u, l1_v, col_mv,
                    mv0, c0, mv1, c1, mbw=mbw, mbh=mbh, me_range=me_range,
                    cqp_off=cqp_off, lv_cap=lv_cap, subpel=subpel,
                    decimate=decimate, t8_mode=t8_mode,
-                   trellis_tbl=trellis_tbl, col_ref=col_ref)
+                   trellis_tbl=trellis_tbl, col_ref=col_ref,
+                   n_words=n_words)
 
 
 def b_pair_core(ys, us, vs, l0_y, l0_u, l0_v, l1_y, l1_u, l1_v, col_mv,
                 col_intra, dist_scales, qps, lam: int, mbw: int, mbh: int,
-                me_range: int, cqp_off: int, lv_cap: int, subpel: int = 2,
-                decimate: bool = True, t8_mode: bool = False,
-                trellis_tbl=None, col_ref=None):
+                me_range: int, cqp_off: int, lv_cap: int = 0,
+                subpel: int = 2, decimate: bool = True,
+                t8_mode: bool = False, trellis_tbl=None, col_ref=None,
+                n_words: int = 0):
     """Both B frames of a mini-GOP: ys/us/vs the two frames' planes,
     dist_scales/qps their two values, lam and the trellis bundle
     shared.  The padded anchors
@@ -95,14 +103,15 @@ def b_pair_core(ys, us, vs, l0_y, l0_u, l0_v, l1_y, l1_u, l1_v, col_mv,
                     mbw=mbw, mbh=mbh, me_range=me_range, cqp_off=cqp_off,
                     lv_cap=lv_cap, subpel=subpel, decimate=decimate,
                     t8_mode=t8_mode, trellis_tbl=trellis_tbl,
-                    col_ref=col_ref)
+                    col_ref=col_ref, n_words=n_words)
             for i in range(2)]
 
 
 def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
             mv0_fp, cost0_fp, mv1_fp, cost1_fp, mbw: int, mbh: int,
             me_range: int, cqp_off: int, lv_cap: int, subpel: int,
-            decimate: bool, t8_mode: bool, trellis_tbl, col_ref=None):
+            decimate: bool, t8_mode: bool, trellis_tbl, col_ref=None,
+            n_words: int = 0):
     """One B frame from the shared anchor work ``a`` and the frame's
     fullpel ME results."""
     n = mbw * mbh
@@ -163,9 +172,10 @@ def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
                                                    decimate=decimate)
     nnz_deblock = nnz
     t8 = torch.zeros(n, dtype=torch.bool, device=dev)
-    if t8_mode:
+    if t8_mode and not n_words:
         # the P core's true-cost transform size (reference analyse.c
-        # x264_mb_analyse_transform for B slices; CABAC only there too)
+        # x264_mb_analyse_transform for B slices), CABAC only as there:
+        # the CAVLC B header writes the flag as 0
         (t8, recon_y_mbs, ac_zz, nnz, nnz_deblock,
          cbp_l) = select_transform_8x8(src_mbs, pred, qp, lam, recon_y_mbs,
                                        ac_zz, nnz, cbp_l, trellis8=tr8,
@@ -281,9 +291,18 @@ def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
         recon_y=T.mbs_to_plane(recon_y_mbs, mbh, mbw, 16).to(torch.uint8),
         recon_u=T.mbs_to_plane(ru_mbs, mbh, mbw, 8).to(torch.uint8),
         recon_v=T.mbs_to_plane(rv_mbs, mbh, mbw, 8).to(torch.uint8))
-    out["host_blob"] = cabac_blob(
-        luma_dc, ac_zz, cdc, cac, mb_class, out["mvd0"], i16_mode,
-        chroma_mode, cbp_l, cbp_c, qp, mb_cost,
-        torch.zeros(n, dtype=_I32, device=dev), K=lv_cap, bmode=bmode,
-        mvd1=out["mvd1"], t8=t8)
+    if not n_words:
+        out["host_blob"] = cabac_blob(
+            luma_dc, ac_zz, cdc, cac, mb_class, out["mvd0"], i16_mode,
+            chroma_mode, cbp_l, cbp_c, qp, mb_cost,
+            torch.zeros(n, dtype=_I32, device=dev), K=lv_cap, bmode=bmode,
+            mvd1=out["mvd1"], t8=t8)
+        return out
+    res_vals, res_lens = residual_slots(luma_dc, ac_zz, nnz, cdc, cac, cnnz,
+                                        cbp_l, cbp_c, intra_mask, mbw, mbh)
+    hv, hl = header_slots_b(bmode, is_skip, out["mvd0"], out["mvd1"], cbp_l,
+                            cbp_c, qp, t8_mode=t8_mode, intra=intra_mask,
+                            i16_mode=i16_mode, chroma_mode=chroma_mode)
+    out["host_blob"] = cavlc_blob(hv, hl, res_vals, res_lens, n_words,
+                                  (mb_class, mb_cost))
     return out

@@ -2,12 +2,13 @@
 ME on each list0 reference, subpel refinement, explicit weighted
 prediction, luma/chroma MC, residual (the adaptive 8x8 transform and
 trellis when asked), reconstruction, intra-in-P, P_Skip/MVP
-classification and the CABAC blob — over all MBs at once (port of
-x264_tpu/models/inter_device.py: ``p_frame_pipeline`` on the no-PIR
-path, one or more references, with or without weights, P16x16 only or
-with P8x8 partitions, the CABAC branch of ``p_entropy_tail`` and
-``p_frame_core``).  The reference runs the partition path as two device
-programs to dodge a TPU miscompile; here it is one eager pass."""
+classification and the CABAC blob or the CAVLC packed words — over all
+MBs at once (port of x264_tpu/models/inter_device.py:
+``p_frame_pipeline`` on the no-PIR path, one or more references, with
+or without weights, P16x16 only or with P8x8 partitions,
+``p_entropy_tail`` and ``p_frame_core``).  The reference runs the
+partition path as two device programs to dodge a TPU miscompile; here it
+is one eager pass."""
 
 from __future__ import annotations
 
@@ -23,9 +24,11 @@ from x264_tpu_torch.models.weightp import apply_weights
 from x264_tpu_torch.ops import pixel as P
 from x264_tpu_torch.ops import predict as PR
 from x264_tpu_torch.ops import transform as T
+from x264_tpu_torch.ops.cavlc import cavlc_blob, residual_slots
 from x264_tpu_torch.ops.entropy_pack import cabac_blob
 from x264_tpu_torch.ops.header import (MB_PSKIP_D, classify_p,
-                                       classify_p_parts, shifted)
+                                       classify_p_parts, header_slots,
+                                       header_slots_parts, shifted)
 from x264_tpu_torch.ops.mc import mc_chroma_uv, mc_chroma_uv_quad, pad_edge
 from x264_tpu_torch.ops.me import full_search_16x16, subpel_refine
 from x264_tpu_torch.ops.me_parts import (choose_shape, full_search_parts,
@@ -94,19 +97,21 @@ def select_transform_8x8(src_mbs, pred, qp, lam: int, recon4, ac4, nnz4,
 
 def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
                      lam: int, mbw: int, mbh: int, me_range: int,
-                     cqp_off: int, subpel: int, lv_cap: int,
+                     cqp_off: int, subpel: int, lv_cap: int = 0,
                      parts: bool = False, decimate: bool = True,
-                     t8: bool = False, trellis_tbl=None, wts=None):
+                     t8: bool = False, trellis_tbl=None, wts=None,
+                     n_words: int = 0):
     """P-frame pipeline on pre-padded reference planes (PAD luma, PAD//2
     chroma): one reference (H, W) or stacked (K, H, W) in list0 order,
     most recent first.  y/u/v uint8 source planes; qp int or per-MB (N,);
     lam int; parts: P8x8 partitions (16x16/16x8/8x16/8x8 per MB); t8: the
     adaptive 8x8 transform; trellis_tbl: the ``ops/trellis.frame_trellis``
     bundle or None; wts: (K, 2) int32 [weight, offset] per reference
-    (``models/weightp``) or None.  Returns the per-MB syntax tensors
-    (ref_mb each MB's list0 ref_idx), pre-deblock recon planes and the
-    CABAC ``host_blob``; with partitions also shape, mv8, ref8 and
-    mvd_part."""
+    (``models/weightp``) or None; n_words > 0 codes CAVLC into that many
+    words per MB (``host_blob`` = words, nbits, mb_class, mb_cost,
+    icost), else lv_cap sizes the CABAC blob.  Returns the per-MB syntax
+    tensors (ref_mb each MB's list0 ref_idx), pre-deblock recon planes and
+    ``host_blob``; with partitions also shape, mv8, ref8 and mvd_part."""
     if subpel < 1:
         raise NotImplementedError("the fullpel-only P path (subpel=0) is "
                                   "not ported")
@@ -303,17 +308,36 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
         ref8 = ref[:, None].expand(n, 4)
         out.update(shape=shape, mv8=mv8, ref8=ref8, mvd_part=mvd_part)
         blob_parts = dict(shape=shape, mvd_part=mvd_part, ref_part=ref8)
-    out["host_blob"] = cabac_blob(luma_dc, ac_zz, cdc, cac, mb_class, mvd,
-                                  i16_mode, chroma_mode, cbp_l, cbp_c, qp,
-                                  mb_cost, icost, K=lv_cap, t8=t8_flag,
-                                  ref=ref if multi else None, **blob_parts)
+    if not n_words:
+        out["host_blob"] = cabac_blob(luma_dc, ac_zz, cdc, cac, mb_class,
+                                      mvd, i16_mode, chroma_mode, cbp_l,
+                                      cbp_c, qp, mb_cost, icost, K=lv_cap,
+                                      t8=t8_flag, ref=ref if multi else None,
+                                      **blob_parts)
+        return out
+    # CAVLC (p_entropy_tail's CAVLC branch): slot grids and per-MB packing
+    # on the device; the host only merges the N packed strings
+    res_vals, res_lens = residual_slots(luma_dc, ac_zz, nnz, cdc, cac, cnnz,
+                                        cbp_l, cbp_c, intra_mask, mbw, mbh)
+    t8_hdr = t8_flag if t8 else None
+    if parts:
+        hv, hl = header_slots_parts(mb_class, shape, i16_mode, chroma_mode,
+                                    mvd_part, ref8, cbp_l, cbp_c, qp,
+                                    num_ref=n_refs, t8=t8_hdr)
+    else:
+        hv, hl = header_slots(mb_class, i16_mode, chroma_mode, mvd, cbp_l,
+                              cbp_c, qp, is_p_slice=True, ref=ref,
+                              num_ref=n_refs, t8=t8_hdr)
+    out["host_blob"] = cavlc_blob(hv, hl, res_vals, res_lens, n_words,
+                                  (mb_class, mb_cost, icost))
     return out
 
 
 def p_frame_core(y, u, v, ref_y, ref_u, ref_v, qp, lam: int, mbw: int,
                  mbh: int, me_range: int, cqp_off: int, subpel: int,
-                 lv_cap: int, parts: bool = False, decimate: bool = True,
-                 t8: bool = False, trellis_tbl=None, wts=None):
+                 lv_cap: int = 0, parts: bool = False, decimate: bool = True,
+                 t8: bool = False, trellis_tbl=None, wts=None,
+                 n_words: int = 0):
     """Single-chip entry: edge-pad the reference planes (PAD luma, PAD//2
     chroma), one reference (H, W) or stacked (K, H, W) in list0 order,
     then run ``p_frame_pipeline``."""
@@ -322,4 +346,5 @@ def p_frame_core(y, u, v, ref_y, ref_u, ref_v, qp, lam: int, mbw: int,
                             pad_edge(ref_v, PAD // 2), qp, lam, mbw, mbh,
                             me_range, cqp_off, subpel, lv_cap,
                             parts=parts, decimate=decimate, t8=t8,
-                            trellis_tbl=trellis_tbl, wts=wts)
+                            trellis_tbl=trellis_tbl, wts=wts,
+                            n_words=n_words)

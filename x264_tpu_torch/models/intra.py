@@ -1,7 +1,8 @@
-"""I-frame cores with the CABAC blob: the I16x16 wavefront (port of
-x264_tpu/models/intra_device.py::i_frame_core, CABAC branch) and the
-I16x16 / I4x4 / I8x8 wavefront (``i4_frame_core``), with trellis on the
-I16 AC and chroma AC levels when asked.
+"""I-frame cores: the I16x16 wavefront with the CABAC blob or the CAVLC
+packed words (port of x264_tpu/models/intra_device.py::i_frame_core) and
+the I16x16 / I4x4 / I8x8 wavefront with the CABAC blob
+(``i4_frame_core``), with trellis on the I16 AC and chroma AC levels
+when asked.
 
 Intra prediction reads reconstructed neighbours.  With I16x16 only, MBs
 on anti-diagonal d = mbx + mby depend only on earlier diagonals; I4x4
@@ -21,8 +22,9 @@ from x264_tpu_torch.models.residual import (encode_chroma, encode_i16_luma,
                                             trellis_args)
 from x264_tpu_torch.ops import pixel as P
 from x264_tpu_torch.ops import predict as PR
+from x264_tpu_torch.ops.cavlc import cavlc_blob, residual_slots
 from x264_tpu_torch.ops.entropy_pack import cabac_blob
-from x264_tpu_torch.ops.header import MB_I16_D
+from x264_tpu_torch.ops.header import MB_I16_D, header_slots
 from x264_tpu_torch.state import tables
 
 _I32 = torch.int32
@@ -93,12 +95,15 @@ def _chroma(ru, rv, usrc, vsrc, ys, xs, qpc_l, trc):
 
 
 def i_frame_core(y, u, v, qp, mbw: int, mbh: int, cqp_off: int,
-                 lv_cap: int, trellis_tbl=None):
+                 lv_cap: int = 0, trellis_tbl=None, n_words: int = 0):
     """All-device I-frame pipeline.  y/u/v uint8 planes (16mbh x 16mbw);
     qp int or per-MB (N,); trellis_tbl: the ``ops/trellis.frame_trellis``
     bundle (I16 AC, cat 1, and chroma AC, cat 4: x264's trellis=1 intra
-    scope) or None.  Returns the per-MB syntax tensors (raster MB order),
-    the pre-deblock recon planes and ``host_blob``."""
+    scope) or None.  The entropy budget: ``n_words`` > 0 codes CAVLC
+    into that many words per MB (``host_blob`` = words, nbits, mb_class,
+    mb_cost), else ``lv_cap`` sizes the CABAC blob.  Returns the per-MB
+    syntax tensors (raster MB order), the pre-deblock recon planes and
+    ``host_blob``."""
     n = mbw * mbh
     dev = y.device
     qp = qp_per_mb(qp, n, dev)
@@ -154,12 +159,26 @@ def i_frame_core(y, u, v, qp, mbw: int, mbh: int, cqp_off: int,
     out = dict(acc)
     mb_class = torch.full((n,), MB_I16_D, dtype=_I32, device=dev)
     out["mb_class"] = mb_class
-    out["host_blob"] = cabac_blob(
-        acc["luma_dc"], acc["luma_ac"], acc["chroma_dc"], acc["chroma_ac"],
-        mb_class, torch.zeros((n, 2), dtype=_I32, device=dev),
-        acc["i16_mode"], acc["chroma_mode"], acc["cbp_luma"],
-        acc["cbp_chroma"], qp, acc["mb_cost"],
-        torch.zeros(n, dtype=_I32, device=dev), K=lv_cap)
+    zeros2 = torch.zeros((n, 2), dtype=_I32, device=dev)
+    if n_words:
+        # CAVLC: the whole slice body coded and packed per MB on the device
+        res_vals, res_lens = residual_slots(
+            acc["luma_dc"], acc["luma_ac"], acc["luma_nnz"],
+            acc["chroma_dc"], acc["chroma_ac"], acc["chroma_nnz"],
+            acc["cbp_luma"], acc["cbp_chroma"],
+            torch.ones(n, dtype=torch.bool, device=dev), mbw, mbh)
+        hv, hl = header_slots(mb_class, acc["i16_mode"], acc["chroma_mode"],
+                              zeros2, acc["cbp_luma"], acc["cbp_chroma"], qp,
+                              is_p_slice=False)
+        out["host_blob"] = cavlc_blob(hv, hl, res_vals, res_lens, n_words,
+                                      (mb_class, acc["mb_cost"]))
+    else:
+        out["host_blob"] = cabac_blob(
+            acc["luma_dc"], acc["luma_ac"], acc["chroma_dc"],
+            acc["chroma_ac"], mb_class, zeros2, acc["i16_mode"],
+            acc["chroma_mode"], acc["cbp_luma"], acc["cbp_chroma"], qp,
+            acc["mb_cost"], torch.zeros(n, dtype=_I32, device=dev),
+            K=lv_cap)
     out["recon_y"] = ry.to(torch.uint8)
     out["recon_u"] = ru.to(torch.uint8)
     out["recon_v"] = rv.to(torch.uint8)

@@ -1,13 +1,20 @@
-"""P skip / MV-prediction classification (port of
-x264_tpu/ops/device/header.py: ``classify_p`` for P16x16 MBs and
-``classify_p_parts`` for partitioned MBs, each with per-MB refs;
+"""P skip / MV-prediction classification and the CAVLC MB headers (port
+of x264_tpu/ops/device/header.py: ``classify_p`` for P16x16 MBs and
+``classify_p_parts`` for partitioned MBs, each with per-MB refs, the
+per-list ``mvp_for_list`` of B frames, and the header code writers
+``header_slots``, ``header_slots_parts`` and ``header_slots_b``;
 parity: reference common/mvpred.c x264_mb_predict_mv /
-x264_mb_predict_mv_pskip)."""
+x264_mb_predict_mv_pskip, encoder/cavlc.c)."""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from x264_tpu_torch.bitstream.tables import CBP_TO_GOLOMB
 
 MB_P16_D, MB_PSKIP_D = 2, 3   # match models.syntax MB_P16 / MB_PSKIP
 MB_I16_D = 0
@@ -308,3 +315,268 @@ def mvp_for_list(mv, used, mbw: int, mbh: int):
     mvp = torch.where(only_a[..., None], za,
                       torch.where(one[..., None], za + zb + zc, med))
     return mvp.reshape(-1, 2).to(_I32)
+
+
+# ---- CAVLC MB headers (port of x264_tpu/ops/device/header.py:
+# bit_length, ue_codes, se_codes, header_slots, header_slots_parts,
+# header_slots_b; parity: reference encoder/cavlc.c MB header writing) --
+
+HEADER_SLOTS = 9
+HEADER_SLOTS_PARTS = 22
+HEADER_SLOTS_B = 10
+
+
+@functools.lru_cache(maxsize=8)
+def _consts(device: str) -> dict:
+    """The header writers' tables on ``device``, uploaded once (an I
+    core's CUDA graph captures no host-to-device copy)."""
+    return dict(cbp=torch.as_tensor(CBP_TO_GOLOMB.astype(np.int32),
+                                    device=device),
+                nparts=torch.tensor([1, 2, 2, 4], dtype=_I32,
+                                    device=device))
+
+
+def _cbp_codes(cbp_c, cbp_l):
+    """ue(coded_block_pattern) of inter MBs (Table 9-4's mapping)."""
+    cbp = _consts(str(cbp_l.device))["cbp"]
+    return ue_codes(cbp[0, ((cbp_c << 4) | cbp_l).long()])
+
+
+def bit_length(x):
+    """Exact bit_length for 0 <= x < 2^16 via comparisons."""
+    x = x.to(_I32)
+    out = torch.zeros_like(x)
+    for k in range(16):
+        out = out + (x >= (1 << k)).to(_I32)
+    return out
+
+
+def ue_codes(v):
+    vv = v.to(_I32) + 1
+    return vv, 2 * bit_length(vv) - 1
+
+
+def se_codes(v):
+    v = v.to(_I32)
+    return ue_codes(torch.where(v > 0, 2 * v - 1, -2 * v))
+
+
+def _skip_run_codes(coded):
+    """ue(mb_skip_run) before each coded MB: the distance to the previous
+    coded MB less one (a running max of coded MB indices)."""
+    n = coded.shape[0]
+    idx = torch.arange(n, dtype=_I32, device=coded.device)
+    run_max = torch.cummax(torch.where(coded, idx, -1), dim=0).values
+    prev_coded = F.pad(run_max[:-1], (1, 0), value=-1)
+    v, ln = ue_codes(idx - prev_coded - 1)
+    return v, torch.where(coded, ln, 0)
+
+
+def _qp_delta_codes(emits, qp_mb):
+    """se(mb_qp_delta), chained over the MBs that carry one."""
+    n = emits.shape[0]
+    qp = qp_mb.to(_I32)
+    ordn = torch.cumsum(emits.to(_I32), dim=0) - 1
+    qp_compact = torch.zeros(n + 1, dtype=_I32, device=qp.device).scatter_(
+        0, torch.where(emits, ordn, n).long(), qp)[:n]
+    prev_qp = torch.where(ordn > 0, qp_compact[(ordn - 1).clamp(min=0)],
+                          qp[0])
+    delta = qp - prev_qp
+    delta = torch.where(delta > 25, delta - 52,
+                        torch.where(delta < -26, delta + 52, delta))
+    v, ln = se_codes(delta)
+    return v, torch.where(emits, ln, 0)
+
+
+def _ref_codes(ref, num_ref: int):
+    """te(ref_idx): one inverted bit at num_ref 2, ue() beyond."""
+    r = ref.to(_I32)
+    if num_ref == 2:
+        return 1 - r, torch.ones_like(r)
+    return ue_codes(r)
+
+
+def _stack(hv, hl):
+    return (torch.stack(hv, dim=1).to(_I32),
+            torch.stack(hl, dim=1).to(_I32))
+
+
+def header_slots(mb_class, i16_mode, chroma_mode, mvd, cbp_luma, cbp_chroma,
+                 qp_mb, is_p_slice: bool, ref=None, num_ref: int = 1,
+                 t8=None):
+    """Per-MB header codes [skip_run, mb_type, chroma_mode, ref_idx,
+    mvd_x, mvd_y, cbp, transform_size_8x8_flag, qp_delta] -> (hvals,
+    hlens) (N,9) int32 (I16/P16/PSKIP classes).  ref_idx is te()-coded:
+    absent at num_ref 1, a single !ref bit at num_ref 2, ue(ref) beyond.
+    t8 (N,) bool or None: the flag bit is written for inter MBs with
+    CodedBlockPatternLuma > 0 (7.3.5)."""
+    n = mb_class.shape[0]
+    dev = mb_class.device
+    skip = mb_class == MB_PSKIP_D
+    coded = ~skip
+    intra = mb_class == MB_I16_D
+    p16 = mb_class == MB_P16_D
+    cbp_l = cbp_luma.to(_I32)
+    cbp_c = cbp_chroma.to(_I32)
+    zero = torch.zeros(n, dtype=_I32, device=dev)
+    hv = [zero] * HEADER_SLOTS
+    hl = [zero] * HEADER_SLOTS
+
+    if is_p_slice:
+        hv[0], hl[0] = _skip_run_codes(coded)
+
+    mb_type = torch.where(intra, 1 + i16_mode.to(_I32) + 4 * cbp_c
+                          + 12 * (cbp_l != 0), 0)
+    if is_p_slice:
+        mb_type = mb_type + 5 * intra
+    v, ln = ue_codes(mb_type)
+    hv[1], hl[1] = v, torch.where(coded, ln, 0)
+
+    v, ln = ue_codes(chroma_mode)
+    hv[2], hl[2] = torch.where(intra, v, 0), torch.where(intra, ln, 0)
+
+    if num_ref > 1 and ref is not None:
+        v, ln = _ref_codes(ref, num_ref)
+        hv[3], hl[3] = torch.where(p16, v, 0), torch.where(p16, ln, 0)
+
+    for c in range(2):
+        v, ln = se_codes(mvd[:, c])
+        hv[4 + c] = torch.where(p16, v, 0)
+        hl[4 + c] = torch.where(p16, ln, 0)
+
+    v, ln = _cbp_codes(cbp_c, cbp_l)
+    hv[6], hl[6] = torch.where(p16, v, 0), torch.where(p16, ln, 0)
+
+    if t8 is not None:
+        on = p16 & (cbp_l > 0)
+        hv[7] = torch.where(on, t8.to(_I32), 0)
+        hl[7] = on.to(_I32)
+
+    emits = coded & ((cbp_l != 0) | (cbp_c != 0) | intra)
+    hv[8], hl[8] = _qp_delta_codes(emits, qp_mb)
+    return _stack(hv, hl)
+
+
+def header_slots_parts(mb_class, shape, i16_mode, chroma_mode, mvd_part,
+                       ref_part, cbp_luma, cbp_chroma, qp_mb,
+                       num_ref: int = 1, t8=None):
+    """Per-MB CAVLC header codes for partitioned P slices (7.3.5/7.3.5.1
+    emission order): [skip_run, mb_type, chroma_mode, sub_mb_type x4,
+    ref x4, (mvd_x, mvd_y) x4, cbp, t8_flag, qp_delta] -> (N, 22).
+    shape (N,) 0..3 (the inter mb_type ue value; P_8x8ref0 when every
+    quadrant is on ref 0, x264's cavlc.c rule); mvd_part (N,4,2) in
+    partition-slot order; ref_part (N,4).  Slots a shape does not use get
+    length 0.  Parity: reference encoder/cavlc.c cavlc_mb_header_p."""
+    n = mb_class.shape[0]
+    dev = mb_class.device
+    skip = mb_class == MB_PSKIP_D
+    coded = ~skip
+    intra = mb_class == MB_I16_D
+    p_inter = coded & ~intra
+    cbp_l = cbp_luma.to(_I32)
+    cbp_c = cbp_chroma.to(_I32)
+    nparts = _consts(str(dev))["nparts"][shape.long()]
+    zero = torch.zeros(n, dtype=_I32, device=dev)
+    hv = [zero] * HEADER_SLOTS_PARTS
+    hl = [zero] * HEADER_SLOTS_PARTS
+
+    hv[0], hl[0] = _skip_run_codes(coded)
+
+    use_ref0 = (shape == 3) & (ref_part == 0).all(-1)
+    mb_type = torch.where(
+        intra, 5 + 1 + i16_mode.to(_I32) + 4 * cbp_c + 12 * (cbp_l != 0),
+        torch.where(use_ref0, 4, shape.to(_I32)))
+    v, ln = ue_codes(mb_type)
+    hv[1], hl[1] = v, torch.where(coded, ln, 0)
+
+    v, ln = ue_codes(chroma_mode)
+    hv[2], hl[2] = torch.where(intra, v, 0), torch.where(intra, ln, 0)
+
+    # sub_mb_type: P_L0_8x8 only -> ue(0), a single "1" bit, x4
+    is8 = (p_inter & (shape == 3)).to(_I32)
+    for k in range(4):
+        hv[3 + k], hl[3 + k] = is8, is8
+
+    if num_ref > 1:
+        write_ref = p_inter & ~use_ref0
+        for k in range(4):
+            live = write_ref & (k < nparts)
+            v, ln = _ref_codes(ref_part[:, k], num_ref)
+            hv[7 + k] = torch.where(live, v, 0)
+            hl[7 + k] = torch.where(live, ln, 0)
+
+    for k in range(4):
+        live = p_inter & (k < nparts)
+        for c in range(2):
+            v, ln = se_codes(mvd_part[:, k, c])
+            hv[11 + 2 * k + c] = torch.where(live, v, 0)
+            hl[11 + 2 * k + c] = torch.where(live, ln, 0)
+
+    v, ln = _cbp_codes(cbp_c, cbp_l)
+    hv[19], hl[19] = torch.where(p_inter, v, 0), torch.where(p_inter, ln, 0)
+
+    if t8 is not None:
+        on = p_inter & (cbp_l > 0)
+        hv[20] = torch.where(on, t8.to(_I32), 0)
+        hl[20] = on.to(_I32)
+
+    emits = coded & ((cbp_l != 0) | (cbp_c != 0) | intra)
+    hv[21], hl[21] = _qp_delta_codes(emits, qp_mb)
+    return _stack(hv, hl)
+
+
+def header_slots_b(bmode, is_skip, mvd0, mvd1, cbp_luma, cbp_chroma, qp_mb,
+                   t8_mode: bool = False, intra=None, i16_mode=None,
+                   chroma_mode=None):
+    """Per-MB B-slice header codes (one ref per list, 16x16 partitions):
+    [skip_run, mb_type, chroma_mode, mvd0x, mvd0y, mvd1x, mvd1y, cbp,
+    transform_size_8x8_flag, qp_delta] -> (N,10) int32.  bmode (N,) in
+    {B_DIRECT, B_L0, B_L1, B_BI}; is_skip (N,) bool (direct, no
+    residual); intra (N,) bool or None: I_16x16 escapes (mb_type 23 +
+    the I-slice code, then intra_chroma_pred_mode; no cbp element, no
+    mvds).  t8_mode: the PPS advertises transform_8x8_mode, so every
+    coded-luma inter MB carries the flag bit, written 0 (B MBs use the
+    4x4 transform with CAVLC, as in the reference)."""
+    n = bmode.shape[0]
+    dev = bmode.device
+    coded = ~is_skip
+    if intra is None:
+        intra = torch.zeros(n, dtype=torch.bool, device=dev)
+    inter = coded & ~intra
+    cbp_l = cbp_luma.to(_I32)
+    cbp_c = cbp_chroma.to(_I32)
+    zero = torch.zeros(n, dtype=_I32, device=dev)
+    hv = [zero] * HEADER_SLOTS_B
+    hl = [zero] * HEADER_SLOTS_B
+    if t8_mode:
+        hl[8] = (inter & (cbp_l > 0)).to(_I32)
+
+    hv[0], hl[0] = _skip_run_codes(coded)
+
+    mb_type = bmode.to(_I32)
+    if i16_mode is not None:
+        mb_type = torch.where(intra, 23 + 1 + i16_mode.to(_I32) + 4 * cbp_c
+                              + 12 * (cbp_l != 0), mb_type)
+    v, ln = ue_codes(mb_type)
+    hv[1], hl[1] = v, torch.where(coded, ln, 0)
+
+    if chroma_mode is not None:
+        v, ln = ue_codes(chroma_mode)
+        hv[2], hl[2] = torch.where(intra, v, 0), torch.where(intra, ln, 0)
+
+    use0 = inter & ((bmode == B_L0) | (bmode == B_BI))
+    use1 = inter & ((bmode == B_L1) | (bmode == B_BI))
+    for c in range(2):
+        v, ln = se_codes(mvd0[:, c])
+        hv[3 + c], hl[3 + c] = (torch.where(use0, v, 0),
+                                torch.where(use0, ln, 0))
+        v, ln = se_codes(mvd1[:, c])
+        hv[5 + c], hl[5 + c] = (torch.where(use1, v, 0),
+                                torch.where(use1, ln, 0))
+
+    v, ln = _cbp_codes(cbp_c, cbp_l)
+    hv[7], hl[7] = v, torch.where(inter, ln, 0)
+
+    emits = coded & ((cbp_l != 0) | (cbp_c != 0) | intra)
+    hv[9], hl[9] = _qp_delta_codes(emits, qp_mb)
+    return _stack(hv, hl)
