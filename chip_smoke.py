@@ -15,7 +15,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      24 (the three-reference run's) and 16 (the main path's, the one
      recorded), the partition kernel's
      16x16 unit against esa16, their bound's operation rate the lower of
-     the nominal one and the one the probe esa_sad_probe measures; the
+     the nominal one and the one the probe esa_sad_probe measures; both
+     again at the lookahead's shape (lowres 960x544 planes, 60x34 MBs,
+     range 8, lambda sad_lambda(24)) with the launch alone and the
+     bound, and one plan's 8 pair searches (ROADMAP B9); the
      deblock kernel (one launch for Y, Cb and Cr) on the recon planes and
      bS grids of an encoded P8x8 frame, with both terms of its bound
      (bytes, and the dependent chain timed by a probe kernel); the trellis
@@ -26,7 +29,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      at the card's FP32 rate; the I4x4/I8x8 core on the first frame,
      eager against its CUDA graph (capture and replay ms), and the NxN
      candidate kernel against its twin on every knight step of that IDR,
-     with t8_mode on and off, with its bound and one MB's chain; the
+     with t8_mode on and off, with its bound and one MB's chain; under
+     AQ mode 1's QP map of a 1080p frame, the NxN kernel against its
+     twin on every knight step and inside the I4 core's graph, and the
+     trellis kernel on a P frame's blockings; the
      CAVLC block coder (cavlc_blocks) and bit packer (bitpack) on the
      slot grids of a 1080p P8x8 frame and a B frame, the packer at both
      word rungs, with the launch alone and the bound; the registers,
@@ -44,7 +50,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      8x8 transform, trellis, I4x4, range 24: the slower preset without
      aq_mode), then bench.py's GOP again with CAVLC (cabac=False, so no
      trellis and no I4x4: the library's default entropy coder, every
-     core's slice body coded and packed on the card); fps, bytes,
+     core's slice body coded and packed on the card), then 36 frames of
+     x264's medium preset at CRF 23 with AQ, MB-tree and b_adapt=1
+     (scenecut 40, a hard cut at frame 30: the lookahead's lowres
+     scenecut, plans and MB-tree, with its host ms per frame and the
+     ESA launches it adds); fps, bytes,
      Y-PSNR, the partition shapes chosen, the share
      of 8x8-transform MBs, the P frames with a non-neutral weight, the
      esa_parts launches of each P frame (one per active reference) and
@@ -58,9 +68,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      on a B pair, with I4x4 on I/P8x8 (two IDRs), and on a fading clip
      with weightp=1 on several references (P16 on three, P8x8 with the
      tools on two, B frames on P8x8 anchors on two), each with a
-     non-neutral weight and MBs on ref_idx > 0, and with CAVLC: I/P16 at
+     non-neutral weight and MBs on ref_idx > 0, with CAVLC: I/P16 at
      QP 26 and I/B/P8x8 with the 8x8 transform and weightp=1 on two
-     references.
+     references, and the medium preset at CRF 23 with AQ, MB-tree and
+     b_adapt, and CAVLC with AQ on I/B/P8x8.
 Every I frame's core on the card is a CUDA graph replay
 (x264_tpu_torch/models/graph.py).
 The line before the last is the kernels' JSON record; the last line is
@@ -91,6 +102,7 @@ FP32_FLOPS_PER_S = 67e12     # H100 SXM, published, outside the tensor cores
 INT32_LANES_PER_SM = 64      # sm_90 integer add / min / sad per clock
 TOOLS = dict(transform_8x8=True, trellis=1)   # bench.py's, ported in A8
 MULTIREF_FRAMES = 6          # the 1080p run on three references
+LA_FRAMES, LA_CUT = 36, 30   # the 1080p medium-CRF run and its scene cut
 
 
 def make_clip(n: int):
@@ -113,6 +125,14 @@ def make_clip(n: int):
         v = (128 + 32 * np.cos((yy[::2, ::2] + dy) / 59.0)).astype(np.uint8)
         frames.append((y, u, v))
     return frames
+
+
+def cut_clip(n: int, cut: int):
+    """make_clip's first n frames with a hard cut: from frame ``cut`` on,
+    the luma inverted and the chroma planes swapped (another scene, as
+    smooth as the first, so the lowres scenecut sees it)."""
+    return [f if t < cut else (255 - f[0], f[2], f[1])
+            for t, f in enumerate(make_clip(n))]
 
 
 def split_motion_clip(w: int, h: int, n: int):
@@ -419,8 +439,9 @@ def _trellis_launches(n_i: int, n_p: int, n_b: int, i4: bool = False) -> int:
     return 2 * steps * n_i + 5 * (n_p + n_b)
 
 
-def _trellis_p_shapes(clip) -> tuple:
-    """lam2f and the three trellis calls of a 1080p P frame at QP 26,
+def _trellis_p_shapes(clip, qp_mb=None) -> tuple:
+    """lam2f and the three trellis calls of a 1080p P frame at QP 26 (the
+    dequantisation at the per-MB QPs qp_mb when given, the tables at 26),
     [(name, coefficients, dq, tables, nc)]: 4x4 luma (130560 blocks of
     16), 8x8 luma (32640 of 64) and chroma AC (65280 of 15).  The input
     is the luma difference of frames 1 and 0 (the clip's chroma is too
@@ -440,7 +461,8 @@ def _trellis_p_shapes(clip) -> tuple:
     luma = T.plane_to_mbs(res, mbh, mbw, 16)
     c4 = T.zigzag(T.dct4x4(T.mb_luma_to_blocks(luma))).reshape(n * 16, 16)
     c8 = T.zigzag8(T.dct8x8(T.mb_luma_to_blocks8(luma))).reshape(n * 4, 64)
-    q = torch.full((n,), QP, dtype=torch.int32, device=dev)
+    q = torch.full((n,), QP, dtype=torch.int32, device=dev) \
+        if qp_mb is None else qp_mb
     tbl4, tbl8, lam2f, _, tblc = frame_trellis(QP, "P", me_lambda(QP), True)
     return lam2f, [
         ("4x4 luma", c4, dq1_4x4(q.repeat_interleave(16)), tbl4, 16),
@@ -1458,6 +1480,377 @@ def _check_small_cavlc() -> None:
               f"{launches}")
 
 
+def _medium_params(w: int, h: int, **kw):
+    """x264's medium preset (the port's param_default_preset: bframes 2,
+    P8x8, I4x4, the 8x8 transform, trellis, weightp=1, range 16, CABAC)
+    at CRF 23 with AQ mode 1, MB-tree and b_adapt=1; scenecut 40,
+    keyint_min 25 and rc_lookahead 8 are its defaults."""
+    from x264_tpu_torch.params import RC_CRF, param_default_preset
+    return param_default_preset("medium").clone(
+        width=w, height=h, rc_method=RC_CRF, crf=23.0, aq_mode=1,
+        mbtree=True, b_adapt=1, **kw)
+
+
+def _aq_map(frame) -> np.ndarray:
+    """The AQ mode-1 QP map of a frame at QP 26, as the encoder's _aq_qp
+    makes it: (N,) int32."""
+    from x264_tpu_torch.rc import aq_offsets
+    y, u, v = (_pad_to_mb(p, s) for p, s in zip(frame, (16, 8, 8)))
+    off = aq_offsets(y, u, v, y.shape[1] // 16, y.shape[0] // 16, 1.0,
+                     mode=1)
+    return np.clip(QP + np.round(off).astype(np.int64), 10, 51
+                   ).astype(np.int32)
+
+
+def _lowres_esa_phase(clip, esa_rate: float) -> None:
+    """esa16 and esa_parts at the lookahead's shape: lowres planes of two
+    1080p frames (models/lookahead.lowres_plane: 960x544, 60x34 lowres
+    MBs), range 8, lambda sad_lambda(24); bit-exact against their plain
+    twins, ms through the wrapper and for the launch alone, and the bound
+    (_esa_bound_ms).  Then one plan's pair searches (bframes 2: three
+    queued frames, 8 pairs; models/lookahead._pair_costs, one esa16
+    launch per pair): ms per plan and per pair, ROADMAP B9's number."""
+    import torch
+    from x264_tpu_torch.kernels import esa16 as KE, esa_parts as KP
+    from x264_tpu_torch.models import lookahead as LA
+    from x264_tpu_torch.ops.mc import pad_edge
+    from x264_tpu_torch.state import PAD, sad_lambda
+    dev = torch.device("cuda")
+    lrs = [LA.lowres_plane(torch.from_numpy(_pad_to_mb(f[0], 16)).to(dev))
+           for f in clip[:4]]
+    h, w = lrs[0].shape
+    mbw, mbh = w // 16, h // 16
+    if (w, h) != (960, 544):
+        raise AssertionError(f"lowres plane {w}x{h}, not 960x544")
+    lam, r = sad_lambda(LA._LOOKAHEAD_QP), LA._RANGE
+    src, ref_pad = lrs[1], pad_edge(lrs[0], PAD)
+    mv_k, cost_k = KE.full_search_16x16(src, ref_pad, lam, r, mbw, mbh)
+    mv_p, cost_p = KE.full_search_16x16_plain(src, ref_pad, lam, r, mbw,
+                                              mbh)
+    units_k = KP.full_search_parts(src, ref_pad, lam, r, mbw, mbh)
+    units_p = KP.full_search_parts_plain(src, ref_pad, lam, r, mbw, mbh)
+    errs = {"esa16": max(_max_err(mv_k, mv_p), _max_err(cost_k, cost_p)),
+            "esa_parts": max(_max_err(units_k[k], units_p[k])
+                             for k in units_p)}
+    if any(errs.values()):
+        raise AssertionError(f"lowres ESA kernels disagree with their "
+                             f"plain twins: {errs}")
+    times = {
+        "esa16": _time_ms(lambda: KE.full_search_16x16(
+            src, ref_pad, lam, r, mbw, mbh), 20),
+        "esa_parts": _time_ms(lambda: KP.full_search_parts(
+            src, ref_pad, lam, r, mbw, mbh), 20)}
+    alone = {name: _time_ms(KE.esa_launcher(
+        name, shapes, src, ref_pad, lam, r, mbw, mbh)[0], 50)
+        for name, shapes in (("esa16", KE.OUT_SHAPES),
+                             ("esa_parts", KP.OUT_SHAPES))}
+    plain = {"esa16": _time_ms(lambda: KE.full_search_16x16_plain(
+        src, ref_pad, lam, r, mbw, mbh), 3),
+        "esa_parts": _time_ms(lambda: KP.full_search_parts_plain(
+            src, ref_pad, lam, r, mbw, mbh), 3)}
+    bounds = {"esa16": _esa_bound_ms(src, ref_pad, r, 1, 3, esa_rate),
+              "esa_parts": _esa_bound_ms(src, ref_pad, r, 9, 27, esa_rate)}
+    for name in times:
+        print(f"{name} at the lookahead's shape ({w}x{h} lowres, {mbw}x{mbh}"
+              f" MBs, r = {r}, lambda {lam}): bit-exact, {times[name]:.4f} "
+              f"ms through the wrapper (its launch alone {alone[name]:.4f} "
+              f"ms; plain {plain[name]:.3f} ms), bound "
+              f"{bounds[name][0]:.4f} ms by {bounds[name][1]}")
+    stack = torch.stack(lrs)
+    pairs = ((1, 0), (2, 1), (3, 2), (2, 0), (3, 0), (1, 2), (1, 3), (2, 3))
+    plan_ms = _time_ms(lambda: LA._pair_costs(stack, pairs, mbw, mbh), 10)
+    print(f"B9: one plan's {len(pairs)} pair searches (_pair_costs, "
+          f"bframes 2) {plan_ms:.4f} ms, {plan_ms / len(pairs):.4f} ms per "
+          f"pair (the padding and the esa16 wrapper); the {len(pairs)} "
+          f"launches alone {len(pairs) * alone['esa16']:.4f} ms, bound "
+          f"{len(pairs) * bounds['esa16'][0]:.4f} ms")
+
+
+def _aq_kernel_phase(clip) -> None:
+    """intra_nxn and trellis under a non-uniform QP map, AQ mode 1's on a
+    1080p clip frame (_aq_map).  The I4x4/I8x8 core of frame 0 (the 8x8
+    transform and trellis: the B-GOP run's graph key) runs eagerly with
+    every knight step's NxN call checked: the kernel on copies of the
+    state against the plain twin, which carries the state on; then the
+    core's CUDA graph, replayed on the same map, equals that eager core in
+    every field.  Then the trellis kernel in every layout against its
+    twin on the three blockings of a P frame (_trellis_p_shapes) with
+    the dequantisation of frame 1's QP map."""
+    import torch
+    import x264_tpu_torch.models.intra as MI
+    from x264_tpu_torch.kernels import intra_nxn as KN
+    from x264_tpu_torch.models.graph import run_core
+    from x264_tpu_torch.ops.trellis import frame_trellis, trellis_quant_plain
+    from x264_tpu_torch.state import me_lambda, sad_lambda
+    dev = torch.device("cuda")
+    mbw, mbh = (W + 15) // 16, (H + 15) // 16
+    qp_np = _aq_map(clip[0])
+    if qp_np.min() == qp_np.max():
+        raise AssertionError("AQ gave a uniform QP map")
+    print(f"AQ mode 1 QP map of 1080p frame 0 at QP {QP}: {qp_np.min()}-"
+          f"{qp_np.max()}, {len(np.unique(qp_np))} distinct values, "
+          f"{float((qp_np != QP).mean()):.4f} of the MBs off QP {QP}")
+    qp = torch.from_numpy(qp_np).to(dev)
+    planes = [torch.from_numpy(_pad_to_mb(p, s)).to(dev)
+              for p, s in zip(clip[0], (16, 8, 8))]
+    lam = sad_lambda(QP)
+    tt = frame_trellis(QP, "I", me_lambda(QP), True)
+    kw = dict(mbw=mbw, mbh=mbh, cqp_off=0, lv_cap=96, t8_mode=True)
+    seen = dict(steps=0, err=0)
+
+    def checked(ry, grid, ysrc, q, lam_t, d, mbw_, mbh_, t8):
+        kry, kgrid = ry.clone(), grid.clone()
+        got = KN.nxn_candidates_(kry, kgrid, ysrc, q, lam_t, d, mbw_, mbh_,
+                                 t8)
+        want = KN.nxn_candidates_plain(ry, grid, ysrc, q, lam_t, d, mbw_,
+                                       mbh_, t8)
+        seen["err"] = max([seen["err"], _max_err(kry, ry),
+                           _max_err(kgrid, grid)]
+                          + [_max_err(got[k], want[k]) for k in want
+                             if want[k] is not None])
+        seen["steps"] += 1
+        return want
+
+    real = MI.nxn_candidates
+    MI.nxn_candidates = checked
+    try:
+        eager = MI.i4_frame_core(*planes, qp, lam, trellis_tbl=tt, **kw)
+    finally:
+        MI.nxn_candidates = real
+    steps = mbw + 2 * mbh - 2
+    if seen["err"] or seen["steps"] != steps:
+        raise AssertionError(f"intra_nxn under the AQ map: max err "
+                             f"{seen['err']} over {seen['steps']} steps")
+    out = run_core(MI.i4_frame_core, *planes, qp, lam, trellis_tbl=tt, **kw)
+    bad = [k for k in eager if not torch.equal(eager[k], out[k])]
+    if bad or not torch.equal(out["qp_mb"], qp):
+        raise AssertionError(f"I4 graph under the AQ map != the eager core "
+                             f"with the plain NxN twin in {bad}")
+    hist = np.bincount((out["mb_class"] + out["t8"]).cpu().numpy(),
+                       minlength=3)
+    print(f"intra_nxn under the AQ map: bit-exact against its plain twin on "
+          f"all {steps} knight steps of the eager I4x4/I8x8 core; the "
+          f"core's CUDA graph replayed on the map == that core in every "
+          f"field (MBs I16 {hist[0]}, I4x4 {hist[1]}, I8x8 {hist[2]})")
+    qp_p = _aq_map(clip[1])
+    lam2f, shapes = _trellis_p_shapes(clip, torch.from_numpy(qp_p).to(dev))
+    for name, c, dq, tbl, nc in shapes:
+        lv_p = trellis_quant_plain(c, dq, lam2f, tbl, nc)
+        err = max(_max_err(fn(c, dq, lam2f, tbl, nc), lv_p)
+                  for fn in _trellis_calls().values())
+        nz = int((lv_p != 0).sum())
+        if err or not nz:
+            raise AssertionError(f"trellis {name} under the AQ map: max err "
+                                 f"{err}, {nz} nonzero levels")
+        print(f"trellis {name} under frame 1's AQ map (QP {qp_p.min()}-"
+              f"{qp_p.max()}): {c.shape[0]} blocks x {nc}, bit-exact in "
+              f"every layout, {nz} nonzero levels")
+
+
+def _lookahead_spies(enc, synced: bool):
+    """Wrap the lookahead's host steps of ``enc``: AQ (_aq_qp, which runs
+    aq_offsets), the lowres scenecut, Lookahead.plan, lowres_stats8 and
+    MB-tree's propagate.  Each call appends (ms, the esa16 and esa_parts
+    launches it made, its result when an int: a plan's m) to
+    log[step]; with ``synced`` the card is synchronised before and after
+    each call, so its ms holds its device work.  Returns (log, restore):
+    restore() puts the module functions back."""
+    import torch
+    import x264_tpu_torch.api as api
+    import x264_tpu_torch.models.mbtree as MT
+    from x264_tpu_torch.kernels import LAUNCHES
+    log = {}
+
+    def wrap(name, fn):
+        def run(*a, **k):
+            if synced:
+                torch.cuda.synchronize()
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if synced:
+                torch.cuda.synchronize()
+            log.setdefault(name, []).append((
+                1000 * (time.perf_counter() - t0),
+                {x: LAUNCHES[x] - before[x] for x in ("esa16", "esa_parts")},
+                out if isinstance(out, int) else None))
+            return out
+        return run
+
+    enc._aq_qp = wrap("aq_offsets", enc._aq_qp)
+    enc._lowres_scenecut = wrap("lowres scenecut", enc._lowres_scenecut)
+    la = enc._lookahead()
+    la.plan = wrap("plan", la.plan)
+    saved = api.lowres_stats8, MT.propagate
+    api.lowres_stats8 = wrap("lowres_stats8", api.lowres_stats8)
+    MT.propagate = wrap("propagate", MT.propagate)
+
+    def restore():
+        api.lowres_stats8, MT.propagate = saved
+    return log, restore
+
+
+def _run_1080p_medium(records):
+    """The medium-preset main path (counts reset just before, read just
+    after): _medium_params at 1080p on cut_clip (LA_FRAMES frames, a hard
+    cut to another scene at LA_CUT, past keyint_min 25), so AQ, the
+    lowres scenecut, b_adapt's plans and MB-tree all run.  Prints the
+    frame types, each plan's m, the QP range per frame type, bytes,
+    kbit/frame, Y-PSNR (every frame decodes to its recon: full_recon is
+    on), fps over the frames after the first IDR, the esa16 and esa_parts
+    launches the lookahead adds; then from a second run with the card
+    synchronised around each step, the host ms per frame of aq_offsets,
+    the lowres scenecut, plan, lowres_stats8 and propagate, and the ms
+    per I, P and B frame."""
+    import torch
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    clip = cut_clip(LA_FRAMES, LA_CUT)
+    enc = Encoder(_medium_params(W, H), device="cuda")
+    recons = {}
+    enc.recon_hook = recons.__setitem__
+    qps = []
+    submit = enc._submit_device
+
+    def qp_spy(*a, **kw):
+        job = submit(*a, **kw)
+        q = np.atleast_1d(job["qp_arr"])
+        qps.append((job["ftype"], int(q.min()), int(q.max())))
+        return job
+    enc._submit_device = qp_spy
+    log, restore = _lookahead_spies(enc, synced=False)
+    stream, times, sizes = b"", [], []
+    torch.cuda.synchronize()
+    x264_tpu_torch.reset_launch_counts()
+    try:
+        for y, u, v in clip:
+            t0 = time.perf_counter()
+            data = enc.encode(Frame420(y, u, v))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            sizes.append(len(data))
+            stream += data
+        t0 = time.perf_counter()
+        stream += enc.flush()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    finally:
+        restore()
+    launches = x264_tpu_torch.launch_counts()
+    print(f"launches in the 1080p medium-CRF run: {launches}")
+    for r in records:
+        r["launches"] += launches[r["name"]]
+    types = [s.frame_type for s in enc.stats]
+    plans = [m for _, _, m in log.get("plan", [])]
+    n = len(clip)
+    steps = (W + 15) // 16 + 2 * ((H + 15) // 16) - 2
+    la_launch = {k: {x: sum(c[1][x] for c in v) for x in ("esa16",
+                                                          "esa_parts")}
+                 for k, v in log.items()}
+    cut_idr = types.count("IDR") > 1
+    if len(types) != n or types[0] != "IDR" or \
+            not (cut_idr or any(m < 2 for m in plans)) or \
+            launches["deblock"] != n or not launches["trellis"] or \
+            not launches["intra_nxn"] or launches["intra_nxn"] % steps or \
+            launches["cavlc_blocks"] or launches["bitpack"] or \
+            la_launch.get("lowres_stats8", {}).get("esa_parts") != n - 1 \
+            or la_launch.get("plan", {}).get("esa16") != 8 * len(plans):
+        raise AssertionError(f"medium CRF: frame types {types}, plans "
+                             f"{plans}, launches {launches}, lookahead "
+                             f"launches {la_launch}")
+    first = next(i for i, s in enumerate(sizes) if s)
+    tail = times[first + 1:]
+    byt = {}
+    for t, lo, hi in qps + [("B", s.qp, s.qp) for s in enc.stats
+                            if s.frame_type == "B"]:
+        a = byt.setdefault(t, [lo, hi])
+        a[0], a[1] = min(a[0], lo), max(a[1], hi)
+    psnr = _check_recon("medium CRF", stream, recons, clip)
+    print(f"1080p medium CRF 23 (AQ 1, MB-tree, b_adapt=1, scenecut 40) x"
+          f"{n}, cut at {LA_CUT}: frame types (coded order) "
+          f"{' '.join(types)}; plans m = {plans}; QP range per frame type "
+          + ", ".join(f"{t} {lo}-{hi}" for t, (lo, hi) in byt.items())
+          + f"; {len(stream)} bytes, {len(stream) * 8 / n / 1000:.1f} "
+          f"kbit/frame, mean Y-PSNR {psnr:.3f} dB; "
+          f"{(n - 1) / sum(tail):.3f} fps over display 1-{n - 1} (the "
+          f"encode() calls after the one that coded the first IDR, call "
+          f"{first}, flush included)")
+    print("medium CRF encode() ms: "
+          + " ".join(f"{1000 * t:.1f}" for t in times))
+    print(f"lookahead launches in the medium CRF run: "
+          + ", ".join(f"{k} esa16 {v['esa16']} esa_parts {v['esa_parts']}"
+                      for k, v in la_launch.items())
+          + f" (of esa16 {launches['esa16']}, esa_parts "
+          f"{launches['esa_parts']} in the run)")
+    stage = {}
+    enc = Encoder(_medium_params(W, H), device="cuda")
+    _timed_stages(enc, stage)
+    log, restore = _lookahead_spies(enc, synced=True)
+    try:
+        for y, u, v in clip:
+            enc.encode(Frame420(y, u, v))
+        enc.flush()
+    finally:
+        restore()
+    types2 = [s.frame_type for s in enc.stats]
+    if types2 != types:
+        raise AssertionError(f"medium CRF second run: types {types2}")
+    print("1080p medium CRF host ms (second run, the card synchronised "
+          "around each call): " + "; ".join(
+              f"{k} {sum(c[0] for c in v) / n:.2f} per frame ({len(v)} "
+              f"calls, {sum(c[0] for c in v) / len(v):.2f} each)"
+              for k, v in log.items()))
+
+    def ms(ftype, *names):
+        calls = [t for nm in names for t in stage.get((nm, ftype), [])]
+        return sum(calls) / max(1, types.count(ftype))
+    print("1080p medium CRF ms per frame (second run, stage-synced): "
+          + ", ".join(
+              f"{f} {ms(k, sub, fin):.1f} (submit {ms(k, sub):.1f}, "
+              f"finalize {ms(k, fin):.1f})"
+              for f, k, sub, fin in (
+                  ("I", "IDR", "_submit_anchor", "_finalize_device"),
+                  ("P", "P", "_submit_anchor", "_finalize_device"),
+                  ("B", "B", "_submit_b_pair", "_finalize_b"))))
+
+
+def _check_small_lookahead() -> None:
+    """352x288 card stream == CPU stream for the medium preset at CRF 23
+    with AQ, MB-tree and b_adapt (fade_clip with a cut, keyint_min 3, so
+    the lowres scenecut can fire), and for CAVLC with AQ on I/B/P8x8
+    (which reaches cavlc_blocks and bitpack with a per-MB QP)."""
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    for label, frames, p in (
+            ("medium CRF 23, AQ, MB-tree, b_adapt=1",
+             fade_clip(CHECK_W, CHECK_H, 9, pan=(1, 1), cut=5),
+             _medium_params(CHECK_W, CHECK_H, keyint_min=3)),
+            ("CAVLC, AQ, I/B/P8x8",
+             split_motion_clip(CHECK_W, CHECK_H, 5),
+             _params(CHECK_W, CHECK_H, True, cabac=False, aq_mode=1,
+                     bframes=2, me_range=8))):
+        small = [Frame420(*f) for f in frames]
+        streams = {}
+        for d in ("cuda", "cpu"):
+            e = Encoder(p, device=d)
+            x264_tpu_torch.reset_launch_counts()
+            streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
+            if d == "cuda":
+                launches = x264_tpu_torch.launch_counts()
+                types = [s.frame_type for s in e.stats]
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"352x288 {label}: card stream != CPU "
+                                 "stream")
+        cavlc = not p.cabac
+        if not launches["esa16"] or not launches["esa_parts"] or \
+                bool(launches["cavlc_blocks"]) != cavlc or \
+                (cavlc and launches["cavlc_blocks"] != launches["bitpack"]):
+            raise AssertionError(f"352x288 {label}: launches {launches}")
+        print(f"{CHECK_W}x{CHECK_H} {label} x{len(small)}: card stream == "
+              f"CPU stream ({len(streams['cuda'])} bytes), frame types "
+              f"{' '.join(types)}, launches {launches}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1579,6 +1972,7 @@ def main() -> int:
            times["esa_parts"],
            _time_ms(lambda: KP.full_search_parts_plain(
                src_d, ref_pad, lam, 16, mbw, mbh), 3), bounds["esa_parts"])
+    _lowres_esa_phase(clip, esa_rate)
 
     planes = [torch.from_numpy(_pad_to_mb(p, s)).to(dev)
               for p, s in zip(clip[0], (16, 8, 8))]
@@ -1640,6 +2034,7 @@ def main() -> int:
           f"zeroing): {alone:.4f} ms")
     _trellis_phase(clip, record)
     _nxn_phase(clip, record, int_ops_per_s)
+    _aq_kernel_phase(clip)
     _cavlc_phase(cavlc_frames, record, int_ops_per_s)
     for r in records:
         print(f"kernel {r['name']}: bit-exact, {r['ms']:.4f} ms (plain "
@@ -1672,6 +2067,7 @@ def main() -> int:
     _run_1080p_b(bclip, records)
     _run_1080p_multiref(clip[:MULTIREF_FRAMES], records)
     _run_1080p_cavlc(bclip, records)
+    _run_1080p_medium(records)
 
     # ---- 5. card streams == CPU (plain twins) streams at 352x288 ----
     small = [Frame420(*f) for f in split_motion_clip(CHECK_W, CHECK_H,
@@ -1699,6 +2095,7 @@ def main() -> int:
     _check_small_i4()
     _check_small_weightp()
     _check_small_cavlc()
+    _check_small_lookahead()
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

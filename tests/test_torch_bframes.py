@@ -331,11 +331,14 @@ def test_poc_lsb_wrap_decodes():
 
 
 def test_closed_b_settings_raise():
-    for kw in (dict(b_adapt=1), dict(scenecut_threshold=40),
-               dict(mbtree=True), dict(me_range=32),
-               dict(me_range=32, p8x8=True), dict(bframes=0, me_range=32)):
+    for kw in (dict(me_range=32), dict(me_range=32, p8x8=True),
+               dict(bframes=0, me_range=32)):
         with pytest.raises(NotImplementedError):
             Encoder(_params(**kw), device="cpu")
+    for kw in (dict(b_adapt=1), dict(scenecut_threshold=40),
+               dict(mbtree=True), dict(aq_mode=1),
+               dict(mbtree=True, rc_method=RC_ABR, bitrate=500, b_adapt=1)):
+        Encoder(_params(**kw), device="cpu")
     Encoder(_params(transform_8x8=True, trellis=1), device="cpu")
     Encoder(_params(weightp=1, ref_frames=2), device="cpu")
     Encoder(_params(bframes=0, me_range=32, p8x8=True), device="cpu")

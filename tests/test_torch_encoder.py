@@ -28,7 +28,8 @@ from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.params import EncoderParams as RefParams  # noqa: E402
 from x264_tpu.utils.oracle import decode_annexb  # noqa: E402
 from x264_tpu_torch.api import Encoder  # noqa: E402
-from x264_tpu_torch.params import RC_ABR, RC_CRF, EncoderParams  # noqa: E402
+from x264_tpu_torch.params import (RC_ABR, RC_CRF, EncoderParams,  # noqa: E402
+                                   param_default_preset)
 from x264_tpu_torch.state import PAD  # noqa: E402
 from x264_tpu_torch.utils.yuv import Frame420  # noqa: E402
 
@@ -119,21 +120,32 @@ def test_scenecut_promotes_like_reference():
 
 
 def test_unported_settings_and_missing_card_raise():
-    for kw in (dict(bframes=2, b_adapt=1),
-               dict(bframes=2, scenecut_threshold=40),
-               dict(i4x4=True, cabac=False),
+    for kw in (dict(i4x4=True, cabac=False),
                dict(subpel=0), dict(backend="reference"),
-               dict(p8x8=True, aq_mode=1),
-               dict(slices=2), dict(mbtree=True), dict(me_range=PAD + 1),
+               dict(slices=2), dict(intra_refresh=True),
+               dict(me_range=PAD + 1),
                dict(vbv_maxrate=500, vbv_bufsize=500,
                     rc_method=RC_ABR, bitrate=500)):
         with pytest.raises(NotImplementedError):
             Encoder(_params(64, 48, 26, **kw), device="cpu")
+    with pytest.raises(NotImplementedError):            # subpel 0
+        Encoder(param_default_preset("ultrafast"), device="cpu")
     for kw in (dict(p8x8=True, ref_frames=2), dict(trellis=1, weightp=1),
                dict(p8x8=True, transform_8x8=True, i4x4=True, weightp=1),
                dict(p8x8=True, weightp=2, ref_frames=4), dict(cabac=False),
-               dict(cabac=False, p8x8=True, transform_8x8=True, bframes=2)):
+               dict(cabac=False, p8x8=True, transform_8x8=True, bframes=2),
+               dict(bframes=2, b_adapt=1),
+               dict(bframes=2, scenecut_threshold=40),
+               dict(p8x8=True, aq_mode=1), dict(mbtree=True),
+               dict(mbtree=True, rc_method=RC_CRF, bframes=2, b_adapt=1,
+                    aq_mode=2, scenecut_threshold=40)):
         Encoder(_params(64, 48, 26, **kw), device="cpu")
+    for preset in ("superfast", "veryfast", "faster", "fast", "medium",
+                   "slow", "slower", "veryslow", "placebo"):
+        Encoder(param_default_preset(preset).clone(
+            rc_method=RC_CRF, aq_mode=1, mbtree=True, b_adapt=1),
+            device="cpu")
+    Encoder(param_default_preset("medium", tune="ssim"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             Encoder(_params(64, 48, 26), device="cuda")

@@ -8,6 +8,8 @@ import ast
 import dataclasses
 import inspect
 import os
+import subprocess
+import sys
 import tempfile
 import textwrap
 
@@ -29,11 +31,13 @@ from x264_tpu.bitstream import slice_assemble as r_sa  # noqa: E402
 from x264_tpu.bitstream import tables as r_tables  # noqa: E402
 from x264_tpu.models import inter_device as r_inter_device  # noqa: E402
 from x264_tpu.models import inter_frame as r_inter  # noqa: E402
+from x264_tpu.models import mbtree as r_mbtree  # noqa: E402
 from x264_tpu.models import weightp as r_weightp  # noqa: E402
 from x264_tpu.models import residual_device as r_residual  # noqa: E402
 from x264_tpu.ops.device import me_parts as r_me_parts  # noqa: E402
 from x264_tpu.ops.reference import deblock as r_deblock  # noqa: E402
 from x264_tpu.ops.reference import mc as r_mc  # noqa: E402
+from x264_tpu.rc import ratecontrol as r_rc  # noqa: E402
 from x264_tpu.utils.yuv import Frame420 as RefFrame  # noqa: E402
 import x264_tpu_torch.params as t_params  # noqa: E402
 from x264_tpu_torch import state  # noqa: E402
@@ -43,8 +47,10 @@ from x264_tpu_torch.bitstream import slice_assemble as t_sa  # noqa: E402
 from x264_tpu_torch.bitstream import tables as t_tables  # noqa: E402
 from x264_tpu_torch.api import Encoder  # noqa: E402
 from x264_tpu_torch.models import inter as t_inter  # noqa: E402
+from x264_tpu_torch.models import mbtree as t_mbtree  # noqa: E402
 from x264_tpu_torch.models import weightp as t_weightp  # noqa: E402
 from x264_tpu_torch.ops import me_parts as t_me_parts  # noqa: E402
+from x264_tpu_torch.rc import ratecontrol as t_rc  # noqa: E402
 from x264_tpu_torch.utils.yuv import Frame420  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,7 +121,23 @@ FUNCTIONS = [
     ("_pack_rect", r_tables, t_tables),
     ("merge_mb_strings", r_sa, t_sa),
     ("append_payload", r_sa, t_sa),
+    ("aq_offsets", r_rc, t_rc),
+    ("propagate", r_mbtree, t_mbtree),
+    ("_splat", r_mbtree, t_mbtree),
+    ("finish", r_mbtree, t_mbtree),
+    ("expand_offsets", r_mbtree, t_mbtree),
+    ("expand_offsets8", r_mbtree, t_mbtree),
 ]
+
+
+def _mbtree_window(rng, k, mbw, mbh):
+    """(ics, pcs, mvs) of a k-frame lowres window, MB-tree's inputs."""
+    n = mbw * mbh
+    ics = [rng.integers(1, 3000, n) for _ in range(k)]
+    pcs = [None] + [rng.integers(0, 3000, n) for _ in range(k - 1)]
+    mvs = [None] + [rng.integers(-40, 41, (n, 2)).astype(np.int32)
+                    for _ in range(k - 1)]
+    return ics, pcs, mvs
 
 
 def _written(fn, writer):
@@ -151,6 +173,7 @@ def test_copied_function_equals_reference(name, ref_mod, port_mod):
     cur = np.clip(tex[4:52, 6:70] * 0.85 - 6, 0, 255).astype(np.uint8)
     refs = [tex[2:50, 3:67], tex[:48, :64],
             rng.integers(0, 256, (48, 64)).astype(np.uint8)]
+    yuv = (tex[:48, :96], tex[48:72, :48], tex[56:80, 50:98])
     args = {"weight_cost": [(cur.astype(np.int64), r.astype(np.int64),
                              w, off) for r in refs
                             for w, off in ((64, 0), (54, -6))],
@@ -165,7 +188,18 @@ def test_copied_function_equals_reference(name, ref_mod, port_mod):
                 for _ in range(3)],
             "append_payload": [
                 (rng.integers(0, 1 << 32, 9, dtype=np.uint64)
-                 .astype(np.uint32), t) for t in (0, 31, 32, 200, 288)]
+                 .astype(np.uint32), t) for t in (0, 31, 32, 200, 288)],
+            "aq_offsets": [(*yuv, 6, 3, s, m) for m in (1, 2, 3)
+                           for s in (0.6, 1.0, 1.4)],
+            "propagate": [(*_mbtree_window(rng, k, 6, 4), 6, 4, bs)
+                          for k in (2, 5) for bs in (8, 16)],
+            "_splat": [(rng.random(20) * 900, rng.integers(
+                -70, 71, (20, 2)).astype(np.int32), 5, 4, bs)
+                for bs in (8, 16)],
+            "finish": [(rng.integers(0, 3000, 24), rng.random(24) * 5000,
+                        s) for s in (None, 1.0)],
+            "expand_offsets": [(rng.random(6) - 0.5, 3, 2, 7, 5)],
+            "expand_offsets8": [(rng.random(12) - 0.5, 4, 3, 5, 4)],
             }[name]
     for a in args:
         got, want = port_fn(*a), ref_fn(*a)
@@ -243,6 +277,21 @@ def _imports_of(path):
                 in ("import_module", "__import__"):
             names.append(node.args[0].value)
     return [n.split(".")[0] for n in names]
+
+
+def test_lookahead_modules_stand_alone():
+    """models/lookahead.py and models/mbtree.py import neither jax nor
+    x264_tpu, and import with both blocked."""
+    for mod in ("lookahead", "mbtree"):
+        path = os.path.join(REPO, "x264_tpu_torch", "models", f"{mod}.py")
+        assert not set(_imports_of(path)) & {"x264_tpu", "jax", "jaxlib"}
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['x264_tpu'] = None; "
+            "import x264_tpu_torch.models.lookahead, "
+            "x264_tpu_torch.models.mbtree; print('OK')")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.startswith("OK"), r.stderr[-2000:]
 
 
 def test_port_never_imports_the_reference_package():

@@ -17,10 +17,13 @@ codes packed into words on the device, the host only merges them,
 ``bitstream/slice_assemble.py``).  I frames (I16x16, or with ``i4x4``
 and CABAC the I16x16 / I4x4 / I8x8 choice), P frames on ``ref_frames``
 references with explicit weighted prediction when asked (``weightp``),
-with or without P8x8 partitions, and B frames in fixed mini-GOPs
-(``bframes`` > 0, temporal direct, one reference per list), with the
-adaptive 8x8 transform and, with CABAC, trellis quantisation when asked;
-the settings in ``_NOT_PORTED`` and ``_NOT_PORTED_B`` and I4x4 with
+with or without P8x8 partitions, and B frames in mini-GOPs (``bframes``
+> 0, temporal direct, one reference per list), with the adaptive 8x8
+transform and, with CABAC, trellis quantisation when asked; and the
+lookahead: adaptive quantisation (``aq_mode`` 1-3, a per-MB QP map on I
+and P frames), the lowres scenecut with B frames, adaptive B placement
+(``b_adapt=1``) and MB-tree under CRF or ABR (``models/lookahead.py``,
+``models/mbtree.py``).  The settings in ``_NOT_PORTED`` and I4x4 with
 CAVLC raise ``NotImplementedError``.  On the card an I frame's core is
 one CUDA graph replay (``models/graph.py``).
 """
@@ -42,14 +45,19 @@ from x264_tpu_torch.bitstream.slice_assemble import (append_payload,
                                                      merge_mb_strings)
 from x264_tpu_torch.models.b_frame import b_frame_core, b_pair_core
 from x264_tpu_torch.models.graph import run_core
+from x264_tpu_torch.models import mbtree as MT
 from x264_tpu_torch.models.inter import p_frame_core
 from x264_tpu_torch.models.intra import i4_frame_core, i_frame_core
+from x264_tpu_torch.models.lookahead import (Lookahead,
+                                             intra_cost_estimate,
+                                             lowres_plane, lowres_search,
+                                             lowres_stats8)
 from x264_tpu_torch.models.weightp import analyse_weights
 from x264_tpu_torch.ops.deblock import deblock_frame, deblock_frame_b
 from x264_tpu_torch.ops.entropy_pack import blob_stride, write_slice_cabac
 from x264_tpu_torch.ops.trellis import frame_trellis
-from x264_tpu_torch.params import EncoderParams
-from x264_tpu_torch.rc import RateControl
+from x264_tpu_torch.params import RC_CQP, EncoderParams
+from x264_tpu_torch.rc import RateControl, aq_offsets
 from x264_tpu_torch.state import PAD, me_lambda, sad_lambda
 from x264_tpu_torch.utils.yuv import Frame420, pad_to_mb
 
@@ -61,19 +69,13 @@ MB_I16, MB_I4, MB_PSKIP = 0, 1, 3
 
 # parameters whose paths are not ported yet (ROADMAP queue A), with the
 # value the port runs
-_NOT_PORTED = dict(aq_mode=0, mbtree=False, intra_refresh=False, slices=1,
-                   vbv_maxrate=0, vbv_bufsize=0)
-# with B frames: the adaptive mini-GOP and the pre-encode lowres
-# scenecut need the lookahead (ROADMAP A13)
-_NOT_PORTED_B = dict(b_adapt=0, scenecut_threshold=0)
+_NOT_PORTED = dict(intra_refresh=False, slices=1, vbv_maxrate=0,
+                   vbv_bufsize=0)
 
 
 def _check_params(p: EncoderParams) -> None:
     bad = {k: getattr(p, k) for k, want in _NOT_PORTED.items()
            if getattr(p, k) != want}
-    if p.bframes > 0:
-        bad.update({k: getattr(p, k) for k, want in _NOT_PORTED_B.items()
-                    if getattr(p, k) != want})
     if p.backend not in ("auto", "device"):
         bad["backend"] = p.backend
     if p.subpel < 1:
@@ -366,7 +368,13 @@ class Encoder:
         ladder = self._ladder(qp)
         n_words = ladder[0]
         yd, ud, vd = self._upload((y, u, v))
-        qp_arr = np.int32(qp)
+        qp_arr, slice_qp = self._qp_map(qp, y, u, v, mbw, mbh)
+        if self._mbt_off is not None:
+            base = np.broadcast_to(np.atleast_1d(qp_arr),
+                                   (mbw * mbh,)).astype(np.float64)
+            qp_arr = np.clip(np.round(base + self._mbt_off),
+                             self.p.qp_min, self.p.qp_max).astype(np.int32)
+            slice_qp = int(qp_arr[0])
         ref = None if (idr or not self.dpb) else self.dpb
         wts = weights = None
         if self.p.weightp and ref is not None:
@@ -379,11 +387,13 @@ class Encoder:
         out, slice_type = self._run_core(yd, ud, vd, ref, idr, qp, qp_arr,
                                          n_words, mbw, mbh, wts=wts)
         if (ref is not None and self.p.scenecut_threshold > 0
+                and self.p.bframes == 0
                 and self.frame_idx - self._last_idr_idx
                 >= self.p.keyint_min):
             # post-encode scenecut (x264 slicetype.c:1430 rule, no
             # lookahead): promote to IDR when inter is no cheaper than
-            # intra, from the costs the P core already computed
+            # intra, from the costs the P core already computed (B GOPs
+            # cut before the encode instead, _lowres_scenecut)
             blob = out["host_blob"].numpy()
             if self.p.cabac:
                 rows = self._cab_rows(blob, mbw * mbh, parts=self.p.p8x8)
@@ -398,14 +408,14 @@ class Encoder:
                 self.frame_num = 0
                 self._last_idr_idx = self.frame_idx
                 qp = self._requantize_idr(qp)
-                qp_arr = np.int32(qp)
+                qp_arr, slice_qp = self._qp_map(qp, y, u, v, mbw, mbh)
                 out, slice_type = self._run_core(yd, ud, vd, None, True, qp,
                                                  qp_arr, n_words, mbw, mbh)
         recon = self._deblock_device(out, qp, mbw, mbh)
         job = dict(out=out, slice_type=slice_type, idr=idr, qp=qp,
                    blob=out["host_blob"],
                    num_ref=1 if ref is None else len(ref), qp_arr=qp_arr,
-                   slice_qp=qp, mbw=mbw, mbh=mbh, n_words=n_words,
+                   slice_qp=slice_qp, mbw=mbw, mbh=mbh, n_words=n_words,
                    ladder=ladder, frame_num=self.frame_num,
                    idr_pic_id=self.idr_pic_id, ftype=ftype,
                    planes=(yd, ud, vd), ref=ref,
@@ -571,15 +581,68 @@ class Encoder:
         out = b""
         f_type = self._force.get(d, (None, None))[0] if self._force \
             else None
+        if f_type is None and d > 0 and self._lowres_scenecut(fr, d):
+            # pre-encode scenecut (slicetype.c:1430 lowres rule): cut
+            # before the encode, not the bframes=0 encode-then-promote
+            f_type = "IDR"
         if d == 0 or f_type == "IDR" or (self.p.keyint_max > 0
                                          and d % self.p.keyint_max == 0):
-            out += self._flush_rest()     # close the open mini-GOP
+            # close the open mini-GOP (not flush(): fed from the MB-tree
+            # queue, flush() would pull later display frames ahead)
+            out += self._flush_rest()
             self._idr_disp = d
-            return out + self._encode_anchor(fr, d, "IDR")
+            out += self._encode_anchor(fr, d, "IDR")
+            if self.p.b_adapt:
+                self._lookahead().push_anchor(self._pad(fr)[0])
+            return out
         self._bq.append((fr, d))
-        if f_type == "P" or len(self._bq) == self.p.bframes + 1:
-            out += self._flush_bq()
+        if f_type == "P":
+            return out + self._flush_bq()
+        if len(self._bq) == self.p.bframes + 1:
+            if self.p.b_adapt:
+                # adaptive mini-GOP cut (slicetype b_adapt=1 analog):
+                # lowres costs pick how many queued frames stay B
+                m = self._lookahead().plan(
+                    [self._pad(f)[0] for (f, _) in self._bq])
+                split = min(m + 1, len(self._bq))
+                pend, self._bq = self._bq[:split], self._bq[split:]
+                out += self._flush_bq(pend)
+            else:
+                out += self._flush_bq()
         return out
+
+    _sc_prev_lr = None
+
+    def _lowres_scenecut(self, fr, d: int) -> bool:
+        """Lowres inter-vs-intra scene test on the source frames (x264
+        lookahead scenecut, slicetype.c:1430), for B GOPs: one esa16
+        search at range 8 of this frame's lowres plane against the
+        previous frame's, beside the lowres intra estimate."""
+        if not self.p.scenecut_threshold:
+            return False
+        y, _, _ = self._pad(fr)
+        lr = lowres_plane(self._upload((y,))[0])
+        prev = self._sc_prev_lr
+        self._sc_prev_lr = lr
+        if prev is None:
+            return False
+        mbw_lr, mbh_lr = lr.shape[1] // 16, lr.shape[0] // 16
+        if mbw_lr < 1 or mbh_lr < 1:
+            return False
+        if d - self._idr_disp < max(1, self.p.keyint_min):
+            return False
+        pc = lowres_search(lr, prev, mbw_lr, mbh_lr)
+        p_cost = float(pc.to(torch.int64).sum())
+        i_cost = float(intra_cost_estimate(lr, mbw_lr, mbh_lr).sum())
+        bias = self.p.scenecut_threshold / 100.0
+        return p_cost >= (1.0 - bias) * i_cost
+
+    _la = None
+
+    def _lookahead(self) -> Lookahead:
+        if self._la is None:
+            self._la = Lookahead(self.p, self.device)
+        return self._la
 
     def _drain_gop_q(self) -> bytes:
         out = b""
@@ -589,16 +652,19 @@ class Encoder:
         self._gop_q = []
         return out
 
-    def _flush_bq(self) -> bytes:
-        """Submit the queued mini-GOP (its last frame as the P anchor, the
-        rest as B frames, a pair in one core), then finalize the previous
-        mini-GOP."""
-        pend, self._bq = self._bq, []
+    def _flush_bq(self, pend=None) -> bytes:
+        """Submit a mini-GOP, ``pend`` or the whole queue (its last frame
+        as the P anchor, the rest as B frames, a pair in one core), then
+        finalize the previous mini-GOP."""
+        if pend is None:
+            pend, self._bq = self._bq, []
         if not pend:
             return b""
         anchor, ad = pend[-1]
         prev = self.dpb[0]
         ajob = self._submit_anchor(anchor, ad, "P")
+        if self.p.b_adapt:
+            self._lookahead().push_anchor(self._pad(anchor)[0])
         nxt = self.dpb[0]
         bs = pend[:-1]
         if len(bs) == 2:
@@ -627,8 +693,12 @@ class Encoder:
         y, u, v = self._pad(fr)
         if ftype == "IDR":
             self.frame_num = 0
-        job = self._submit_device(y, u, v, ftype,
-                                  self._frame_qp_at(disp, ftype))
+        qp = self._frame_qp_at(disp, ftype)
+        self._mbt_off = (self._mbt_off_by_disp or {}).pop(disp, None)
+        try:
+            job = self._submit_device(y, u, v, ftype, qp)
+        finally:
+            self._mbt_off = None
         job["poc_lsb"] = self._poc_lsb(disp)
         out = job["out"]
         rec = self.dpb[0]
@@ -685,6 +755,8 @@ class Encoder:
     def _submit_b(self, fr: Frame420, disp: int, prev: ReconFrame,
                   nxt: ReconFrame) -> dict:
         qp = self._frame_qp_at(disp, "B")
+        # MB-tree offsets apply to anchors only: drop a B frame's
+        self._drop_mbt_off(disp)
         ladder = self._ladder(qp)
         poc_cur, dsf = self._dist_scale(disp, prev, nxt)
         y, u, v = self._upload(self._pad(fr))
@@ -699,6 +771,7 @@ class Encoder:
         qps, dsfs, pocs = [], [], []
         for (_, d) in (b1, b2):
             qps.append(self._frame_qp_at(d, "B"))
+            self._drop_mbt_off(d)
             poc_cur, dsf = self._dist_scale(d, prev, nxt)
             pocs.append(poc_cur)
             dsfs.append(dsf)
@@ -794,10 +867,12 @@ class Encoder:
         return data
 
     def flush(self) -> bytes:
-        """The bytes still held back: the open mini-GOP and the finalize
-        queue (nothing with bframes=0, whose frames leave ``encode`` at
-        once)."""
-        return self._flush_rest()
+        """The bytes still held back: the MB-tree lookahead queue, then
+        the open mini-GOP and the finalize queue."""
+        out = b""
+        while self._mbt_q:
+            out += self._pop_mbtree()
+        return out + self._flush_rest()
 
     def _flush_rest(self) -> bytes:
         out = b""
@@ -886,9 +961,93 @@ class Encoder:
                 self._force = {}
             self._force[self._in_disp] = (tmap.get(frame_type), qp)
         self._in_disp += 1
+        if self._mbtree_on():
+            return self._encode_mbtree(fr)
         if self.p.bframes > 0:
             return self._encode_bgop(fr)
         return self._encode_now(fr, disp=self._in_disp - 1)
+
+    def _qp_map(self, qp: int, y, u, v, mbw: int, mbh: int):
+        """(qp_arr, slice QP) of an I or P frame: the frame QP, or with
+        AQ its per-MB map and the first MB's QP."""
+        if not self.p.aq_mode:
+            return np.int32(qp), qp
+        qp_arr = self._aq_qp(qp, y, u, v, mbw, mbh)
+        return qp_arr, int(qp_arr[0])
+
+    def _aq_qp(self, base: int, y, u, v, mbw: int, mbh: int):
+        off = aq_offsets(y, u, v, mbw, mbh, self.p.aq_strength,
+                         mode=self.p.aq_mode)
+        qp_mb = np.clip(base + np.round(off).astype(np.int64),
+                        self.p.qp_min, self.p.qp_max).astype(np.int32)
+        return qp_mb
+
+    # ---- MB-tree lookahead window (bframes >= 0) ----
+    _mbt_q = None
+    _mbt_off_by_disp = None
+    _mbt_off = None             # the offsets of the frame being submitted
+
+    def _mbtree_on(self) -> bool:
+        """MB-tree runs under CRF and ABR; under CQP it is off."""
+        return self.p.mbtree and self.p.rc_method != RC_CQP
+
+    def _drop_mbt_off(self, disp: int) -> None:
+        if self._mbt_off_by_disp:
+            self._mbt_off_by_disp.pop(disp, None)
+
+    def _encode_mbtree(self, fr: Frame420) -> bytes:
+        """Queue rc_lookahead frames with their lowres statistics at 8x8
+        lowres grain (one cell per source MB; host copies started
+        without blocking), and pop the head once the window is full."""
+        if self._mbt_q is None:
+            self._mbt_q = []
+        y, _, _ = self._pad(fr)
+        lr = lowres_plane(self._upload((y,))[0])
+        mbw_lr, mbh_lr = lr.shape[1] // 16, lr.shape[0] // 16
+        prev = self._mbt_q[-1]["lr"] if self._mbt_q else None
+        stats = lowres_stats8(lr, prev, mbw_lr, mbh_lr)
+        ic, pc, mv = (None if t is None else _HostCopy(t) for t in stats)
+        self._mbt_q.append(dict(fr=fr, lr=lr, ic=ic, pc=pc, mv=mv,
+                                disp=self._in_disp - 1))
+        if len(self._mbt_q) <= max(1, self.p.rc_lookahead):
+            return b""
+        return self._pop_mbtree()
+
+    def _pop_mbtree(self) -> bytes:
+        """Propagate over the remaining window (the display-order chain,
+        models/mbtree.py), keep the head's offsets by display index for
+        its submit, post the window's costs to rate control and encode
+        the head."""
+        q = self._mbt_q
+        head = q.pop(0)
+        nbw, nbh = 2 * (head["lr"].shape[1] // 16), \
+            2 * (head["lr"].shape[0] // 16)
+        ics = [e["ic"].numpy() for e in [head] + q]
+        pcs = [None if e["pc"] is None else e["pc"].numpy()
+               for e in [head] + q]
+        if q:
+            # propagate never reads the head's inter cost or mv
+            mvs = [None] + [e["mv"].numpy() for e in q]
+            prop = MT.propagate(ics, pcs, mvs, nbw, nbh, bs=8)
+            off = MT.finish(ics[0], prop)
+            if self._mbt_off_by_disp is None:
+                self._mbt_off_by_disp = {}
+            self._mbt_off_by_disp[head["disp"]] = MT.expand_offsets8(
+                off, nbw, nbh, self.p.mb_width, self.p.mb_height)
+        # the window's per-frame lowres costs (min(inter, intra), head
+        # first) for the rate controller
+        self.rc.lookahead_costs = [
+            float((ic.astype(np.float64) if pc is None else np.minimum(
+                pc.astype(np.float64), ic)).sum())
+            for ic, pc in zip(ics, pcs)]
+        if self.p.bframes > 0:
+            return self._encode_bgop(head["fr"])
+        self._mbt_off = (self._mbt_off_by_disp or {}).pop(head["disp"],
+                                                           None)
+        try:
+            return self._encode_now(head["fr"], disp=head["disp"])
+        finally:
+            self._mbt_off = None
 
     def _encode_now(self, fr: Frame420, disp: int | None = None) -> bytes:
         y, u, v = self._pad(fr)

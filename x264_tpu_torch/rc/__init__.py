@@ -1,1 +1,1 @@
-from x264_tpu_torch.rc.ratecontrol import RateControl  # noqa: F401
+from x264_tpu_torch.rc.ratecontrol import RateControl, aq_offsets  # noqa: F401

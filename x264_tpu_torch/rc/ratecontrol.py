@@ -12,8 +12,8 @@ Parity anchors (reference encoder/ratecontrol.c):
 - AQ mode 1: per-MB energy -> qp offset (x264_adaptive_quant_frame :304):
   qp_adj = strength * 1.5 * (log2(max(energy,1)) - 14.427)
 
-Copied from x264_tpu/rc/ratecontrol.py without ``aq_offsets`` (AQ is
-not ported).
+Copied whole from x264_tpu/rc/ratecontrol.py (``aq_offsets`` stays host
+NumPy in float64, so its offsets round as the reference's do).
 """
 
 from __future__ import annotations
@@ -181,3 +181,40 @@ class RateControl:
             cplx = max(self.cplx / self.w, 1.0)
             self.rate_factor = (cplx ** (1.0 - self.qcomp)
                                 / qp2qscale(self.p.crf))
+
+
+def aq_offsets(y: np.ndarray, u: np.ndarray, v: np.ndarray,
+               mbw: int, mbh: int, strength: float,
+               mode: int = 1) -> np.ndarray:
+    """AQ modes 1-3 (x264_adaptive_quant_frame, ratecontrol.c:304-415):
+    per-MB energy = sum of the four 8x8 luma variances + the two chroma
+    8x8 variances.
+    mode 1 (variance):       qp_adj = s*1.5*(log2(max(E,1)) - 14.427)
+    mode 2 (autovariance):   per-frame normalised — a = (E+1)^0.125,
+        strength = s*avg(a), bias avg' = avg - 0.5*(avg(a^2)-14)/avg,
+        qp_adj = strength*(a - avg')
+    mode 3 (autovariance-biased): mode 2 + s*(1 - 14/a^2) dark-bias
+    Returns float offsets (N,)."""
+    def var_blocks(p, s):
+        hh, ww = p.shape
+        b = (p.astype(np.int64).reshape(hh // s, s, ww // s, s)
+             .transpose(0, 2, 1, 3).reshape(-1, s * s))
+        sm = b.sum(1)
+        sq = (b * b).sum(1)
+        return (sq - sm * sm // (s * s)).reshape(hh // s, ww // s)
+
+    vy = var_blocks(y, 8)                       # (2*mbh, 2*mbw)
+    e = vy.reshape(mbh, 2, mbw, 2).sum((1, 3))
+    e = e + var_blocks(u, 8) + var_blocks(v, 8)
+    e = e.reshape(-1).astype(np.float64)
+    if mode >= 2:
+        a = np.power(e + 1.0, 0.125)
+        avg = float(a.mean())
+        avg2 = float((a * a).mean())
+        st = strength * avg
+        avg_b = avg - 0.5 * (avg2 - 14.0) / max(avg, 1e-9)
+        off = st * (a - avg_b)
+        if mode >= 3:
+            off = off + strength * (1.0 - 14.0 / np.maximum(a * a, 1e-9))
+        return off
+    return strength * 1.5 * (np.log2(np.maximum(e, 1.0)) - 14.427)
