@@ -35,9 +35,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      trellis kernel on a P frame's blockings; the
      CAVLC block coder (cavlc_blocks) and bit packer (bitpack) on the
      slot grids of a 1080p P8x8 frame and a B frame, the packer at both
-     word rungs, with the launch alone and the bound; the registers,
-     spills and shared memory of the ESA, trellis, NxN and CAVLC kernels
-     (ptxas);
+     word rungs, with the launch alone and the bound; the refresh-bar
+     kernel (pir_column) on 3-column bars at columns 0, 59, 117 and 119
+     of a 1080p frame under AQ's QP map, with the launch alone and the
+     bound; the registers, spills and shared memory of the ESA, trellis,
+     NxN, CAVLC and refresh-bar kernels (ptxas);
   4. the main paths, each with the kernels' launch counts reset just
      before and read just after: Encoder(device="cuda") encodes a 1080p
      clip of one IDR and 5 P frames (the clip formula of bench.py's
@@ -54,7 +56,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      x264's medium preset at CRF 23 with AQ, MB-tree and b_adapt=1
      (scenecut 40, a hard cut at frame 30: the lookahead's lowres
      scenecut, plans and MB-tree, with its host ms per frame and the
-     ESA launches it adds); fps, bytes,
+     ESA launches it adds), then 41 frames of the live configuration
+     (medium with tune zerolatency on P16 anchors, CRF 23, VBV 4000
+     kbit/s over 1500 kbit, NAL HRD, intra refresh at keyint 60 with the
+     sweep started before frame 1: the VBV re-encodes and their ms, the
+     decoder-buffer walk's lowest fill, encode() ms p50/p95/max, the
+     launches per P frame); fps, bytes,
      Y-PSNR, the partition shapes chosen, the share
      of 8x8-transform MBs, the P frames with a non-neutral weight, the
      esa_parts launches of each P frame (one per active reference) and
@@ -71,7 +78,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      non-neutral weight and MBs on ref_idx > 0, with CAVLC: I/P16 at
      QP 26 and I/B/P8x8 with the 8x8 transform and weightp=1 on two
      references, and the medium preset at CRF 23 with AQ, MB-tree and
-     b_adapt, and CAVLC with AQ on I/B/P8x8.
+     b_adapt, and CAVLC with AQ on I/B/P8x8, and the live settings:
+     intra refresh with CABAC (I4x4, the 8x8 transform, trellis) and
+     with CAVLC, VBV with CAVLC (re-encodes), NAL HRD with VBV and B
+     frames.
 Every I frame's core on the card is a CUDA graph replay
 (x264_tpu_torch/models/graph.py).
 The line before the last is the kernels' JSON record; the last line is
@@ -928,7 +938,7 @@ def _run_1080p_b(clip, records):
             dict(launches, trellis=0, intra_nxn=0) != {
                 "esa16": 4 * n_b // 2, "esa_parts": 3, "deblock": 4,
                 "trellis": 0, "intra_nxn": 0, "cavlc_blocks": 0,
-                "bitpack": 0} \
+                "bitpack": 0, "pir_column": 0} \
             or launches["trellis"] < least or not nxn or nxn % steps:
         raise AssertionError(f"I/B/P8x8: frame types {types}, launches "
                              f"{launches} (expected esa16 12, esa_parts 3, "
@@ -997,7 +1007,8 @@ def _check_small_b() -> None:
         raise AssertionError("352x288 B: card stream != CPU stream")
     if types != ["IDR", "P", "B", "B", "P", "B"] or launches != {
             "esa16": 6, "esa_parts": 2, "deblock": CHECK_B_FRAMES,
-            "trellis": 0, "intra_nxn": 0, "cavlc_blocks": 0, "bitpack": 0}:
+            "trellis": 0, "intra_nxn": 0, "cavlc_blocks": 0, "bitpack": 0,
+            "pir_column": 0}:
         raise AssertionError(f"352x288 B: frame types {types}, launches "
                              f"{launches}")
     print(f"{CHECK_W}x{CHECK_H} I/B/P8x8 x{CHECK_B_FRAMES}: card stream == "
@@ -1402,7 +1413,7 @@ def _run_1080p_cavlc(clip, records):
             dict(launches, cavlc_blocks=0, bitpack=0) != {
                 "esa16": 4 * n_b // 2, "esa_parts": 3, "deblock": 4,
                 "trellis": 0, "intra_nxn": 0, "cavlc_blocks": 0,
-                "bitpack": 0} or cv != launches["bitpack"] \
+                "bitpack": 0, "pir_column": 0} or cv != launches["bitpack"] \
             or cv < len(clip):
         raise AssertionError(f"CAVLC I/B/P8x8: frame types {types}, "
                              f"launches {launches} (expected esa16 12, "
@@ -1851,6 +1862,294 @@ def _check_small_lookahead() -> None:
               f"{' '.join(types)}, launches {launches}")
 
 
+def _pir_inputs(clip, qp_map):
+    """The refresh bar's inputs at 1080p on the card: frame 1's source,
+    frame 0's source as the live recon planes (int32), the per-MB QP map
+    and its chroma QPs, and per-MB fields holding junk the bar overwrites
+    at its MBs."""
+    import torch
+    from x264_tpu_torch.kernels import pir_column as KR
+    from x264_tpu_torch.state import CHROMA_QP_TABLE
+    dev = torch.device("cuda")
+    src = [torch.from_numpy(_pad_to_mb(p, s)).to(dev)
+           for p, s in zip(clip[1], (16, 8, 8))]
+    rec = [torch.from_numpy(_pad_to_mb(p, s).astype(np.int32)).to(dev)
+           for p, s in zip(clip[0], (16, 8, 8))]
+    n = qp_map.shape[0]
+    qpc = CHROMA_QP_TABLE[np.clip(qp_map, 0, 51)].astype(np.int32)
+    rng = np.random.default_rng(12)
+    acc = {k: torch.from_numpy(
+        rng.integers(0, 2, (n, *sh)).astype(bool) if k in ("intra_mask",
+                                                            "t8")
+        else rng.integers(-3, 4, (n, *sh)).astype(np.int32)).to(dev)
+        for k, sh in KR._FIELDS}
+    return (src, rec, torch.from_numpy(qp_map).to(dev),
+            torch.from_numpy(qpc).to(dev), acc)
+
+
+def _pir_phase(clip, record, int_ops_per_s: float) -> dict:
+    """The refresh-bar kernel against its plain twin at 1080p under AQ
+    mode 1's QP map, bit-exact on bars of 3 columns at columns 0, 59, 117
+    (up to the right edge) and 119 (one live column, two masked); times
+    through the wrapper, the launch alone and the plain twin on the
+    headline bar (3 columns, the live run's width at keyint 60) with its
+    bound.  Returns those times."""
+    import torch
+    from x264_tpu_torch.kernels import build
+    from x264_tpu_torch.kernels import pir_column as KR
+    mbw, mbh = (W + 15) // 16, (H + 15) // 16
+    qp_map = _aq_map(clip[1])
+    src, rec, qp, qpc, acc = _pir_inputs(clip, qp_map)
+
+    def fresh():
+        return ([r.clone() for r in rec], {k: a.clone()
+                                           for k, a in acc.items()})
+    for col in (0, 59, 117, 119):
+        (r_k, a_k), (r_p, a_p) = fresh(), fresh()
+        got = KR.pir_column_pass(*src, *r_k, a_k, qp, qpc, col, mbw, mbh, 3)
+        want = KR.pir_column_pass_plain(*src, *r_p, a_p, qp, qpc, col, mbw,
+                                        mbh, 3)
+        torch.cuda.synchronize()
+        err = max([_max_err(a, b) for a, b in zip(got[:3], want[:3])]
+                  + [_max_err(got[3][k], want[3][k]) for k in KR.FIELDS])
+        live = KR.bar_mbs(col, 3, mbw, mbh)
+        if err or int(got[3]["intra_mask"].sum()) < live:
+            raise AssertionError(f"pir_column at column {col}: max err "
+                                 f"{err}")
+        print(f"pir_column at column {col} (3 columns, {live} MBs): "
+              "bit-exact against pir_column_pass_plain under the AQ map "
+              f"(QPs {int(qp_map.min())}-{int(qp_map.max())})")
+    r_k, a_k = fresh()
+    ms = _time_ms(lambda: KR.pir_column_pass(*src, *r_k, a_k, qp, qpc, 0,
+                                             mbw, mbh, 3), 20)
+    lib = build.library()
+    ptrs = [t.data_ptr() for t in (*src, *r_k, qp, qpc)] + \
+        [a_k[k].data_ptr() for k in KR.FIELDS] + \
+        [KR._tables("cuda:0").data_ptr()]
+    stream = torch.cuda.current_stream().cuda_stream
+    alone = _time_ms(lambda: lib.pir_column_launch(*ptrs, 0, 3, mbw, mbh,
+                                                   stream), 20)
+    r_p, a_p = fresh()
+    plain = _time_ms(lambda: KR.pir_column_pass_plain(
+        *src, *r_p, a_p, qp, qpc, 0, mbw, mbh, 3), 2)
+    n_bar = KR.bar_mbs(0, 3, mbw, mbh)
+    nbytes, ops = KR.work(n_bar)
+    bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                (ops / int_ops_per_s * 1e3, "operations"))
+    print(f"pir_column, a 3-column bar at 1080p ({n_bar} MBs in series): "
+          f"{ms:.4f} ms through the wrapper (its launch alone {alone:.4f} "
+          f"ms, {1000 * alone / n_bar:.2f} us an MB), plain twin "
+          f"{plain:.3f} ms; bound {bound[0]:.5f} ms by {bound[1]} "
+          f"({nbytes} bytes, {ops} int32 operations)")
+    record("pir_column", "x264_tpu_torch/csrc/pir_column.cu",
+           "x264_tpu/models/inter_device.py:101", 0, ms, plain, bound)
+    return dict(ms=ms, alone=alone, plain=plain)
+
+
+LIVE_FRAMES = 41              # IDR + 40 P: one whole sweep of 120 columns
+LIVE_VBV = dict(vbv_maxrate=4000, vbv_bufsize=1500)
+
+
+def _live_params(w: int, h: int, **kw):
+    """The live configuration: x264's medium preset with tune zerolatency
+    (no B frames, no lookahead; I4x4, the 8x8 transform, trellis,
+    weightp=1, CABAC) on P16 anchors (the port refuses intra refresh
+    with P8x8: ROADMAP C, fault 3) at CRF 23 and 30 fps, a VBV cap, NAL
+    HRD and periodic intra refresh at keyint 60."""
+    from x264_tpu_torch.params import RC_CRF, param_default_preset
+    base = dict(width=w, height=h, rc_method=RC_CRF, crf=23.0, fps_num=30,
+                fps_den=1, nal_hrd=True, intra_refresh=True, keyint_max=60,
+                p8x8=False, **LIVE_VBV)
+    base.update(kw)
+    return param_default_preset("medium", tune="zerolatency").clone(**base)
+
+
+def _vbv_walk(enc, sizes) -> float:
+    """The decoder-buffer walk over the access units' sizes (refill at
+    vbv_maxrate, then take the frame): the lowest fill after a frame,
+    in bits; raises if a frame does not fit."""
+    rc = enc.rc
+    fill = rc.vbv_size * enc.p.vbv_init
+    low = fill
+    for i, nb in enumerate(sizes):
+        fill = min(fill + rc.vbv_max / rc.fps, rc.vbv_size)
+        if nb * 8 > fill + 1e-6:
+            raise AssertionError(f"VBV underflow at access unit {i}: "
+                                 f"{nb * 8} bits, fill {fill:.0f}")
+        fill -= nb * 8
+        low = min(low, fill)
+    return low
+
+
+def _reencode_spy(enc, synced: bool) -> list:
+    """Record every VBV re-encode (frame type, old and new QP, ms of the
+    core's re-run and deblock with the card synchronised when
+    ``synced``)."""
+    import torch
+    fn = enc._vbv_reencode
+    log = []
+
+    def spy(job, nq):
+        if synced:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(job, nq)
+        if synced:
+            torch.cuda.synchronize()
+        log.append((job["ftype"], job["qp"], nq,
+                    1000 * (time.perf_counter() - t0)))
+        return out
+    enc._vbv_reencode = spy
+    return log
+
+
+def _run_1080p_live(records, bar_ms: dict):
+    """The live main path (counts reset just before, read just after):
+    _live_params at 1080p on make_clip, LIVE_FRAMES frames, with
+    intra_refresh() before frame 1 so that a whole sweep (3 columns a
+    frame at keyint 60) falls in the run.  Fails unless a frame was
+    re-encoded, the decoder-buffer walk never goes below zero, every P
+    frame of the sweep launched pir_column once and every frame decodes
+    to its recon where avdec runs.  Prints fps over the P frames, the
+    encode() wall ms (p50, p95, max), kbit/frame, Y-PSNR, the re-encodes
+    and their ms, the lowest buffer fill, the launches per P frame and
+    the bar's ms."""
+    import torch
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    clip = make_clip(LIVE_FRAMES)
+    enc = Encoder(_live_params(W, H), device="cuda")
+    recons = {}
+    enc.recon_hook = recons.__setitem__
+    retries = _reencode_spy(enc, synced=True)
+    bars = []
+    submit = enc._submit_device
+
+    def bar_spy(*a, **kw):
+        job = submit(*a, **kw)
+        bars.append(job["pir"] is not None)
+        return job
+    enc._submit_device = bar_spy
+    stream, times = b"", []
+    torch.cuda.synchronize()
+    x264_tpu_torch.reset_launch_counts()
+    for i, (y, u, v) in enumerate(clip):
+        if i == 1:
+            enc.intra_refresh()
+        t0 = time.perf_counter()
+        stream += enc.encode(Frame420(y, u, v))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    stream += enc.flush()
+    torch.cuda.synchronize()
+    launches = x264_tpu_torch.launch_counts()
+    print(f"launches in the 1080p live run: {launches}")
+    for r in records:
+        r["launches"] += launches[r["name"]]
+    types = [s.frame_type for s in enc.stats]
+    n = len(clip)
+    n_bar = sum(bars)
+    p_retry = sum(1 for t, *_ in retries if t == "P")
+    sizes = [m["bytes"] for m in enc.drain_au_meta()]
+    low = _vbv_walk(enc, sizes)
+    ncols = enc._pir_w()
+    if types != ["IDR"] + ["P"] * (n - 1) or not retries or \
+            n_bar != min(n - 1, -(-((W + 15) // 16) // ncols)) or \
+            launches["pir_column"] < n_bar or \
+            launches["pir_column"] > n_bar + p_retry + n_bar or \
+            launches["esa16"] < n - 1 or launches["esa_parts"] or \
+            launches["deblock"] != n + len(retries) or \
+            launches["cavlc_blocks"] or launches["bitpack"]:
+        raise AssertionError(f"live: frame types {types}, {n_bar} bars of "
+                             f"{ncols} columns, re-encodes {retries}, "
+                             f"launches {launches}")
+    psnr = _check_recon("live", stream, recons, clip)
+    ms = np.array(times) * 1000
+    p_ms = ms[1:]
+    print(f"1080p live (medium, zerolatency, P16, CRF 23, VBV "
+          f"{LIVE_VBV['vbv_maxrate']} kbit/s / {LIVE_VBV['vbv_bufsize']} "
+          f"kbit, NAL HRD, intra refresh at keyint 60, {ncols} columns a "
+          f"frame) x{n}: {len(stream)} bytes, "
+          f"{len(stream) * 8 / n / 1000:.1f} kbit/frame, mean Y-PSNR "
+          f"{psnr:.3f} dB; {(n - 1) / (p_ms.sum() / 1000):.3f} fps over "
+          f"the P frames; encode() ms p50 {np.percentile(ms, 50):.1f}, p95 "
+          f"{np.percentile(ms, 95):.1f}, max {ms.max():.1f} (IDR "
+          f"{ms[0]:.1f}, P p50 {np.percentile(p_ms, 50):.1f})")
+    print(f"live VBV: {len(retries)} re-encodes ("
+          + ", ".join(f"{t} QP {q0}->{q1} {m:.1f} ms (core re-run and "
+                      f"deblock)" for t, q0, q1, m in retries)
+          + f"); lowest decoder-buffer fill {low / 1000:.1f} kbit of "
+          f"{enc.rc.vbv_size / 1000:.0f}; frame QPs "
+          + " ".join(str(s.qp) for s in enc.stats))
+    print("live launches per P frame: " + ", ".join(
+        f"{k} {v / (n - 1):.3f}" for k, v in launches.items() if v)
+          + f"; {n_bar} P frames carried a bar")
+    print(f"live refresh bar ({ncols} columns, {ncols * ((H + 15) // 16)} "
+          f"MBs): kernel alone {bar_ms['alone']:.4f} ms, through its "
+          f"wrapper {bar_ms['ms']:.4f} ms, plain twin {bar_ms['plain']:.3f} "
+          "ms (the kernel phase's times)")
+    print("live encode() ms: " + " ".join(f"{t:.1f}" for t in ms))
+
+
+def _check_small_live() -> None:
+    """352x288 card stream == CPU stream for the live settings: intra
+    refresh with CABAC, I4x4, the 8x8 transform and trellis on P16
+    anchors; intra refresh with CAVLC and P16; VBV with CAVLC under a
+    tight ABR buffer (at least one re-encode); NAL HRD with VBV and
+    bframes=2 (P8x8 anchors)."""
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    from x264_tpu_torch.params import RC_ABR
+    frames = split_motion_clip(CHECK_W, CHECK_H, 6)
+    for label, p, want in (
+            ("intra refresh, CABAC, I4x4, t8, trellis, P16",
+             _params(CHECK_W, CHECK_H, False, intra_refresh=True,
+                     keyint_max=4, i4x4=True, **TOOLS), "pir_column"),
+            ("intra refresh, CAVLC, P16",
+             _params(CHECK_W, CHECK_H, False, cabac=False,
+                     intra_refresh=True, keyint_max=4, me_range=8),
+             "pir_column"),
+            ("VBV, CAVLC, ABR",
+             _params(CHECK_W, CHECK_H, False, cabac=False, rc_method=RC_ABR,
+                     bitrate=300, vbv_maxrate=300, vbv_bufsize=60,
+                     me_range=8), "retry"),
+            ("NAL HRD, VBV, bframes=2",
+             _params(CHECK_W, CHECK_H, True, rc_method=RC_ABR, bitrate=600,
+                     vbv_maxrate=600, vbv_bufsize=300, nal_hrd=True,
+                     bframes=2), None)):
+        small = [Frame420(*f) for f in frames]
+        streams, retries = {}, {}
+        for d in ("cuda", "cpu"):
+            e = Encoder(p, device=d)
+            retries[d] = _reencode_spy(e, synced=False)
+            x264_tpu_torch.reset_launch_counts()
+            out = b""
+            for i, f in enumerate(small):
+                if i == 1 and p.intra_refresh:
+                    e.intra_refresh()
+                out += e.encode(f)
+            streams[d] = out + e.flush()
+            if d == "cuda":
+                launches = x264_tpu_torch.launch_counts()
+                types = [s.frame_type for s in e.stats]
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"352x288 {label}: card stream != CPU "
+                                 "stream")
+        if [r[:3] for r in retries["cuda"]] != \
+                [r[:3] for r in retries["cpu"]] or \
+                (want == "pir_column" and not launches["pir_column"]) or \
+                (want == "retry" and not retries["cuda"]):
+            raise AssertionError(f"352x288 {label}: launches {launches}, "
+                                 f"re-encodes {retries}")
+        if _avdec_available():
+            if len(_decode(streams["cuda"], CHECK_W, CHECK_H)) != len(small):
+                raise AssertionError(f"352x288 {label}: avdec frame count")
+        print(f"{CHECK_W}x{CHECK_H} {label} x{len(small)}: card stream == "
+              f"CPU stream ({len(streams['cuda'])} bytes), frame types "
+              f"{' '.join(types)}, {len(retries['cuda'])} re-encodes, "
+              f"launches {launches}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1885,7 +2184,7 @@ def main() -> int:
     print(build.build_info["log"], file=sys.stderr)
     _print_resources(build.build_info["log"],
                      ("search_kernel", "esa", "trellis", "intra_nxn",
-                      "cavlc", "bitpack"))
+                      "cavlc", "bitpack", "pir_column"))
     probe_rate = _esa_probe_rate(build.library(), n_sm)
     print(f"esa_sad_probe: {probe_rate / 1e12:.3f} T vabsdiff4/s, "
           f"{probe_rate / (n_sm * clk_mhz * 1e6):.2f} per SM per clock at "
@@ -2036,6 +2335,7 @@ def main() -> int:
     _nxn_phase(clip, record, int_ops_per_s)
     _aq_kernel_phase(clip)
     _cavlc_phase(cavlc_frames, record, int_ops_per_s)
+    bar_ms = _pir_phase(clip, record, int_ops_per_s)
     for r in records:
         print(f"kernel {r['name']}: bit-exact, {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
@@ -2068,6 +2368,7 @@ def main() -> int:
     _run_1080p_multiref(clip[:MULTIREF_FRAMES], records)
     _run_1080p_cavlc(bclip, records)
     _run_1080p_medium(records)
+    _run_1080p_live(records, bar_ms)
 
     # ---- 5. card streams == CPU (plain twins) streams at 352x288 ----
     small = [Frame420(*f) for f in split_motion_clip(CHECK_W, CHECK_H,
@@ -2096,6 +2397,7 @@ def main() -> int:
     _check_small_weightp()
     _check_small_cavlc()
     _check_small_lookahead()
+    _check_small_live()
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
+import _one_thread  # noqa: E402,F401
 from x264_tpu.bitstream.tables import CHROMA_QP_TABLE  # noqa: E402
 from x264_tpu.ops.device import deblock as d_db  # noqa: E402
 from x264_tpu_torch.kernels import deblock as k_db  # noqa: E402

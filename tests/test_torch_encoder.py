@@ -24,6 +24,7 @@ os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
 pytest.importorskip("jax")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
+import _one_thread  # noqa: E402,F401
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.params import EncoderParams as RefParams  # noqa: E402
 from x264_tpu.utils.oracle import decode_annexb  # noqa: E402
@@ -122,10 +123,7 @@ def test_scenecut_promotes_like_reference():
 def test_unported_settings_and_missing_card_raise():
     for kw in (dict(i4x4=True, cabac=False),
                dict(subpel=0), dict(backend="reference"),
-               dict(slices=2), dict(intra_refresh=True),
-               dict(me_range=PAD + 1),
-               dict(vbv_maxrate=500, vbv_bufsize=500,
-                    rc_method=RC_ABR, bitrate=500)):
+               dict(slices=2), dict(me_range=PAD + 1)):
         with pytest.raises(NotImplementedError):
             Encoder(_params(64, 48, 26, **kw), device="cpu")
     with pytest.raises(NotImplementedError):            # subpel 0
@@ -138,7 +136,10 @@ def test_unported_settings_and_missing_card_raise():
                dict(bframes=2, scenecut_threshold=40),
                dict(p8x8=True, aq_mode=1), dict(mbtree=True),
                dict(mbtree=True, rc_method=RC_CRF, bframes=2, b_adapt=1,
-                    aq_mode=2, scenecut_threshold=40)):
+                    aq_mode=2, scenecut_threshold=40),
+               dict(intra_refresh=True),
+               dict(vbv_maxrate=500, vbv_bufsize=500,
+                    rc_method=RC_ABR, bitrate=500, nal_hrd=True)):
         Encoder(_params(64, 48, 26, **kw), device="cpu")
     for preset in ("superfast", "veryfast", "faster", "fast", "medium",
                    "slow", "slower", "veryslow", "placebo"):

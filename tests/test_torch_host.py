@@ -23,10 +23,12 @@ os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
 pytest.importorskip("jax")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
+import _one_thread  # noqa: E402,F401
 import x264_tpu.params as r_params  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 import x264_tpu.bitstream.bits as r_bits  # noqa: E402
 from x264_tpu.bitstream import cabac_init as r_cabac_init  # noqa: E402
+from x264_tpu.bitstream import sei as r_sei  # noqa: E402
 from x264_tpu.bitstream import slice_assemble as r_sa  # noqa: E402
 from x264_tpu.bitstream import tables as r_tables  # noqa: E402
 from x264_tpu.models import inter_device as r_inter_device  # noqa: E402
@@ -43,6 +45,7 @@ import x264_tpu_torch.params as t_params  # noqa: E402
 from x264_tpu_torch import state  # noqa: E402
 import x264_tpu_torch.bitstream.bits as t_bits  # noqa: E402
 from x264_tpu_torch.bitstream import cabac_init as t_cabac_init  # noqa: E402
+from x264_tpu_torch.bitstream import sei as t_sei  # noqa: E402
 from x264_tpu_torch.bitstream import slice_assemble as t_sa  # noqa: E402
 from x264_tpu_torch.bitstream import tables as t_tables  # noqa: E402
 from x264_tpu_torch.api import Encoder  # noqa: E402
@@ -208,6 +211,55 @@ def test_copied_function_equals_reference(name, ref_mod, port_mod):
                 np.testing.assert_array_equal(g, w)
         else:
             np.testing.assert_array_equal(got, want)
+
+
+# the live slice's host code: the SEI writers and the encoder's VBV,
+# HRD, refresh and entry-point methods, copied but for the import lines
+# (the port imports at the module's head)
+LIVE_COPIES = [("_payload_bytes", r_sei, t_sei),
+               ("buffering_period_sei", r_sei, t_sei),
+               ("pic_timing_sei", r_sei, t_sei),
+               ("recovery_point_sei", r_sei, t_sei)] + [
+    (name, RefEncoder, Encoder)
+    for name in ("_pir_w", "_pir_args", "intra_refresh",
+                 "invalidate_reference", "_hrd_sei", "_vbv_retry_qp",
+                 "delayed_frames", "encode_pipelined", "_decide_type")]
+
+
+class _DropImports(ast.NodeTransformer):
+    def visit_Import(self, node):
+        return None
+
+    visit_ImportFrom = visit_Import
+
+
+@pytest.mark.parametrize("name,ref_obj,port_obj", LIVE_COPIES,
+                         ids=[c[0] for c in LIVE_COPIES])
+def test_live_copies_equal_reference(name, ref_obj, port_obj):
+    """The same source text, docstrings and import statements aside."""
+    def code(fn):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        body = tree.body[0].body
+        if isinstance(body[0], ast.Expr) and \
+                isinstance(body[0].value, ast.Constant):
+            tree.body[0].body = body[1:]
+        return ast.dump(_DropImports().visit(tree))
+
+    assert code(getattr(port_obj, name)) == code(getattr(ref_obj, name))
+
+
+@pytest.mark.parametrize("delay", [0, 1, 8100, 90000, 1 << 24, 1 << 30])
+def test_sei_bytes_equal_reference(delay):
+    """Buffering-period, pic-timing and recovery-point SEIs byte for byte,
+    the 24-bit fields clamped alike."""
+    assert t_sei.buffering_period_sei(delay) == \
+        r_sei.buffering_period_sei(delay)
+    assert t_sei.buffering_period_sei(delay, delay // 3) == \
+        r_sei.buffering_period_sei(delay, delay // 3)
+    assert t_sei.pic_timing_sei(delay, 2 * delay) == \
+        r_sei.pic_timing_sei(delay, 2 * delay)
+    n = delay % 300
+    assert t_sei.recovery_point_sei(n) == r_sei.recovery_point_sei(n)
 
 
 def test_lambda_and_mv_bits_equal_reference():

@@ -37,6 +37,7 @@ jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
+import _one_thread  # noqa: E402,F401
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.models import intra_device  # noqa: E402
 from x264_tpu.models.inter_frame import me_lambda, sad_lambda  # noqa: E402
@@ -56,16 +57,6 @@ from x264_tpu_torch.utils.yuv import Frame420  # noqa: E402
 
 LV_CAP = 96          # the encoder's first entropy rung: shares compiles
 QPS = (0, 26, 51)
-
-
-@pytest.fixture
-def one_thread():
-    """torch on one thread: beside XLA's pool and other xdist workers,
-    its idle OpenMP threads would spin on every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _eq(port, ref, msg=""):
@@ -194,7 +185,7 @@ CORE_GROUPS = [(64, 48, False, False), (64, 48, False, True),
 
 
 @pytest.mark.parametrize("w,h,t8_mode,trellis", CORE_GROUPS)
-def test_i4_frame_core_matches_reference(one_thread, w, h, t8_mode,
+def test_i4_frame_core_matches_reference(w, h, t8_mode,
                                          trellis):
     planes = _content(w, h)
     hist = np.zeros(3, np.int64)
@@ -215,7 +206,7 @@ def test_i4_frame_core_matches_reference(one_thread, w, h, t8_mode,
 
 
 @pytest.mark.parametrize("t8_mode", [False, True])
-def test_nxn_candidates_plain_matches_reference_fields(one_thread, t8_mode):
+def test_nxn_candidates_plain_matches_reference_fields(t8_mode):
     """Each step's NxN candidates from the twin, for the MBs whose I4x4
     (or I8x8) candidate won in the reference: the modes, zigzag levels,
     nonzero counts, coded block pattern and SATD cost the reference
@@ -297,7 +288,7 @@ STREAM_GROUPS = {
 
 
 @pytest.mark.parametrize("group", list(STREAM_GROUPS))
-def test_i4_streams_match_reference_and_decode(one_thread, group):
+def test_i4_streams_match_reference_and_decode(group):
     for name, kw, n, cut in STREAM_GROUPS[group]:
         w, h = kw.get("width", 64), kw.get("height", 48)
         kw = {k: v for k, v in kw.items() if k not in ("width", "height")}

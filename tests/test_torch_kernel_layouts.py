@@ -319,3 +319,135 @@ ptxas info    : Used 40 registers, 368 bytes cmem[0]
     assert got == {"_Z4tallPKi": (95, 0, 0, 22140, 40),
                    "_Z4widePKi": (40, 8, 4, 0, 0)}
     assert got["_Z4tallPKi"].smem == 22140 and got["_Z4tallPKi"].stack == 40
+
+
+# ---- csrc/pir_column.cu run on the CPU ----
+# The kernel is one CUDA block whose threads meet at __syncthreads(); its
+# source compiles as C++ when each CUDA thread is an OS thread and the
+# barrier a std::barrier, so its arithmetic is checked here against the
+# plain twin (the card checks the real build:
+# tests/test_torch_kernels_cuda.py).
+
+_CUDA_SHIM = r"""
+#pragma once
+#include <barrier>
+#include <cstdint>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __restrict__
+#define __shared__ static
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+struct Dim3Emu { int x; };
+extern thread_local Dim3Emu threadIdx;
+extern std::barrier<>* g_bar;
+inline void __syncthreads() { g_bar->arrive_and_wait(); }
+"""
+
+_PIR_THREADS = r"""
+#include <thread>
+#include <vector>
+thread_local Dim3Emu threadIdx;
+std::barrier<>* g_bar;
+extern "C" int pir_column_threads(void** p, const void* tab, int pir_col,
+                                  int ncols, int mbw, int mbh) {
+  Fields f{(int*)p[8],  (int*)p[9],  (int*)p[10], (int*)p[11], (int*)p[12],
+           (int*)p[13], (int*)p[14], (int*)p[15], (int*)p[16], (int*)p[17],
+           (int*)p[18], (int*)p[19], (bool*)p[20], (bool*)p[21]};
+  std::barrier<> bar(256);
+  g_bar = &bar;
+  std::vector<std::thread> th;
+  for (int i = 0; i < 256; ++i)
+    th.emplace_back([&, i] {
+      threadIdx.x = i;
+      pir_column_kernel((const uint8_t*)p[0], (const uint8_t*)p[1],
+                        (const uint8_t*)p[2], (int*)p[3], (int*)p[4],
+                        (int*)p[5], (const int*)p[6], (const int*)p[7], f,
+                        (const int*)tab, pir_col, ncols, mbw, mbh);
+    });
+  for (auto& t : th) t.join();
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def pir_threads(tmp_path_factory):
+    """csrc/pir_column.cu's kernel built with g++ as 256 threads."""
+    import ctypes
+    import shutil
+    import subprocess
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernel's source for the CPU")
+    d = tmp_path_factory.mktemp("pir_column")
+    (d / "cuda_runtime.h").write_text(_CUDA_SHIM)
+    src = _source("pir_column.cu")
+    (d / "pir.cpp").write_text(src[:src.index('extern "C"')] + _PIR_THREADS)
+    so = d / "libpir.so"
+    r = subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared",
+                        "-pthread", f"-I{d}", str(d / "pir.cpp"), "-o",
+                        str(so)], capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lib = ctypes.CDLL(str(so))
+    lib.pir_column_threads.argtypes = [ctypes.c_void_p] * 2 + \
+        [ctypes.c_int] * 4
+    return lib
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_pir_column_source_runs_as_its_twin(pir_threads, seed):
+    """Random frames of 1-6 x 1-4 MBs, QPs 0-51 per MB, bars of 1-3
+    columns anywhere (masked columns past the edge included), flat and
+    noisy content: the kernel's planes and fields equal the twin's."""
+    import ctypes
+    from x264_tpu_torch.kernels import pir_column as KR
+    from x264_tpu_torch.state import CHROMA_QP_TABLE
+    rng = np.random.default_rng(40 + seed)
+    for trial in range(4):
+        mbw, mbh = int(rng.integers(1, 7)), int(rng.integers(1, 5))
+        n, h, w = mbw * mbh, 16 * mbh, 16 * mbw
+        if trial % 2:
+            yy, xx = np.mgrid[0:h, 0:w]
+            y = (128 + 60 * np.sin(xx / 7 + yy / 9)).astype(np.uint8)
+            u = (128 + 30 * np.cos(xx[::2, ::2] / 5)).astype(np.uint8)
+            v = np.full((h // 2, w // 2), 100, np.uint8)
+        else:
+            y = rng.integers(0, 256, (h, w)).astype(np.uint8)
+            u, v = (rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8)
+                    for _ in range(2))
+        rec = [rng.integers(0, 256, s).astype(np.int32)
+               for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+        qp = rng.integers(0, 52, n).astype(np.int32)
+        qpc = CHROMA_QP_TABLE[np.clip(qp + int(rng.integers(-4, 5)), 0, 51)
+                              ].astype(np.int32)
+        acc = {k: (rng.integers(0, 2, (n, *s)).astype(bool)
+                   if k in ("intra_mask", "t8")
+                   else rng.integers(-5, 5, (n, *s)).astype(np.int32))
+               for k, s in KR._FIELDS}
+        col, ncols = int(rng.integers(0, mbw)), int(rng.integers(1, 4))
+
+        def run(fn):
+            t = [torch.from_numpy(a.copy()) for a in (y, u, v, *rec, qp,
+                                                       qpc)]
+            f = {k: torch.from_numpy(a.copy()) for k, a in acc.items()}
+            return fn(t, f)
+
+        twin = run(lambda t, f: KR.pir_column_pass_plain(
+            *t[:6], f, t[6], t[7], col, mbw, mbh, ncols))
+
+        def threads(t, f):
+            ptrs = [x.data_ptr() for x in t] + [f[k].data_ptr()
+                                               for k in KR.FIELDS]
+            pir_threads.pir_column_threads(
+                (ctypes.c_void_p * len(ptrs))(*ptrs),
+                KR._tables("cpu").data_ptr(), col, ncols, mbw, mbh)
+            return (*t[3:6], f)
+        got = run(threads)
+        for name, a, b in zip(("ry", "ru", "rv"), got[:3], twin[:3]):
+            assert torch.equal(a, b), (trial, name)
+        for k in KR.FIELDS:
+            assert torch.equal(got[3][k], twin[3][k]), (trial, k)

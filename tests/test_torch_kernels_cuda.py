@@ -929,3 +929,91 @@ def test_cavlc_i16_graph_matches_eager_core(cuda):
             assert torch.equal(got[k], eager[k]), (n_words, k)
         assert got["host_blob"].shape == (kw["mbw"] * kw["mbh"],
                                           n_words + 3)
+
+
+# ---- the refresh bar (csrc/pir_column.cu) ----
+
+def _bar_case(cuda, mbw, mbh, seed):
+    from x264_tpu_torch.kernels import pir_column as k_pir
+    from x264_tpu_torch.state import CHROMA_QP_TABLE
+    rng = np.random.default_rng(seed)
+    n, h, w = mbw * mbh, 16 * mbh, 16 * mbw
+    planes = [rng.integers(0, 256, s).astype(np.uint8)
+              for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    rec = [rng.integers(0, 256, p.shape).astype(np.int32) for p in planes]
+    qp = rng.integers(0, 52, n).astype(np.int32)
+    qpc = CHROMA_QP_TABLE[np.clip(qp + 1, 0, 51)].astype(np.int32)
+    acc = {k: (rng.integers(0, 2, (n, *s)).astype(bool)
+               if k in ("intra_mask", "t8")
+               else rng.integers(-5, 5, (n, *s)).astype(np.int32))
+           for k, s in k_pir._FIELDS}
+
+    def inputs(dev):
+        return ([torch.from_numpy(a.copy()).to(dev)
+                 for a in (*planes, *rec, qp, qpc)],
+                {k: torch.from_numpy(a.copy()).to(dev)
+                 for k, a in acc.items()})
+    return inputs
+
+
+@pytest.mark.parametrize("mbw,mbh,col,ncols", [
+    (6, 4, 0, 1), (6, 4, 2, 3), (6, 4, 5, 3), (1, 1, 0, 1), (120, 68, 0, 3),
+    (120, 68, 59, 3), (120, 68, 117, 3), (120, 68, 119, 3)])
+def test_pir_column_kernel_matches_plain(cuda, mbw, mbh, col, ncols):
+    """The kernel's planes and fields equal the plain twin's at per-MB QPs
+    0-51, at 1080p too, with bars reaching past the right edge; one
+    launch, counted."""
+    from x264_tpu_torch.kernels import pir_column as k_pir
+    inputs = _bar_case(cuda, mbw, mbh, mbw * 7 + col)
+    t, f = inputs(cuda)
+    before = x264_tpu_torch.launch_counts()["pir_column"]
+    got = k_pir.pir_column_pass(*t[:6], f, t[6], t[7], col, mbw, mbh, ncols)
+    torch.cuda.synchronize()
+    assert x264_tpu_torch.launch_counts()["pir_column"] == before + 1
+    t, f = inputs(cuda)
+    want = k_pir.pir_column_pass_plain(*t[:6], f, t[6], t[7], col, mbw,
+                                       mbh, ncols)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    for k in k_pir.FIELDS:
+        assert torch.equal(got[3][k], want[3][k]), k
+
+
+def test_pir_column_bad_launches_raise(cuda):
+    from x264_tpu_torch.kernels import pir_column as k_pir
+    inputs = _bar_case(cuda, 4, 2, 3)
+    t, f = inputs(cuda)
+    with pytest.raises(ValueError):
+        k_pir.pir_column_pass(*t[:6], f, t[6], t[7], 4, 4, 2, 1)
+    with pytest.raises(ValueError):
+        k_pir.pir_column_pass(*t[:6], dict(f, t8=f["t8"].int()), t[6],
+                              t[7], 0, 4, 2, 1)
+    with pytest.raises(ValueError):
+        k_pir.pir_column_pass(t[0][:, :32], *t[1:6], f, t[6], t[7], 0, 4, 2,
+                              1)
+
+
+@pytest.mark.parametrize("cabac", [True, False])
+def test_live_encoder_on_card_matches_cpu(cuda, cabac):
+    """Intra refresh on P16 anchors (CABAC also with the 8x8 transform
+    and trellis) under a tight VBV buffer: the card's stream equals the
+    CPU's, with the bar kernel launched."""
+    from x264_tpu_torch.params import RC_ABR
+    rng = np.random.default_rng(4)
+    frames = [Frame420(rng.integers(0, 256, (64, 96), dtype=np.uint8),
+                       rng.integers(0, 256, (32, 48), dtype=np.uint8),
+                       rng.integers(0, 256, (32, 48), dtype=np.uint8))
+              for _ in range(5)]
+    kw = dict(width=96, height=64, cabac=cabac, intra_refresh=True,
+              keyint_max=3, me_range=8, rc_method=RC_ABR, bitrate=300,
+              vbv_maxrate=300, vbv_bufsize=100)
+    if cabac:
+        kw.update(transform_8x8=True, trellis=1)
+    streams = {}
+    for d in ("cuda", "cpu"):
+        enc = Encoder(EncoderParams(**kw), device=d)
+        x264_tpu_torch.reset_launch_counts()
+        streams[d] = b"".join(enc.encode(f) for f in frames) + enc.flush()
+        if d == "cuda":
+            assert x264_tpu_torch.launch_counts()["pir_column"] >= 2
+    assert streams["cuda"] == streams["cpu"]

@@ -25,6 +25,7 @@ os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
+import _one_thread  # noqa: E402,F401
 from x264_tpu import params as r_params  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.models import inter_frame as r_inter  # noqa: E402

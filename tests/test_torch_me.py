@@ -11,6 +11,7 @@ import torch
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
+import _one_thread  # noqa: E402,F401
 from x264_tpu.models.inter_frame import PAD  # noqa: E402
 from x264_tpu.ops.device import me as d_me  # noqa: E402
 from x264_tpu.ops.device.mc import hpel_planes  # noqa: E402

@@ -41,6 +41,7 @@ jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
+import _one_thread  # noqa: E402,F401
 import x264_tpu.bitstream.bits as r_bits  # noqa: E402
 import x264_tpu.bitstream.headers as r_headers  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402

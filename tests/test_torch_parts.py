@@ -22,6 +22,7 @@ os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
+import _one_thread  # noqa: E402,F401
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.models import inter_device, intra_device  # noqa: E402
 from x264_tpu.ops.device import deblock as d_db  # noqa: E402

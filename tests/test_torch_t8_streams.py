@@ -21,6 +21,7 @@ os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
 pytest.importorskip("jax")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
+import _one_thread  # noqa: E402,F401
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.params import EncoderParams as RefParams  # noqa: E402
 from x264_tpu.utils.oracle import decode_annexb  # noqa: E402

@@ -33,6 +33,7 @@ jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
+import _one_thread  # noqa: E402,F401
 from x264_tpu.models import (b_frame_device, inter_device,  # noqa: E402
                              intra_device, residual_device)
 from x264_tpu.models.inter_frame import me_lambda  # noqa: E402
@@ -104,19 +105,9 @@ def _coefs(nc: int, n: int, rng):
     return np.ascontiguousarray(z[:, 1:]) if nc == 15 else z
 
 
-@pytest.fixture
-def one_thread():
-    """torch on one thread: beside XLA's pool and other xdist workers,
-    its idle OpenMP threads would spin on every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("stype", ["I", "P", "B"])
 @pytest.mark.parametrize("nc,cat", [(16, 2), (64, 5), (15, 1), (15, 4)])
-def test_trellis_twin_matches_reference_every_qp(one_thread, nc, cat, stype):
+def test_trellis_twin_matches_reference_every_qp(nc, cat, stype):
     fn = _ref_jit(nc)
     for qp in range(52):
         rng = np.random.default_rng(1000 * nc + 10 * cat + qp)

@@ -23,7 +23,13 @@ transform and, with CABAC, trellis quantisation when asked; and the
 lookahead: adaptive quantisation (``aq_mode`` 1-3, a per-MB QP map on I
 and P frames), the lowres scenecut with B frames, adaptive B placement
 (``b_adapt=1``) and MB-tree under CRF or ABR (``models/lookahead.py``,
-``models/mbtree.py``).  The settings in ``_NOT_PORTED`` and I4x4 with
+``models/mbtree.py``); and the live-streaming settings: VBV with its
+frame-grain re-encode of an anchor that would underflow the decoder's
+buffer, NAL HRD buffering-period and pic-timing SEIs, periodic intra
+refresh (a moving I16 bar, ``kernels/pir_column``, with its
+recovery-point SEI), and the run-time entry points ``reconfig``,
+``delayed_frames``, ``intra_refresh``, ``invalidate_reference`` and
+``encode_pipelined``.  The settings in ``_NOT_PORTED`` and I4x4 with
 CAVLC raise ``NotImplementedError``.  On the card an I frame's core is
 one CUDA graph replay (``models/graph.py``).
 """
@@ -40,7 +46,9 @@ from x264_tpu_torch.bitstream.headers import (SLICE_B, SLICE_I, SLICE_P,
                                               sps_from_params,
                                               wrap_slice_nal, write_pps,
                                               write_slice_header, write_sps)
-from x264_tpu_torch.bitstream.sei import version_sei
+from x264_tpu_torch.bitstream.sei import (buffering_period_sei,
+                                          pic_timing_sei,
+                                          recovery_point_sei, version_sei)
 from x264_tpu_torch.bitstream.slice_assemble import (append_payload,
                                                      merge_mb_strings)
 from x264_tpu_torch.models.b_frame import b_frame_core, b_pair_core
@@ -69,8 +77,7 @@ MB_I16, MB_I4, MB_PSKIP = 0, 1, 3
 
 # parameters whose paths are not ported yet (ROADMAP queue A), with the
 # value the port runs
-_NOT_PORTED = dict(intra_refresh=False, slices=1, vbv_maxrate=0,
-                   vbv_bufsize=0)
+_NOT_PORTED = dict(slices=1)
 
 
 def _check_params(p: EncoderParams) -> None:
@@ -89,6 +96,12 @@ def _check_params(p: EncoderParams) -> None:
     if p.me_range > PAD or (p.me_range == PAD
                             and (p.bframes > 0 or not p.p8x8)):
         bad["me_range"] = p.me_range
+    # the reference clamps each 8x8 quadrant's mvx left of the refresh bar
+    # on its own, so one partition's quadrants can end up with different
+    # mvs while the stream codes one: its streams stop decoding to its
+    # recon (ROADMAP C, fault 3)
+    if p.intra_refresh and p.p8x8:
+        bad["p8x8"] = "on with intra_refresh"
     if bad:
         raise NotImplementedError(
             f"x264_tpu_torch does not run these settings yet: {bad}")
@@ -202,6 +215,89 @@ class Encoder:
             from x264_tpu_torch.params import parse_zones
             self._zones = parse_zones(self.p.zones)
 
+    # -- x264_encoder_reconfig (encoder/encoder.c:1955) ----------------------
+    RECONFIG_OK = frozenset((
+        "qp", "crf", "bitrate", "qp_min", "qp_max", "me_range", "subpel",
+        "scenecut_threshold", "deblock", "deblock_alpha", "deblock_beta",
+        "weightp", "trellis", "aq_mode", "aq_strength", "keyint_max",
+        "keyint_min", "vbv_maxrate", "vbv_bufsize", "rc_method",
+        "log_level", "me_method"))
+
+    def reconfig(self, **kw) -> None:
+        """Change run-time parameters mid-stream.  Only the analysis/RC
+        whitelist is reconfigurable (anything baked into SPS/PPS is
+        rejected with ``ValueError``), and a value the port does not run
+        raises ``NotImplementedError`` as it would at open."""
+        bad = set(kw) - self.RECONFIG_OK
+        if bad:
+            raise ValueError(f"not reconfigurable: {sorted(bad)}")
+        newp = self.p.clone(**kw).validate()
+        _check_params(newp)
+        self.p = newp
+        self.rc.p = newp               # RC reads params dynamically
+
+    def delayed_frames(self) -> int:
+        """Frames buffered inside the encoder (B queue + lookahead +
+        deferred mini-GOP finalize + the pipelined frame) —
+        x264_encoder_delayed_frames."""
+        n = len(self._bq or [])
+        n += len(self._mbt_q or [])
+        n += len(self._gop_q or [])
+        n += 1 if getattr(self, "_pending", None) is not None else 0
+        return n
+
+    # ---- periodic intra refresh (PIR) sweep state ----
+    _pir_col = None          # next column to refresh, or None (no sweep)
+    _pir_restart = False
+
+    def _pir_w(self) -> int:
+        """Columns refreshed per P frame: a sweep spans ~keyint frames
+        (encoder.c:3626 refresh-bar advance)."""
+        k = max(2, self.p.keyint_max or 2)
+        return max(1, -(-self.p.mb_width // (k - 1)))
+
+    def _pir_args(self, idr: bool):
+        """(pir_ncols, pir_col, pir_bound, recovery-point SEI bytes) for
+        this frame, advancing the sweep; the SEI at a sweep's start."""
+        if not self.p.intra_refresh or idr:
+            return 0, None, None, b""
+        sei = b""
+        if self._pir_restart or (
+                self.p.keyint_max > 1
+                and self.frame_idx % self.p.keyint_max == 0):
+            self._pir_col = 0
+            self._pir_restart = False
+            sei = recovery_point_sei(
+                -(-self.p.mb_width // self._pir_w()))
+        if self._pir_col is None or self._pir_col >= self.p.mb_width:
+            return 0, None, None, sei
+        col = self._pir_col
+        self._pir_col = col + self._pir_w()
+        return (self._pir_w(), np.int32(col), np.int32(16 * col), sei)
+
+    def intra_refresh(self) -> None:
+        """Request a refresh at the earliest opportunity
+        (x264_encoder_intra_refresh).  With ``intra_refresh`` this
+        restarts the PIR sweep (no IDR, encoder.c:3280); otherwise it
+        forces the next frame to IDR."""
+        if self.p.intra_refresh:
+            self._pir_restart = True
+            return
+        if self._force is None:
+            self._force = {}
+        self._force[self._in_disp] = ("IDR", None)
+
+    def invalidate_reference(self, frame_num: int) -> int:
+        """Stop predicting from pictures with frame_num >= the given
+        coded frame number (x264_encoder_invalidate_reference: the
+        downstream decoder lost them); the recovery is an immediate
+        refresh (``intra_refresh``).  Returns how many DPB pictures were
+        invalid."""
+        invalid = sum(1 for r in self.dpb if r.frame_num >= frame_num)
+        if invalid:
+            self.intra_refresh()
+        return invalid
+
     # -- x264_encoder_headers ------------------------------------------------
     def headers(self) -> bytes:
         out = self._sps_bytes + self._pps_bytes
@@ -231,6 +327,32 @@ class Encoder:
         self._au_meta = []
         return m
 
+    # NAL HRD timing SEI state (coded-order counters)
+    _hrd_cod_since_bp = 0
+    _hrd_cod_total = 0
+
+    def _hrd_sei(self, idr: bool, poc_lsb: int) -> bytes:
+        """Buffering-period SEI at each IDR + pic-timing SEI per frame
+        when ``nal_hrd`` (D.1.1/D.1.2; x264 encoder.c:3700 emission
+        points).  Delays use the 24-bit lengths the VUI declares."""
+        if not self.p.nal_hrd:
+            return b""
+        out = b""
+        if idr:
+            d90k = int(90000 * self.p.vbv_bufsize * self.p.vbv_init
+                       / max(1, self.p.vbv_maxrate))
+            out += buffering_period_sei(d90k)
+            self._hrd_cod_since_bp = 0
+        reorder = 1 if self.p.bframes else 0
+        disp = (self._idr_disp + poc_lsb // 2 if self.p.bframes
+                else self._hrd_cod_total)
+        out += pic_timing_sei(
+            2 * self._hrd_cod_since_bp,
+            max(0, 2 * (disp + reorder - self._hrd_cod_total)))
+        self._hrd_cod_since_bp += 1
+        self._hrd_cod_total += 1
+        return out
+
     def _entropy_kw(self, budget: int) -> dict:
         """The cores' entropy argument: the CABAC blob's level capacity
         or the CAVLC word budget per MB."""
@@ -243,15 +365,16 @@ class Encoder:
         return np.asarray(blob).reshape(-1)[:n * st].reshape(n, st)
 
     def _run_core(self, yd, ud, vd, ref, idr: bool, base_qp: int, qp_arr,
-                  n_words: int, mbw: int, mbh: int, wts=None):
+                  n_words: int, mbw: int, mbh: int, wts=None, pir=None):
         """Run the I or P core; ``host_blob`` comes back as a
         ``_HostCopy``, the one device-to-host copy of a frame.  An I
         frame takes ``i4_frame_core`` with i4x4 (at the lambda of the
         frame QP, as the reference), else ``i_frame_core``; on the card
         as a CUDA graph replay.  A P frame searches every reference of
         ``ref`` (the DPB in list0 order, stacked on the device when
-        there are several) and weights its prediction by ``wts`` (K, 2)
-        when given."""
+        there are several), weights its prediction by ``wts`` (K, 2)
+        when given and codes the refresh bar ``pir`` = (pir_ncols,
+        pir_col, pir_bound) when given."""
         qp = torch.as_tensor(np.asarray(qp_arr, np.int32),
                              device=self.device)
         if idr or ref is None:
@@ -271,6 +394,10 @@ class Encoder:
             else:
                 ry, ru, rv = (torch.stack([getattr(r, c) for r in ref])
                               for c in "yuv")
+            pkw = {}
+            if pir is not None and pir[0]:
+                pkw = dict(pir_ncols=pir[0], pir_col=int(pir[1]),
+                           pir_bound=int(pir[2]))
             out = p_frame_core(yd, ud, vd, ry, ru, rv, qp,
                                sad_lambda(base_qp), mbw=mbw, mbh=mbh,
                                me_range=self.p.me_range,
@@ -279,7 +406,7 @@ class Encoder:
                                decimate=self.p.dct_decimate,
                                t8=self.p.transform_8x8,
                                trellis_tbl=self._trellis_tbl(base_qp, "P"),
-                               wts=wts, **self._entropy_kw(n_words))
+                               wts=wts, **pkw, **self._entropy_kw(n_words))
             slice_type = SLICE_P
         out["host_blob"] = _HostCopy(out["host_blob"])
         return out, slice_type
@@ -376,6 +503,12 @@ class Encoder:
                              self.p.qp_min, self.p.qp_max).astype(np.int32)
             slice_qp = int(qp_arr[0])
         ref = None if (idr or not self.dpb) else self.dpb
+        pir = None
+        pir_sei = b""
+        if self.p.intra_refresh:
+            ncols, col, bound, pir_sei = self._pir_args(idr or ref is None)
+            if ncols:
+                pir = (ncols, col, bound)
         wts = weights = None
         if self.p.weightp and ref is not None:
             # weight analysis from the source frames (models/weightp.py),
@@ -385,11 +518,14 @@ class Encoder:
             wts = torch.as_tensor(np.asarray(weights, np.int32),
                                   device=self.device)
         out, slice_type = self._run_core(yd, ud, vd, ref, idr, qp, qp_arr,
-                                         n_words, mbw, mbh, wts=wts)
+                                         n_words, mbw, mbh, wts=wts,
+                                         pir=pir)
         if (ref is not None and self.p.scenecut_threshold > 0
+                and not self.p.intra_refresh
                 and self.p.bframes == 0
                 and self.frame_idx - self._last_idr_idx
-                >= self.p.keyint_min):
+                >= self.p.keyint_min
+                and self._pending is None):
             # post-encode scenecut (x264 slicetype.c:1430 rule, no
             # lookahead): promote to IDR when inter is no cheaper than
             # intra, from the costs the P core already computed (B GOPs
@@ -419,12 +555,14 @@ class Encoder:
                    ladder=ladder, frame_num=self.frame_num,
                    idr_pic_id=self.idr_pic_id, ftype=ftype,
                    planes=(yd, ud, vd), ref=ref,
-                   wts=None if idr else wts,
+                   wts=None if idr else wts, pir=pir, pir_sei=pir_sei,
                    weights=None if idr else weights)
         # advance encoder state now (dpb is list0 order, sliding window;
         # the source history follows it and restarts at every IDR, a
-        # scenecut-promoted one included)
+        # scenecut-promoted one included); a VBV re-encode rewrites the
+        # job's ReconFrame in place
         new = ReconFrame(*recon, frame_num=self.frame_num)
+        job["rec"] = new
         self.dpb = ([new] + ([] if idr else self.dpb))[:self.p.ref_frames]
         if self.p.weightp:
             self._src_hist = ([y] + ([] if idr else self._src_hist)
@@ -437,10 +575,67 @@ class Encoder:
         self.frame_idx += 1
         return job
 
+    def _vbv_retry_qp(self, job: dict, nbytes: int):
+        """Frame-grain VBV hard guarantee: if the coded frame would
+        underflow the decoder buffer, return a bumped QP to re-encode at
+        (the batched analog of x264's row-VBV rollback + re-encode,
+        ratecontrol.c:1590 x264_ratecontrol_mb + encoder.c:2770 bs_bak;
+        the rollback unit is the frame).  Anchors only: B frames rely on
+        the soft clip_qscale bound."""
+        rc = self.rc
+        if not rc.vbv_on or job.get("vbv_tries", 0) >= 8:
+            return None
+        budget = min(rc.vbv_fill + rc.vbv_max / rc.fps, rc.vbv_size)
+        if nbytes * 8 <= max(budget, 1.0):
+            return None
+        d = max(1, int(np.ceil(6.0 * np.log2(
+            nbytes * 8.0 / max(budget, 1.0)))))
+        nq = int(np.clip(job["qp"] + d, self.p.qp_min, self.p.qp_max))
+        return nq if nq > job["qp"] else None
+
+    def _vbv_reencode(self, job: dict, nq: int) -> dict:
+        """Re-run the frame core at the bumped QP and rewrite the DPB
+        recon in place (the job's ReconFrame is the object the DPB
+        holds; nothing has been submitted against it yet: with VBV the
+        finalize queue drains before new submits).  On the card an IDR
+        replays its core's graph at the new QP."""
+        dq = nq - job["qp"]
+        qp_arr = np.clip(np.asarray(job["qp_arr"]) + dq,
+                         self.p.qp_min, self.p.qp_max).astype(np.int32)
+        if np.ndim(qp_arr) == 0:
+            qp_arr = np.int32(qp_arr)
+        yd, ud, vd = job["planes"]
+        out, _ = self._run_core(yd, ud, vd, job["ref"], job["idr"], nq,
+                                qp_arr, job["n_words"], job["mbw"],
+                                job["mbh"], wts=job.get("wts"),
+                                pir=job.get("pir"))
+        job = dict(job, qp=nq, slice_qp=int(np.atleast_1d(qp_arr)[0]),
+                   qp_arr=qp_arr, out=out, blob=out["host_blob"],
+                   vbv_tries=job.get("vbv_tries", 0) + 1)
+        recon = self._deblock_device(out, nq, job["mbw"], job["mbh"])
+        rec = job.get("rec")
+        if rec is not None:
+            rec.y, rec.u, rec.v = recon
+            if "mv8" in out or "mv" in out:
+                self._set_colocated(rec, out, job["mbw"] * job["mbh"])
+        self.last_recon = rec if rec is not None else self.last_recon
+        return job
+
     def _finalize_device(self, job: dict) -> bytes:
         """An I or P frame's bytes, by the stream's entropy coder."""
         return (self._finalize_cabac(job) if self.p.cabac
                 else self._finalize_cavlc(job))
+
+    def _frame_prefix(self, job: dict) -> bytes:
+        """What goes before an anchor's slice NAL: the repeated headers
+        at an IDR, the refresh sweep's recovery-point SEI and the NAL
+        HRD timing SEIs (the HRD counters advance at every call, a VBV
+        re-encode's finalize included, as in the reference)."""
+        out = b""
+        if job["ftype"] == "IDR" and self.p.repeat_headers:
+            out += self.headers()
+        out += job.get("pir_sei", b"")
+        return out + self._hrd_sei(job["idr"], job.get("poc_lsb", 0))
 
     def _slice_writer(self, job: dict) -> BitWriter:
         """A BitWriter holding the frame's slice header."""
@@ -484,7 +679,7 @@ class Encoder:
                 out, _ = self._run_core(yd, ud, vd, job["ref"], job["idr"],
                                         job["qp"], job["qp_arr"], K,
                                         job["mbw"], job["mbh"],
-                                        wts=job["wts"])
+                                        wts=job["wts"], pir=job["pir"])
                 blob = out["host_blob"].numpy()
                 rows = self._cab_rows(blob, n, parts=parts, i4=i4)
                 total = int(rows[:, 14 + 8].astype(np.int64).sum())
@@ -493,9 +688,7 @@ class Encoder:
         self._note_budget(True, -(-total // n))
         mb_class = rows[:, 14]
 
-        out_bytes = b""
-        if job["ftype"] == "IDR" and self.p.repeat_headers:
-            out_bytes += self.headers()
+        out_bytes = self._frame_prefix(job)
         bs = self._slice_writer(job)
         pad = (-bs.bit_length) % 8
         if pad:
@@ -507,6 +700,9 @@ class Encoder:
                                     num_ref=job["num_ref"] if kind else 1)
         out_bytes += wrap_slice_nal(bs.to_bytes_aligned() + payload,
                                     job["idr"])
+        nq = self._vbv_retry_qp(job, len(out_bytes))
+        if nq is not None:
+            return self._finalize_cabac(self._vbv_reencode(job, nq))
         self._account(job, len(out_bytes),
                       int(rows[:, 14 + 9].astype(np.int64).sum()), mb_class)
         return out_bytes
@@ -527,7 +723,7 @@ class Encoder:
                 out, _ = self._run_core(yd, ud, vd, job["ref"], job["idr"],
                                         job["qp"], job["qp_arr"], n_words,
                                         job["mbw"], job["mbh"],
-                                        wts=job["wts"])
+                                        wts=job["wts"], pir=job["pir"])
                 blob = out["host_blob"].numpy()
                 nbits = blob[:, n_words]
                 if int(nbits.max(initial=0)) <= 32 * n_words:
@@ -535,14 +731,15 @@ class Encoder:
         self._note_budget(False, -(-int(nbits.max(initial=0)) // 32))
         mb_class = blob[:, n_words + 1]
 
-        out_bytes = b""
-        if job["ftype"] == "IDR" and self.p.repeat_headers:
-            out_bytes += self.headers()
+        out_bytes = self._frame_prefix(job)
         bs = self._slice_writer(job)
         _append_mbs(bs, blob, n_words,
                     skip_class=MB_PSKIP if job["slice_type"] == SLICE_P
                     else None)
         out_bytes += wrap_slice_nal(bs.to_rbsp(), job["idr"])
+        nq = self._vbv_retry_qp(job, len(out_bytes))
+        if nq is not None:
+            return self._finalize_cavlc(self._vbv_reencode(job, nq))
         self._account(job, len(out_bytes),
                       int(blob[:, n_words + 2].astype(np.int64).sum()),
                       mb_class)
@@ -662,6 +859,22 @@ class Encoder:
             return b""
         anchor, ad = pend[-1]
         prev = self.dpb[0]
+        if self.rc.vbv_on:
+            # a VBV re-encode may rewrite a finalized anchor's recon in
+            # place, so nothing is submitted against an anchor before it
+            # clears its VBV check: drain the queue, finalize the new
+            # anchor (retry included) before the B frames capture it, and
+            # code each B frame eagerly, one core each
+            out = self._drain_gop_q()
+            prev = self.dpb[0]
+            ajob = self._submit_anchor(anchor, ad, "P")
+            if self.p.b_adapt:
+                self._lookahead().push_anchor(self._pad(anchor)[0])
+            out += self._finalize_device(ajob)
+            nxt = self.dpb[0]
+            for (bf, bd) in pend[:-1]:
+                out += self._finalize_b(self._submit_b(bf, bd, prev, nxt))
+            return out
         ajob = self._submit_anchor(anchor, ad, "P")
         if self.p.b_adapt:
             self._lookahead().push_anchor(self._pad(anchor)[0])
@@ -704,7 +917,12 @@ class Encoder:
         rec = self.dpb[0]
         self._note_recon(disp, rec)
         rec.poc = job["poc_lsb"]
-        n = job["mbw"] * job["mbh"]
+        self._set_colocated(rec, out, job["mbw"] * job["mbh"])
+        return job
+
+    def _set_colocated(self, rec: ReconFrame, out: dict, n: int) -> None:
+        """An anchor's colocated motion field, which temporal direct
+        reads: quadrant mvs and refs, and the intra MBs."""
         if "mv8" in out:
             # quadrant motion (partitions): direct derives per quadrant
             rec.col_mv, rec.col_ref = out["mv8"], out["ref8"]
@@ -719,7 +937,6 @@ class Encoder:
             rec.col_intra = torch.ones(n, dtype=torch.bool,
                                        device=self.device)
             rec.col_ref = None
-        return job
 
     def _upload(self, planes):
         return [torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
@@ -822,6 +1039,7 @@ class Encoder:
                     break
         self._note_budget(cab, used(blob, n_words))
 
+        hrd = self._hrd_sei(False, job["poc_cur"])
         bs = BitWriter()
         write_slice_header(bs, self.p, self.sps, init_qp=self._init_qp,
                            slice_type=SLICE_B, idr=False,
@@ -837,13 +1055,13 @@ class Encoder:
                 bs.put(pad, (1 << pad) - 1)    # cabac_alignment_one_bit
             payload = write_slice_cabac(blob, mbw, mbh, 2, qp, n_words,
                                         t8_mode=self.p.transform_8x8)
-            data = wrap_slice_nal(bs.to_bytes_aligned() + payload, False,
-                                  is_ref=False)
+            data = hrd + wrap_slice_nal(bs.to_bytes_aligned() + payload,
+                                        False, is_ref=False)
         else:
             mb_class = blob[:, n_words + 1]
             cost_total = int(blob[:, n_words + 2].astype(np.int64).sum())
             _append_mbs(bs, blob, n_words, skip_class=MB_PSKIP)
-            data = wrap_slice_nal(bs.to_rbsp(), False, is_ref=False)
+            data = hrd + wrap_slice_nal(bs.to_rbsp(), False, is_ref=False)
 
         # the deblocked recon for output (a B frame is no reference; the
         # b_full_recon analog skips it when full_recon is off)
@@ -866,9 +1084,33 @@ class Encoder:
         self._note_au(len(data), "B", job["poc_cur"])
         return data
 
+    def encode_pipelined(self, fr: Frame420) -> bytes:
+        """Submit this frame, return the previous frame's bytes (b"" for
+        the first call): the device work of frame t+1 is enqueued before
+        the host codes frame t.  Call ``flush()`` for the last frame.
+        Frame types and QPs come from rate control alone (no forced
+        types, zones or MB-tree), and B frames are not used."""
+        out = b""
+        if self.rc.vbv_on and self._pending is not None:
+            # a VBV re-encode rewrites the pending frame's DPB recon in
+            # place: finalize it (retry included) before this frame's
+            # submit captures its reference planes
+            out += self._finalize_device(self._pending)
+            self._pending = None
+        y, u, v = self._pad(fr)
+        ftype = self._decide_type()
+        if ftype == "IDR":
+            self.frame_num = 0
+        job = self._submit_device(y, u, v, ftype, self._qp_for_frame(ftype))
+        prev = self._pending
+        self._pending = job
+        if prev is not None:
+            out += self._finalize_device(prev)
+        return out
+
     def flush(self) -> bytes:
         """The bytes still held back: the MB-tree lookahead queue, then
-        the open mini-GOP and the finalize queue."""
+        the open mini-GOP, the finalize queue and the pipelined frame."""
         out = b""
         while self._mbt_q:
             out += self._pop_mbtree()
@@ -878,7 +1120,14 @@ class Encoder:
         out = b""
         if self._bq:
             out += self._flush_bq()
-        return out + self._drain_gop_q()
+        out += self._drain_gop_q()
+        if self._pending is not None:
+            job = self._pending
+            self._pending = None
+            out += self._finalize_device(job)
+        return out
+
+    _pending = None             # encode_pipelined's frame, not finalized
 
     def _pad(self, fr: Frame420):
         y = pad_to_mb(fr.y, 16)
@@ -931,6 +1180,13 @@ class Encoder:
     _last_idr_idx = 0
 
     def _decide_type(self) -> str:
+        if self.p.intra_refresh:
+            # PIR: one IDR at stream start, then refresh bars
+            # (encoder.c:3626; keyint boundaries restart the sweep)
+            if self.frame_idx == 0:
+                self._last_idr_idx = 0
+                return "IDR"
+            return "P"
         if self.frame_idx == 0 or (self.p.keyint_max > 0
                                    and self.frame_idx % self.p.keyint_max == 0):
             self._last_idr_idx = self.frame_idx
@@ -1062,6 +1318,9 @@ class Encoder:
         qp = self._frame_qp_at(disp, ftype)
         if ftype == "IDR":
             self.frame_num = 0
+        if self._pending is not None:
+            raise RuntimeError("encode() after encode_pipelined(): call "
+                               "flush() first")
         job = self._submit_device(y, u, v, ftype, qp)
         self._note_recon(disp, self.dpb[0])
         return self._finalize_device(job)

@@ -5,12 +5,14 @@ Round scope: user_data_unregistered version SEI (the header x264 always
 emits after SPS/PPS identifying the encoder and its settings) plus the
 generic payload framing (ff-escaped type/size bytes, rbsp trailing).
 
-Copied from x264_tpu/bitstream/sei.py: the version SEI only (the HRD
-and recovery-point SEIs belong to settings the port does not run).
+Copied from x264_tpu/bitstream/sei.py: the version SEI, the NAL HRD
+buffering-period and pic-timing SEIs and the recovery-point SEI (their
+``BitWriter`` import moved to the module's head).
 """
 
 from __future__ import annotations
 
+from x264_tpu_torch.bitstream.bits import BitWriter
 from x264_tpu_torch.bitstream.nal import make_nal
 
 SEI_USER_DATA_UNREGISTERED = 5
@@ -36,6 +38,51 @@ def _sei_nal(payload_type: int, payload: bytes) -> bytes:
     body += payload
     body += b"\x80"                       # rbsp_trailing_bits
     return make_nal(6, 0, body)
+
+
+def _payload_bytes(bs) -> bytes:
+    """sei_payload alignment (D.1): bit_equal_to_one + zeros only when
+    the payload is not already byte-aligned."""
+    return (bs.to_bytes_aligned() if bs.bit_length % 8 == 0
+            else bs.to_rbsp())
+
+
+SEI_BUFFERING_PERIOD = 0
+SEI_PIC_TIMING = 1
+SEI_RECOVERY_POINT = 6
+
+
+def buffering_period_sei(initial_delay_90k: int,
+                         offset_90k: int = 0) -> bytes:
+    """Buffering-period SEI (D.1.1) — NAL HRD branch (x264_sei_buffering_
+    period_write, reference encoder/set.c:563).  Delays in 90 kHz ticks,
+    24-bit fields (initial_cpb_removal_delay_length-1 = 23 in our VUI)."""
+    bs = BitWriter()
+    bs.ue(0)                                # seq_parameter_set_id
+    bs.put(24, max(1, min(initial_delay_90k, (1 << 24) - 1)))
+    bs.put(24, min(offset_90k, (1 << 24) - 1))
+    return _sei_nal(SEI_BUFFERING_PERIOD, _payload_bytes(bs))
+
+
+def pic_timing_sei(cpb_removal_delay: int, dpb_output_delay: int) -> bytes:
+    """Pic-timing SEI (D.1.2) with CpbDpbDelaysPresent (nal_hrd in VUI),
+    pic_struct absent (pic_struct_present=0) — x264_sei_pic_timing_write
+    analog (reference encoder/set.c:653)."""
+    bs = BitWriter()
+    bs.put(24, min(cpb_removal_delay, (1 << 24) - 1))
+    bs.put(24, min(dpb_output_delay, (1 << 24) - 1))
+    return _sei_nal(SEI_PIC_TIMING, _payload_bytes(bs))
+
+
+def recovery_point_sei(recovery_frame_cnt: int) -> bytes:
+    """Recovery-point SEI (D.1.8) — x264_sei_recovery_point_write
+    (reference encoder/set.c:688); marks gradual-refresh recovery."""
+    bs = BitWriter()
+    bs.ue(recovery_frame_cnt)
+    bs.put1(1)                              # exact_match_flag
+    bs.put1(0)                              # broken_link_flag
+    bs.put(2, 0)                            # changing_slice_group_idc
+    return _sei_nal(SEI_RECOVERY_POINT, _payload_bytes(bs))
 
 
 def version_sei(params) -> bytes:

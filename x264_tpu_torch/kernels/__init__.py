@@ -8,4 +8,5 @@ each replay), so a run can show that the main path went through the
 kernels."""
 
 LAUNCHES = {"esa16": 0, "esa_parts": 0, "deblock": 0, "trellis": 0,
-            "intra_nxn": 0, "cavlc_blocks": 0, "bitpack": 0}
+            "intra_nxn": 0, "cavlc_blocks": 0, "bitpack": 0,
+            "pir_column": 0}

@@ -47,6 +47,7 @@ SIGNATURES = {
     "cavlc_table_len": [],
     "bitpack_launch": [_P] * 4 + [_I] * 3 + [_P],
     "bitpack_max_words": [],
+    "pir_column_launch": [_P] * 23 + [_I] * 4 + [_P],
 }
 
 _lib = None

@@ -3,10 +3,11 @@ ME on each list0 reference, subpel refinement, explicit weighted
 prediction, luma/chroma MC, residual (the adaptive 8x8 transform and
 trellis when asked), reconstruction, intra-in-P, P_Skip/MVP
 classification and the CABAC blob or the CAVLC packed words — over all
-MBs at once (port of x264_tpu/models/inter_device.py:
-``p_frame_pipeline`` on the no-PIR path, one or more references, with
-or without weights, P16x16 only or with P8x8 partitions,
-``p_entropy_tail`` and ``p_frame_core``).  The reference runs the
+MBs at once, and the periodic-intra-refresh bar when asked (port of
+x264_tpu/models/inter_device.py: ``p_frame_pipeline`` with one or more
+references, with or without weights, P16x16 only or with P8x8
+partitions, ``p_entropy_tail`` and ``p_frame_core``; the bar is
+``kernels/pir_column``).  The reference runs the
 partition path as two device programs to dodge a TPU miscompile; here it
 is one eager pass."""
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from x264_tpu_torch.kernels.pir_column import pir_column_pass
 from x264_tpu_torch.models.intra import pick_mode, qp_per_mb
 from x264_tpu_torch.models.residual import (encode_chroma, encode_i16_luma,
                                             encode_p_luma, encode_p_luma_t8,
@@ -100,7 +102,8 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
                      cqp_off: int, subpel: int, lv_cap: int = 0,
                      parts: bool = False, decimate: bool = True,
                      t8: bool = False, trellis_tbl=None, wts=None,
-                     n_words: int = 0):
+                     n_words: int = 0, pir_ncols: int = 0, pir_col=None,
+                     pir_bound=None):
     """P-frame pipeline on pre-padded reference planes (PAD luma, PAD//2
     chroma): one reference (H, W) or stacked (K, H, W) in list0 order,
     most recent first.  y/u/v uint8 source planes; qp int or per-MB (N,);
@@ -109,9 +112,15 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     bundle or None; wts: (K, 2) int32 [weight, offset] per reference
     (``models/weightp``) or None; n_words > 0 codes CAVLC into that many
     words per MB (``host_blob`` = words, nbits, mb_class, mb_cost,
-    icost), else lv_cap sizes the CABAC blob.  Returns the per-MB syntax
-    tensors (ref_mb each MB's list0 ref_idx), pre-deblock recon planes and
-    ``host_blob``; with partitions also shape, mv8, ref8 and mvd_part."""
+    icost), else lv_cap sizes the CABAC blob.  pir_ncols > 0 codes the
+    periodic-intra-refresh bar (reference encoder/encoder.c:3626): the
+    pir_ncols MB columns from pir_col on as I16x16, after the intra-in-P
+    fix-up; MBs left of the bar predict only from the reference's
+    refreshed region, left of pir_bound (px), through a clamp of their
+    mvx (encoder/analyse.c:340), and the bar and the MBs right of it take
+    no intra-in-P.  Returns the per-MB syntax tensors (ref_mb each MB's
+    list0 ref_idx), pre-deblock recon planes and ``host_blob``; with
+    partitions also shape, mv8, ref8 and mvd_part."""
     if subpel < 1:
         raise NotImplementedError("the fullpel-only P path (subpel=0) is "
                                   "not ported")
@@ -133,6 +142,18 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
         return planes if multi else planes[0]
 
     ref = torch.zeros(n, dtype=_I32, device=dev)
+    pir = pir_ncols > 0
+    mbx_of = torch.arange(n, dtype=_I32, device=dev) % mbw
+
+    def pir_clamp_mvx(mvx, x0_px, width: int):
+        """Clamp the qpel mvx of the units left of the bar whose left edge
+        is x0_px and width ``width`` px, so that their interpolation
+        window (the taps and the subpel margin, 8 px) stays left of
+        pir_bound."""
+        maxq = 4 * (pir_bound - x0_px - width - 8)
+        lim = (mbx_of < pir_col).reshape((n,) + (1,) * (mvx.dim() - 1))
+        return torch.where(lim, torch.minimum(mvx, maxq), mvx)
+
     if parts:
         # one exhaustive pass per reference gives all nine unit argmins;
         # a later reference takes an MB only on a strictly lower 16x16
@@ -153,6 +174,11 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
                 better.reshape((n,) + (1,) * (u_k[key].dim() - 1)),
                 u_k[key], units[key]) for key in units}
         shape, mv8, _ = choose_shape(units, lam)
+        if pir:
+            qx_px = mbx_of[:, None] * 16 + torch.tensor(
+                [0, 8, 0, 8], dtype=_I32, device=dev)[None, :]
+            mv8 = torch.stack([pir_clamp_mvx(mv8[..., 0], qx_px, 8),
+                               mv8[..., 1]], dim=-1)
         mv8, part_costs, pred = subpel_refine_parts(
             src_mbs, mv8, shape, lam, me_range, subpel, mbw, mbh,
             stack_or_one(ref_y_pad), ref_idx=ref if multi else None)
@@ -173,6 +199,9 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
             best = torch.where(better, cost_k, best)
             mv = torch.where(better[:, None], mv_k, mv)
             ref = torch.where(better, k, ref)
+        if pir:
+            mv = torch.stack([pir_clamp_mvx(mv[:, 0], mbx_of * 16, 16),
+                              mv[:, 1]], dim=1)
         mv, mb_cost, pred = subpel_refine(src_mbs, stack_or_one(ref_y_pad),
                                           mv, lam, me_range, subpel, mbw,
                                           mbh, return_pred=True,
@@ -226,7 +255,14 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     # neighbour it would predict from is also intra (isolation), or on a
     # conflict-free lattice inside candidate clusters; every kept MB then
     # predicts from the pure-inter recon planes
-    cg = ((icost + 8 * lam) < mb_cost).reshape(mbh, mbw)
+    cand = (icost + 8 * lam) < mb_cost
+    if pir:
+        # the fix-up predicts from the recon before the bar, the decoder
+        # from the bar's: keep the bar and the MBs right of it (whose
+        # left and top-left neighbours are bar MBs) out
+        in_bar = (mbx_of >= pir_col) & (mbx_of < pir_col + pir_ncols)
+        cand = cand & ~in_bar & (mbx_of != pir_col + pir_ncols)
+    cg = cand.reshape(mbh, mbw)
     iso = cg.clone()
     for dy, dx in ((0, -1), (0, 1), (-1, 0), (1, 0), (-1, -1), (1, 1)):
         iso &= ~shifted(cg, dy, dx, False)[0]
@@ -278,6 +314,27 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     ru_mbs = torch.where(mk2, icr_u, ru_mbs)
     rv_mbs = torch.where(mk2, icr_v, rv_mbs)
     t8_flag = t8_flag & ~intra_mask & (cbp_l > 0)
+    ry_out = T.mbs_to_plane(recon_y_mbs, mbh, mbw, 16)
+    ru_out = T.mbs_to_plane(ru_mbs, mbh, mbw, 8)
+    rv_out = T.mbs_to_plane(rv_mbs, mbh, mbw, 8)
+    if pir:
+        acc = dict(luma_dc=luma_dc, luma_ac=ac_zz, luma_nnz=nnz,
+                   nnz_deblock=nnz_deblock, cbp_luma=cbp_l, chroma_dc=cdc,
+                   chroma_ac=cac, chroma_nnz=cnnz, cbp_chroma=cbp_c,
+                   i16_mode=i16_mode, chroma_mode=chroma_mode,
+                   mb_cost=mb_cost, intra_mask=intra_mask, t8=t8_flag)
+        acc = {k: t.contiguous() for k, t in acc.items()}
+        ry_out, ru_out, rv_out, acc = pir_column_pass(
+            y, u, v, ry_out.contiguous(), ru_out.contiguous(),
+            rv_out.contiguous(), acc, qp, qpc, int(pir_col), mbw, mbh,
+            pir_ncols)
+        (luma_dc, ac_zz, nnz, nnz_deblock, cbp_l, cdc, cac, cnnz, cbp_c,
+         i16_mode, chroma_mode, mb_cost, intra_mask, t8_flag) = (
+            acc[k] for k in ("luma_dc", "luma_ac", "luma_nnz",
+                             "nnz_deblock", "cbp_luma", "chroma_dc",
+                             "chroma_ac", "chroma_nnz", "cbp_chroma",
+                             "i16_mode", "chroma_mode", "mb_cost",
+                             "intra_mask", "t8"))
 
     # classification + entropy blob (p_entropy_tail's CABAC branch)
     if parts:
@@ -297,9 +354,8 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
         luma_ac=ac_zz, luma_nnz=nnz, nnz_deblock=nnz_deblock,
         t8=t8_flag, cbp_luma=cbp_l,
         chroma_dc=cdc, chroma_ac=cac, chroma_nnz=cnnz, cbp_chroma=cbp_c,
-        recon_y=T.mbs_to_plane(recon_y_mbs, mbh, mbw, 16).to(torch.uint8),
-        recon_u=T.mbs_to_plane(ru_mbs, mbh, mbw, 8).to(torch.uint8),
-        recon_v=T.mbs_to_plane(rv_mbs, mbh, mbw, 8).to(torch.uint8),
+        recon_y=ry_out.to(torch.uint8), recon_u=ru_out.to(torch.uint8),
+        recon_v=rv_out.to(torch.uint8),
         mb_class=mb_class, mvd=mvd)
     blob_parts = {}
     if parts:
@@ -337,7 +393,8 @@ def p_frame_core(y, u, v, ref_y, ref_u, ref_v, qp, lam: int, mbw: int,
                  mbh: int, me_range: int, cqp_off: int, subpel: int,
                  lv_cap: int = 0, parts: bool = False, decimate: bool = True,
                  t8: bool = False, trellis_tbl=None, wts=None,
-                 n_words: int = 0):
+                 n_words: int = 0, pir_ncols: int = 0, pir_col=None,
+                 pir_bound=None):
     """Single-chip entry: edge-pad the reference planes (PAD luma, PAD//2
     chroma), one reference (H, W) or stacked (K, H, W) in list0 order,
     then run ``p_frame_pipeline``."""
@@ -347,4 +404,5 @@ def p_frame_core(y, u, v, ref_y, ref_u, ref_v, qp, lam: int, mbw: int,
                             me_range, cqp_off, subpel, lv_cap,
                             parts=parts, decimate=decimate, t8=t8,
                             trellis_tbl=trellis_tbl, wts=wts,
-                            n_words=n_words)
+                            n_words=n_words, pir_ncols=pir_ncols,
+                            pir_col=pir_col, pir_bound=pir_bound)
