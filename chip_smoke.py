@@ -38,8 +38,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      word rungs, with the launch alone and the bound; the refresh-bar
      kernel (pir_column) on 3-column bars at columns 0, 59, 117 and 119
      of a 1080p frame under AQ's QP map, with the launch alone and the
-     bound; the registers, spills and shared memory of the ESA, trellis,
-     NxN, CAVLC and refresh-bar kernels (ptxas);
+     bound, and on bars of 5, 14 and 120 columns against twins that
+     worker processes started at the beginning run on the host, each
+     with its wavefront steps, us a step, MB warps and shared memory;
+     the registers, spills and shared memory of the ESA, trellis, NxN,
+     CAVLC and refresh-bar kernels (ptxas);
   4. the main paths, each with the kernels' launch counts reset just
      before and read just after: Encoder(device="cuda") encodes a 1080p
      clip of one IDR and 5 P frames (the clip formula of bench.py's
@@ -1862,48 +1865,114 @@ def _check_small_lookahead() -> None:
               f"{' '.join(types)}, launches {launches}")
 
 
-def _pir_inputs(clip, qp_map):
-    """The refresh bar's inputs at 1080p on the card: frame 1's source,
-    frame 0's source as the live recon planes (int32), the per-MB QP map
-    and its chroma QPs, and per-MB fields holding junk the bar overwrites
-    at its MBs."""
-    import torch
+def _pir_host_inputs(clip, qp_map):
+    """The refresh bar's inputs at 1080p as host arrays: frame 1's
+    source, frame 0's source as the live recon planes (int32), the per-MB
+    QP map and its chroma QPs, and per-MB fields holding junk the bar
+    overwrites at its MBs."""
     from x264_tpu_torch.kernels import pir_column as KR
     from x264_tpu_torch.state import CHROMA_QP_TABLE
-    dev = torch.device("cuda")
-    src = [torch.from_numpy(_pad_to_mb(p, s)).to(dev)
-           for p, s in zip(clip[1], (16, 8, 8))]
-    rec = [torch.from_numpy(_pad_to_mb(p, s).astype(np.int32)).to(dev)
+    src = [_pad_to_mb(p, s) for p, s in zip(clip[1], (16, 8, 8))]
+    rec = [_pad_to_mb(p, s).astype(np.int32)
            for p, s in zip(clip[0], (16, 8, 8))]
     n = qp_map.shape[0]
     qpc = CHROMA_QP_TABLE[np.clip(qp_map, 0, 51)].astype(np.int32)
     rng = np.random.default_rng(12)
-    acc = {k: torch.from_numpy(
-        rng.integers(0, 2, (n, *sh)).astype(bool) if k in ("intra_mask",
-                                                            "t8")
-        else rng.integers(-3, 4, (n, *sh)).astype(np.int32)).to(dev)
-        for k, sh in KR._FIELDS}
-    return (src, rec, torch.from_numpy(qp_map).to(dev),
-            torch.from_numpy(qpc).to(dev), acc)
+    acc = {k: rng.integers(0, 2, (n, *sh)).astype(bool)
+           if k in ("intra_mask", "t8")
+           else rng.integers(-3, 4, (n, *sh)).astype(np.int32)
+           for k, sh in KR._FIELDS}
+    return src, rec, qp_map, qpc, acc
 
 
-def _pir_phase(clip, record, int_ops_per_s: float) -> dict:
+def _pir_inputs(clip, qp_map, dev="cuda"):
+    """_pir_host_inputs as tensors on dev."""
+    import torch
+    src, rec, qp, qpc, acc = _pir_host_inputs(clip, qp_map)
+
+    def on(a):
+        return torch.from_numpy(a).to(dev)
+    return ([on(a) for a in src], [on(a) for a in rec], on(qp), on(qpc),
+            {k: on(a) for k, a in acc.items()})
+
+
+PIR_WIDE = (5, 14, 120)      # bars at keyint 30, 10 and 2 (the whole frame)
+
+
+def _pir_twin_job(ncols: int) -> dict:
+    """The plain twin of a 1080p bar of ncols columns from column 0, on
+    the host (a worker process: see _pir_twins_start): its planes and
+    fields as arrays."""
+    import torch
+    torch.set_num_threads(1)
+    from x264_tpu_torch.kernels import pir_column as KR
+    clip = make_clip(2)
+    mbw, mbh = (W + 15) // 16, (H + 15) // 16
+    src, rec, qp, qpc, acc = _pir_inputs(clip, _aq_map(clip[1]), "cpu")
+    out = KR.pir_column_pass_plain(*src, *rec, acc, qp, qpc, 0, mbw, mbh,
+                                   ncols)
+    return {"planes": [a.numpy() for a in out[:3]],
+            "fields": {k: out[3][k].numpy() for k in KR.FIELDS}}
+
+
+def _pir_twins_start():
+    """Start the plain twins of the wide bars (PIR_WIDE) in worker
+    processes: some 8000 MBs one after another take about a minute on the
+    host, which then overlaps the kernels' build.  _pir_twins_wait takes
+    their results before any phase is timed, so that no timing shares the
+    host with them."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    pool = cf.ProcessPoolExecutor(len(PIR_WIDE),
+                                  mp_context=mp.get_context("spawn"))
+    return pool, {n: pool.submit(_pir_twin_job, n) for n in PIR_WIDE}
+
+
+def _pir_twins_wait(twins) -> dict:
+    """The results of _pir_twins_start's twins by bar width; its worker
+    processes ended."""
+    pool, futures = twins
+    try:
+        return {n: f.result() for n, f in futures.items()}
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def _pir_phase(clip, record, int_ops_per_s: float, twins) -> dict:
     """The refresh-bar kernel against its plain twin at 1080p under AQ
     mode 1's QP map, bit-exact on bars of 3 columns at columns 0, 59, 117
     (up to the right edge) and 119 (one live column, two masked); times
     through the wrapper, the launch alone and the plain twin on the
     headline bar (3 columns, the live run's width at keyint 60) with its
-    bound.  Returns those times."""
+    bound; then bars of 5, 14 and 120 columns from column 0, bit-exact
+    against twins (the host's twins, as _pir_twins_wait returns them),
+    timed.  Each with its wavefront steps, MB warps and shared memory.
+    Returns the headline bar's times."""
     import torch
     from x264_tpu_torch.kernels import build
     from x264_tpu_torch.kernels import pir_column as KR
     mbw, mbh = (W + 15) // 16, (H + 15) // 16
     qp_map = _aq_map(clip[1])
     src, rec, qp, qpc, acc = _pir_inputs(clip, qp_map)
+    lib = build.library()
+    tab = KR._tables("cuda:0").data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
 
     def fresh():
         return ([r.clone() for r in rec], {k: a.clone()
                                            for k, a in acc.items()})
+
+    def timed(ncols):
+        """(wrapper ms, launch alone ms) of a bar from column 0."""
+        r_k, a_k = fresh()
+        ms = _time_ms(lambda: KR.pir_column_pass(
+            *src, *r_k, a_k, qp, qpc, 0, mbw, mbh, ncols), 20)
+        ptrs = [t.data_ptr() for t in (*src, *r_k, qp, qpc)] + \
+            [a_k[k].data_ptr() for k in KR.FIELDS] + [tab]
+        alone = _time_ms(lambda: lib.pir_column_launch(
+            *ptrs, 0, ncols, mbw, mbh, stream), 20)
+        return ms, alone
+
     for col in (0, 59, 117, 119):
         (r_k, a_k), (r_p, a_p) = fresh(), fresh()
         got = KR.pir_column_pass(*src, *r_k, a_k, qp, qpc, col, mbw, mbh, 3)
@@ -1919,30 +1988,47 @@ def _pir_phase(clip, record, int_ops_per_s: float) -> dict:
         print(f"pir_column at column {col} (3 columns, {live} MBs): "
               "bit-exact against pir_column_pass_plain under the AQ map "
               f"(QPs {int(qp_map.min())}-{int(qp_map.max())})")
-    r_k, a_k = fresh()
-    ms = _time_ms(lambda: KR.pir_column_pass(*src, *r_k, a_k, qp, qpc, 0,
-                                             mbw, mbh, 3), 20)
-    lib = build.library()
-    ptrs = [t.data_ptr() for t in (*src, *r_k, qp, qpc)] + \
-        [a_k[k].data_ptr() for k in KR.FIELDS] + \
-        [KR._tables("cuda:0").data_ptr()]
-    stream = torch.cuda.current_stream().cuda_stream
-    alone = _time_ms(lambda: lib.pir_column_launch(*ptrs, 0, 3, mbw, mbh,
-                                                   stream), 20)
+    ms, alone = timed(3)
     r_p, a_p = fresh()
     plain = _time_ms(lambda: KR.pir_column_pass_plain(
         *src, *r_p, a_p, qp, qpc, 0, mbw, mbh, 3), 2)
     n_bar = KR.bar_mbs(0, 3, mbw, mbh)
+    groups, smem, steps = KR.geometry(0, 3, mbw, mbh)
     nbytes, ops = KR.work(n_bar)
     bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                 (ops / int_ops_per_s * 1e3, "operations"))
-    print(f"pir_column, a 3-column bar at 1080p ({n_bar} MBs in series): "
-          f"{ms:.4f} ms through the wrapper (its launch alone {alone:.4f} "
-          f"ms, {1000 * alone / n_bar:.2f} us an MB), plain twin "
-          f"{plain:.3f} ms; bound {bound[0]:.5f} ms by {bound[1]} "
-          f"({nbytes} bytes, {ops} int32 operations)")
+    print(f"pir_column, a 3-column bar at 1080p ({n_bar} MBs, {steps} "
+          f"wavefront steps; {groups} MB warps, {smem} bytes of dynamic "
+          f"shared memory): {ms:.4f} ms through the wrapper (its launch "
+          f"alone {alone:.4f} ms, {1000 * alone / steps:.3f} us a step, "
+          f"{1000 * alone / n_bar:.3f} us an MB), plain twin {plain:.3f} "
+          f"ms; bound {bound[0]:.5f} ms by {bound[1]} ({nbytes} bytes, "
+          f"{ops} int32 operations)")
     record("pir_column", "x264_tpu_torch/csrc/pir_column.cu",
            "x264_tpu/models/inter_device.py:101", 0, ms, plain, bound)
+    for ncols in PIR_WIDE:
+        r_k, a_k = fresh()
+        got = KR.pir_column_pass(*src, *r_k, a_k, qp, qpc, 0, mbw, mbh,
+                                 ncols)
+        want = twins[ncols]
+        err = max([_max_err(a.cpu(), torch.from_numpy(b))
+                   for a, b in zip(got[:3], want["planes"])]
+                  + [_max_err(got[3][k].cpu(),
+                              torch.from_numpy(want["fields"][k]))
+                     for k in KR.FIELDS])
+        live = KR.bar_mbs(0, ncols, mbw, mbh)
+        if err or int(got[3]["intra_mask"].sum()) < live:
+            raise AssertionError(f"pir_column, {ncols} columns: max err "
+                                 f"{err}")
+        w_ms, w_alone = timed(ncols)
+        groups, smem, steps = KR.geometry(0, ncols, mbw, mbh)
+        print(f"pir_column, a {ncols}-column bar at 1080p ({live} MBs, "
+              f"{steps} wavefront steps; {groups} MB warps, {smem} bytes "
+              "of dynamic shared memory): bit-exact against "
+              "pir_column_pass_plain (run on the host); "
+              f"{w_ms:.4f} ms through the wrapper (its launch alone "
+              f"{w_alone:.4f} ms, {1000 * w_alone / steps:.3f} us a "
+              f"step, {1000 * w_alone / live:.3f} us an MB)")
     return dict(ms=ms, alone=alone, plain=plain)
 
 
@@ -2177,7 +2263,8 @@ def main() -> int:
           f"clock {clk_mhz:.0f} MHz: {int_ops_per_s / 1e12:.2f} T int32 "
           "ops/s")
 
-    # ---- 2. build ----
+    # ---- 2. build, the host's twins of the wide bars beside it ----
+    pir_twins = _pir_twins_start()
     build.library()
     print(f"kernel build: {build.build_info['seconds']:.3f} s "
           f"({build.build_info['path']})")
@@ -2185,6 +2272,10 @@ def main() -> int:
     _print_resources(build.build_info["log"],
                      ("search_kernel", "esa", "trellis", "intra_nxn",
                       "cavlc", "bitpack", "pir_column"))
+    t0 = time.perf_counter()
+    pir_twins = _pir_twins_wait(pir_twins)
+    print(f"host twins of the {', '.join(map(str, PIR_WIDE))}-column bars: "
+          f"waited {time.perf_counter() - t0:.1f} s for them after the build")
     probe_rate = _esa_probe_rate(build.library(), n_sm)
     print(f"esa_sad_probe: {probe_rate / 1e12:.3f} T vabsdiff4/s, "
           f"{probe_rate / (n_sm * clk_mhz * 1e6):.2f} per SM per clock at "
@@ -2335,7 +2426,7 @@ def main() -> int:
     _nxn_phase(clip, record, int_ops_per_s)
     _aq_kernel_phase(clip)
     _cavlc_phase(cavlc_frames, record, int_ops_per_s)
-    bar_ms = _pir_phase(clip, record, int_ops_per_s)
+    bar_ms = _pir_phase(clip, record, int_ops_per_s, pir_twins)
     for r in records:
         print(f"kernel {r['name']}: bit-exact, {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "

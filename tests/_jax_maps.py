@@ -8,9 +8,14 @@ kernel's `vm.max_map_count` (65530 by default), and the next compile,
 compile-cache read or compile-cache write segfaults.
 
 A test module that calls the reference imports `free_jax_executables`.
-After each of its tests, once the process holds more than a quarter of
-the limit, the fixture clears JAX's caches, which unmaps the programs;
-the next call recompiles, or reads the persistent compile cache."""
+Before and after each of its tests, once the process holds more than a
+quarter of the limit, the fixture clears JAX's caches, which unmaps the
+programs; the next call recompiles, or reads the persistent compile
+cache.  Clearing before a test matters as much as after it: the
+reference's own test files run on the same xdist workers without this
+fixture, and one worker was seen to reach 65475 mappings in them
+(test_mux.py after test_mbtree.py), so a port test arriving there had
+no room for its own compiles."""
 
 import gc
 
@@ -44,7 +49,14 @@ def free_if_crowded(limit=MAP_LIMIT):
     return True
 
 
+def cleared_around(limit=MAP_LIMIT):
+    """free_if_crowded before a test and again after it: a generator
+    whose one yield is the test."""
+    free_if_crowded(limit)
+    yield
+    free_if_crowded(limit)
+
+
 @pytest.fixture(autouse=True)
 def free_jax_executables():
-    yield
-    free_if_crowded()
+    yield from cleared_around()

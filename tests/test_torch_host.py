@@ -412,17 +412,29 @@ def test_host_paths_match_reference():
 def test_crowded_jax_executables_are_unmapped():
     """tests/_jax_maps.py frees the reference's compiled programs: 40
     jitted programs add mappings, a clear below the threshold does
-    nothing, and one past it takes the mappings back."""
+    nothing, and one past it takes the mappings back; the fixture's
+    generator clears a crowded process before its test (programs that
+    earlier tests left) and again after it (the test's own)."""
     import jax
     import jax.numpy as jnp
-    from _jax_maps import free_if_crowded, maps_held
+    from _jax_maps import cleared_around, free_if_crowded, maps_held
+
+    def crowd():
+        fns = [jax.jit(lambda x, k=k: x * k + 1) for k in range(40)]
+        for k, f in enumerate(fns):
+            f(jnp.zeros(k + 1)).block_until_ready()
+        return maps_held()
 
     base = maps_held()
-    fns = [jax.jit(lambda x, k=k: x * k + 1) for k in range(40)]
-    for k, f in enumerate(fns):
-        f(jnp.zeros(k + 1)).block_until_ready()
-    held = maps_held()
+    held = crowd()
     assert held >= base + 40
     assert not free_if_crowded(limit=4 * held + 4000)
     assert free_if_crowded(limit=4)
+    assert maps_held() < held - 40
+    around = cleared_around(limit=4)
+    held = crowd()
+    next(around)                       # before the test
+    assert maps_held() < held - 40
+    held = crowd()                     # the test's own programs
+    assert next(around, "after") == "after"
     assert maps_held() < held - 40

@@ -322,61 +322,131 @@ ptxas info    : Used 40 registers, 368 bytes cmem[0]
 
 
 # ---- csrc/pir_column.cu run on the CPU ----
-# The kernel is one CUDA block whose threads meet at __syncthreads(); its
-# source compiles as C++ when each CUDA thread is an OS thread and the
-# barrier a std::barrier, so its arithmetic is checked here against the
-# plain twin (the card checks the real build:
-# tests/test_torch_kernels_cuda.py).
+# The kernel is one CUDA block of MB warps that meet at __syncthreads()
+# once a wavefront step; inside an MB a warp's lanes meet at shuffles and
+# ballots.  Its source compiles as C++ when each CUDA thread is an OS
+# thread, the block's barrier a std::barrier, each warp's shuffles a
+# barrier of its 32 threads around an exchange array, and the device
+# primitives (dynamic shared memory, cp.async and its wait) plain memory
+# (the CUDA_SHIM branch of the source); so its arithmetic and its step
+# order are checked here against the plain twin (the card checks the real
+# build: tests/test_torch_kernels_cuda.py).
 
 _CUDA_SHIM = r"""
 #pragma once
 #include <barrier>
 #include <cstdint>
+#include <cstring>
+#define CUDA_SHIM 1
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__
-#define __shared__ static
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+struct int4 { int x, y, z, w; };
+struct uint2 { unsigned x, y; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+inline unsigned __dp4a(unsigned a, unsigned b, unsigned c) {
+  for (int i = 0; i < 4; ++i) c += ((a >> 8 * i) & 255) * ((b >> 8 * i) & 255);
+  return c;
+}
 struct Dim3Emu { int x; };
 extern thread_local Dim3Emu threadIdx;
+extern Dim3Emu blockDim;
+// per warp: a barrier of its 32 threads and the lanes' exchange words
+struct WarpEmu { std::barrier<>* bar; int word[32]; };
 extern std::barrier<>* g_bar;
+extern WarpEmu* g_warps;
+extern unsigned char* g_smem;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
+inline WarpEmu& warp_emu() { return g_warps[threadIdx.x >> 5]; }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  warp_emu().bar->arrive_and_wait();
+}
+// all 32 lanes call each shuffle and ballot, as the kernel does
+inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
+  WarpEmu& w = warp_emu();
+  const int lane = threadIdx.x & 31;
+  w.word[lane] = v;
+  w.bar->arrive_and_wait();
+  const int got = w.word[(lane & ~(width - 1)) | (src & (width - 1))];
+  w.bar->arrive_and_wait();
+  return got;
+}
+inline int __shfl_xor_sync(unsigned m, int v, int x, int width = 32) {
+  return __shfl_sync(m, v, (threadIdx.x & 31) ^ x, width);
+}
+inline unsigned __ballot_sync(unsigned, int p) {
+  WarpEmu& w = warp_emu();
+  w.word[threadIdx.x & 31] = p != 0;
+  w.bar->arrive_and_wait();
+  unsigned b = 0;
+  for (int i = 0; i < 32; ++i) b |= (unsigned)w.word[i] << i;
+  w.bar->arrive_and_wait();
+  return b;
+}
+inline unsigned char* smem_base() { return g_smem; }
+inline void copy_async(void* dst, const void* src, int bytes) {
+  std::memcpy(dst, src, bytes);
+}
+inline void copy_async_commit() {}
+inline void copy_async_wait() {}
 """
 
 _PIR_THREADS = r"""
+#include <cstdlib>
+#include <memory>
 #include <thread>
 #include <vector>
 thread_local Dim3Emu threadIdx;
+Dim3Emu blockDim;
 std::barrier<>* g_bar;
+WarpEmu* g_warps;
+unsigned char* g_smem;
+// groups: the block's MB warps, 0 for the launcher's (mb_warps)
 extern "C" int pir_column_threads(void** p, const void* tab, int pir_col,
-                                  int ncols, int mbw, int mbh) {
+                                  int ncols, int mbw, int mbh, int groups) {
+  const int ncl = imin(ncols, mbw - pir_col);
+  if (groups <= 0) groups = mb_warps(ncl, mbh);
   Fields f{(int*)p[8],  (int*)p[9],  (int*)p[10], (int*)p[11], (int*)p[12],
            (int*)p[13], (int*)p[14], (int*)p[15], (int*)p[16], (int*)p[17],
            (int*)p[18], (int*)p[19], (bool*)p[20], (bool*)p[21]};
-  std::barrier<> bar(256);
+  const int nt = 32 * groups;
+  blockDim.x = nt;
+  const size_t bytes = (smem_bytes(groups, ncl, mbh) + 15) / 16 * 16;
+  g_smem = (unsigned char*)std::aligned_alloc(16, bytes);
+  std::barrier<> bar(nt);
   g_bar = &bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+  std::vector<WarpEmu> warps(groups);
+  for (int g = 0; g < groups; ++g) {
+    warp_bars.emplace_back(new std::barrier<>(32));
+    warps[g].bar = warp_bars.back().get();
+  }
+  g_warps = warps.data();
   std::vector<std::thread> th;
-  for (int i = 0; i < 256; ++i)
+  for (int i = 0; i < nt; ++i)
     th.emplace_back([&, i] {
       threadIdx.x = i;
-      pir_column_kernel((const uint8_t*)p[0], (const uint8_t*)p[1],
-                        (const uint8_t*)p[2], (int*)p[3], (int*)p[4],
-                        (int*)p[5], (const int*)p[6], (const int*)p[7], f,
-                        (const int*)tab, pir_col, ncols, mbw, mbh);
+      pir_column_kernel(
+          (const uint8_t*)p[0], (const uint8_t*)p[1], (const uint8_t*)p[2],
+          (int*)p[3], (int*)p[4], (int*)p[5], (const int*)p[6],
+          (const int*)p[7], f, (const int*)tab, pir_col, ncols, mbw, mbh);
     });
   for (auto& t : th) t.join();
-  return 0;
+  std::free(g_smem);
+  return groups;
 }
 """
 
 
 @pytest.fixture(scope="module")
 def pir_threads(tmp_path_factory):
-    """csrc/pir_column.cu's kernel built with g++ as 256 threads."""
+    """csrc/pir_column.cu's kernel built with g++, a thread per CUDA
+    thread."""
     import ctypes
     import shutil
     import subprocess
@@ -394,7 +464,7 @@ def pir_threads(tmp_path_factory):
     assert r.returncode == 0, r.stderr[-3000:]
     lib = ctypes.CDLL(str(so))
     lib.pir_column_threads.argtypes = [ctypes.c_void_p] * 2 + \
-        [ctypes.c_int] * 4
+        [ctypes.c_int] * 5
     return lib
 
 
@@ -402,13 +472,19 @@ def pir_threads(tmp_path_factory):
 def test_pir_column_source_runs_as_its_twin(pir_threads, seed):
     """Random frames of 1-6 x 1-4 MBs, QPs 0-51 per MB, bars of 1-3
     columns anywhere (masked columns past the edge included), flat and
-    noisy content: the kernel's planes and fields equal the twin's."""
+    noisy content, then a bar of 5 or 14 columns on a frame wider than
+    tall (its diagonals hold up to mbh MBs): the kernel's planes and
+    fields equal the twin's, with the launcher's MB warps and with one
+    warp (every diagonal's MBs in rounds)."""
     import ctypes
     from x264_tpu_torch.kernels import pir_column as KR
     from x264_tpu_torch.state import CHROMA_QP_TABLE
     rng = np.random.default_rng(40 + seed)
-    for trial in range(4):
-        mbw, mbh = int(rng.integers(1, 7)), int(rng.integers(1, 5))
+    for trial in range(5):
+        if trial < 4:
+            mbw, mbh = int(rng.integers(1, 7)), int(rng.integers(1, 5))
+        else:
+            mbw, mbh = int(rng.integers(14, 18)), int(rng.integers(2, 5))
         n, h, w = mbw * mbh, 16 * mbh, 16 * mbw
         if trial % 2:
             yy, xx = np.mgrid[0:h, 0:w]
@@ -428,26 +504,32 @@ def test_pir_column_source_runs_as_its_twin(pir_threads, seed):
                    if k in ("intra_mask", "t8")
                    else rng.integers(-5, 5, (n, *s)).astype(np.int32))
                for k, s in KR._FIELDS}
-        col, ncols = int(rng.integers(0, mbw)), int(rng.integers(1, 4))
+        if trial < 4:
+            col, ncols = int(rng.integers(0, mbw)), int(rng.integers(1, 4))
+        else:
+            ncols = (5, 14)[seed % 2]
+            col = int(rng.integers(0, mbw - 3))  # past the edge at times
 
         def run(fn):
             t = [torch.from_numpy(a.copy()) for a in (y, u, v, *rec, qp,
-                                                       qpc)]
+                                                      qpc)]
             f = {k: torch.from_numpy(a.copy()) for k, a in acc.items()}
             return fn(t, f)
 
         twin = run(lambda t, f: KR.pir_column_pass_plain(
             *t[:6], f, t[6], t[7], col, mbw, mbh, ncols))
 
-        def threads(t, f):
-            ptrs = [x.data_ptr() for x in t] + [f[k].data_ptr()
-                                               for k in KR.FIELDS]
-            pir_threads.pir_column_threads(
-                (ctypes.c_void_p * len(ptrs))(*ptrs),
-                KR._tables("cpu").data_ptr(), col, ncols, mbw, mbh)
-            return (*t[3:6], f)
-        got = run(threads)
-        for name, a, b in zip(("ry", "ru", "rv"), got[:3], twin[:3]):
-            assert torch.equal(a, b), (trial, name)
-        for k in KR.FIELDS:
-            assert torch.equal(got[3][k], twin[3][k]), (trial, k)
+        for groups in (0, 1):
+            def threads(t, f):
+                ptrs = [x.data_ptr() for x in t] + [f[k].data_ptr()
+                                                   for k in KR.FIELDS]
+                pir_threads.pir_column_threads(
+                    (ctypes.c_void_p * len(ptrs))(*ptrs),
+                    KR._tables("cpu").data_ptr(), col, ncols, mbw, mbh,
+                    groups)
+                return (*t[3:6], f)
+            got = run(threads)
+            for name, a, b in zip(("ry", "ru", "rv"), got[:3], twin[:3]):
+                assert torch.equal(a, b), (trial, groups, name)
+            for k in KR.FIELDS:
+                assert torch.equal(got[3][k], twin[3][k]), (trial, groups, k)

@@ -958,11 +958,16 @@ def _bar_case(cuda, mbw, mbh, seed):
 
 @pytest.mark.parametrize("mbw,mbh,col,ncols", [
     (6, 4, 0, 1), (6, 4, 2, 3), (6, 4, 5, 3), (1, 1, 0, 1), (120, 68, 0, 3),
-    (120, 68, 59, 3), (120, 68, 117, 3), (120, 68, 119, 3)])
+    (120, 68, 59, 3), (120, 68, 117, 3), (120, 68, 119, 3),
+    # 1080p at keyint 30, 10 and 2 (the whole frame: 187 steps of up to
+    # 68 MBs, in rounds of 16 warps)
+    (120, 68, 0, 5), (120, 68, 0, 14), (120, 68, 0, 120),
+    # diagonals capped by mbh (mbh < ncols), masked bars at the right edge
+    (16, 4, 1, 12), (16, 4, 12, 14), (120, 68, 110, 14)])
 def test_pir_column_kernel_matches_plain(cuda, mbw, mbh, col, ncols):
-    """The kernel's planes and fields equal the plain twin's at per-MB QPs
-    0-51, at 1080p too, with bars reaching past the right edge; one
-    launch, counted."""
+    """The kernel's planes and fields equal the plain twin's (run on the
+    CPU, the faster of the two for it) at per-MB QPs 0-51, at 1080p too,
+    with bars reaching past the right edge; one launch, counted."""
     from x264_tpu_torch.kernels import pir_column as k_pir
     inputs = _bar_case(cuda, mbw, mbh, mbw * 7 + col)
     t, f = inputs(cuda)
@@ -970,13 +975,13 @@ def test_pir_column_kernel_matches_plain(cuda, mbw, mbh, col, ncols):
     got = k_pir.pir_column_pass(*t[:6], f, t[6], t[7], col, mbw, mbh, ncols)
     torch.cuda.synchronize()
     assert x264_tpu_torch.launch_counts()["pir_column"] == before + 1
-    t, f = inputs(cuda)
+    t, f = inputs("cpu")
     want = k_pir.pir_column_pass_plain(*t[:6], f, t[6], t[7], col, mbw,
                                        mbh, ncols)
     for a, b in zip(got[:3], want[:3]):
-        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), b)
     for k in k_pir.FIELDS:
-        assert torch.equal(got[3][k], want[3][k]), k
+        assert torch.equal(got[3][k].cpu(), want[3][k]), k
 
 
 def test_pir_column_bad_launches_raise(cuda):
@@ -991,6 +996,21 @@ def test_pir_column_bad_launches_raise(cuda):
     with pytest.raises(ValueError):
         k_pir.pir_column_pass(t[0][:, :32], *t[1:6], f, t[6], t[7], 0, 4, 2,
                               1)
+    # a plane off the 16-byte boundary its copies and stores need: the
+    # launcher refuses it
+    for i in (0, 3):  # y, ry
+        a = t[i]
+        off = torch.empty(a.numel() + 1, dtype=a.dtype, device=cuda)[1:]
+        t_off = list(t)
+        t_off[i] = off.view(a.shape).copy_(a)
+        with pytest.raises(RuntimeError):
+            k_pir.pir_column_pass(*t_off[:6], f, t_off[6], t_off[7], 0, 4,
+                                  2, 1)
+    off = torch.empty(f["luma_ac"].numel() + 1, dtype=torch.int32,
+                      device=cuda)[1:].view(f["luma_ac"].shape)
+    with pytest.raises(RuntimeError):
+        k_pir.pir_column_pass(*t[:6], dict(f, luma_ac=off), t[6], t[7], 0,
+                              4, 2, 1)
 
 
 @pytest.mark.parametrize("cabac", [True, False])

@@ -76,12 +76,15 @@ def _bar_inputs(rng, mbw, mbh, qp_map):
 
 
 @pytest.mark.parametrize("col,ncols,qp_map", [
-    (0, 1, False), (2, 1, True), (1, 3, True), (4, 3, True), (5, 3, False)])
+    (0, 1, False), (2, 1, True), (1, 3, True), (4, 3, True), (5, 3, False),
+    (2, 6, True)])
 def test_pir_column_plain_matches_reference(rng, col, ncols, qp_map):
-    """One and three columns, bars reaching past the right edge (masked
-    columns), a per-MB QP map: the twin's planes and fields equal the
+    """One and three columns on 6 x 3 MBs, bars reaching past the right
+    edge (masked columns), a per-MB QP map; and six columns on 8 x 4 MBs,
+    a bar wider than the frame is tall (the kernel's wavefront then has
+    diagonals of 4 MBs): the twin's planes and fields equal the
     reference's."""
-    mbw, mbh = 6, 3
+    mbw, mbh = (8, 4) if ncols > 3 else (6, 3)
     src, rec, qp, qpc, acc = _bar_inputs(rng, mbw, mbh, qp_map)
     ref = inter_device._pir_column_pass(
         *map(jnp.asarray, src), *map(jnp.asarray, rec),

@@ -7,24 +7,47 @@
 // is x264_tpu_torch/kernels/pir_column.py::pir_column_pass_plain.
 //
 // Contract: the bar is ncols MB columns from pir_col on; columns at or past
-// mbw are skipped.  Each bar MB, rows top to bottom and the columns of a
-// row left to right, is coded as I16x16 from the live int32 recon planes
-// (so it sees the bar MBs above and left of it): the first cheapest of the
-// four I16x16 modes [V, H, DC, Plane] by SATD among the available ones, the
-// 4x4 transform, the DC Hadamard, the intra deadzone quantiser (no
+// mbw are skipped.  Each bar MB is coded as I16x16 from the live recon
+// (so it sees the bar MBs above and left of it, as the reference's rows
+// top to bottom and columns left to right do): the first cheapest of the
+// four I16x16 modes [V, H, DC, Plane] by SATD among the available ones,
+// the 4x4 transform, the DC Hadamard, the intra deadzone quantiser (no
 // trellis), dequantisation and the inverse; then chroma the same way with
-// the modes [DC, H, V, Plane] by the sum of the U and V SATDs.  The recon
-// planes and the MB's fields are written in place.
+// the modes [DC, H, V, Plane] by the sum of the U and V SATDs.  The int32
+// recon planes and the MB's fields are written in place.
 //
 // Bound on the H100: bytes and operations are tiny (a few KB and ~34k
 // int32 operations per MB, kernels/pir_column.py counts them: well under
-// a microsecond for a 1080p bar).  The kernel is latency-bound instead:
-// every MB depends on the one above it and the one to its left, so the bar
-// is one chain of bar_mbs steps (204 at 1080p with keyint 60).  The design
-// is the simplest that keeps that chain on the card: one launch per P
-// frame, one CUDA block of 256 threads (a thread per luma pixel; 128 of
-// them take the chroma pixels) walking the MBs in order, each step a few
-// barrier-separated phases in shared memory.  All integer: bit-exact.
+// a microsecond for a 1080p bar).  The kernel is bound by its chain
+// instead.  No I16x16 or chroma mode reads the top-right, so MB (r, c)
+// depends only on its top, left and top-left neighbours, all on smaller
+// anti-diagonals r + c: the bar is a wavefront of mbh + ncols - 1 steps
+// (70 at 1080p with keyint 60), not a chain of its mbh * ncols MBs.
+//
+// Design: one launch per P frame, one block of G MB warps (one for each
+// MB of the widest diagonal, at most 16).
+// Step d codes the bar MBs with r + ci = d, dealt to the warps in turn (a
+// warp codes several when the diagonal holds more than G), and the block
+// meets at one __syncthreads() a step, never inside an MB.  A warp codes a
+// whole MB: lanes 0-15 the luma 4x4 blocks, lanes 16-23 the chroma blocks
+// (U then V), lanes 24-31 a copy of 16-23; every lane runs the same code.
+// Each lane takes its plane's predictor sums and gradients from the edge
+// bytes with dp4a; the four modes' SATDs come from one Hadamard of the
+// source block (V, H and DC change only its first row, first column or
+// DC term); an MB's cross-block sums (the mode costs, the DC Hadamards,
+// the cbps) are warp shuffles and ballots.  The chain never leaves the
+// SM: an MB leaves its bottom row, right column and left-edge corner in
+// shared memory, per bar column and double-buffered by the step's
+// parity, where the MB below and the MB to the right read them; the
+// column left of the bar, P recon this pass never changes, is loaded
+// once.  The recon and the fields go to global memory, 16 bytes a store,
+// and are never read back; the levels and fields leave as soon as they
+// are known, so that their stores drain while the inverse runs.  While a
+// warp codes one MB, cp.async brings its next MB's source and QPs into a
+// second buffer.  The launcher refuses tensors off the 16-byte boundaries
+// (8 for the chroma sources) that these copies and stores need; the
+// encoder's planes and fields are whole allocations or MB-padded frames
+// of a batch.  All integer: bit-exact.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,7 +56,55 @@ namespace {
 constexpr int kBig = 1 << 30;
 // the constant block (kernels/pir_column.py packs it): zigzag, then the 4x4
 // quant and dequant tables by qp % 6, raster positions
-constexpr int kZig = 0, kQ4 = 16, kD4 = 112;
+constexpr int kQ4 = 16, kD4 = 112, kTab = 208;
+constexpr int kMaxGroups = 16;  // MB warps a block
+constexpr unsigned kAll = 0xffffffffu;
+// the 4x4 zigzag scan, a nibble per scan index (equal to the block's
+// first 16 words: the tests hold the kernel to the twin)
+constexpr unsigned long long kZigzag = 0xfeb7adc963258410ull;
+
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+__device__ __forceinline__ int zigzag(int j) {
+  return (int)((kZigzag >> (4 * j)) & 15);
+}
+
+#ifndef CUDA_SHIM
+// The device primitives a CPU build of this file replaces (see
+// tests/test_torch_kernel_layouts.py): the dynamic shared memory, and the
+// asynchronous copy of bytes (16, 8 or 4, aligned so) from global to
+// shared memory, its commit and its wait.
+__device__ __forceinline__ unsigned char* smem_base() {
+  extern __shared__ __align__(16) unsigned char pir_smem[];
+  return pir_smem;
+}
+
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+#endif
 
 struct Fields {
   int* luma_dc;      // (N, 16) zigzag DC levels
@@ -52,30 +123,34 @@ struct Fields {
   bool* t8;          // (N,)
 };
 
-struct Smem {
-  int tab[208];
-  int src[256];          // luma source, raster in the MB
-  int diff[4][256];      // source - prediction per luma mode
-  int coef[256];         // the chosen mode's coefficients, block-major
-  int blk[4][16];        // |Hadamard| sums per mode and 4x4 block
-  int top[16], left[16], tl;
-  int dc_pred, pl_a, pl_b, pl_c;
-  int cost;              // the chosen luma mode's SATD
-  int mode;
-  int dc[16], dcq[16], dcdeq[16];
-  int nnz[16];
-  int csrc[2][64];
-  int cdiff[4][2][64];   // per chroma mode and plane
-  int cblk[4][2][4];
-  int ctop[2][8], cleft[2][8], ctl[2];
-  int cq[2][4];          // chroma DC per quadrant (00, 10, 01, 11)
-  int cpa[2], cpb[2], cpc[2];
-  int cmode;
-  int ccoef[2][64];      // block-major per plane
-  int cdc[2][4];         // their DC coefficients
-  int cdcq[2][4], cdcdeq[2][4];
-  int cnnz[2][4];
+// one MB's source and QPs, as a warp's copy brings them
+struct alignas(16) Src {
+  uint8_t y[256];    // luma, raster
+  uint8_t c[2][64];  // U and V, raster
+  int qp, qpc, pad[2];
 };
+
+// what a bar MB leaves its neighbours: its bottom row and right column,
+// and its left edge's last pixel (the top-left of the MB below it)
+struct alignas(16) Edge {
+  uint8_t bot[16], right[16];
+  uint8_t cbot[2][8], cright[2][8];
+  int corner, ccorner[2], pad;
+};
+
+// the dynamic shared memory: the constant block, two source buffers per
+// warp, the edges of each bar column for both step parities, and the
+// column left of the bar (luma, then U and V; 16 words a load, so the V
+// plane's last row reads 8 words of padding)
+__host__ __device__ inline size_t smem_bytes(int groups, int ncl, int mbh) {
+  return kTab * 4 + sizeof(Src) * 2 * groups + sizeof(Edge) * 2 * ncl +
+         (size_t)4 * (32 * mbh + 16);
+}
+
+// the block's MB warps: one for each MB of the widest diagonal
+inline int mb_warps(int ncl, int mbh) {
+  return imin(kMaxGroups, imin(ncl, mbh));
+}
 
 __device__ __forceinline__ int clamp255(int x) {
   return x < 0 ? 0 : (x > 255 ? 255 : x);
@@ -90,20 +165,21 @@ __device__ __forceinline__ void had4(int& a, int& b, int& c, int& d) {
   d = d01 + d23;
 }
 
+// output i of had4(a, b, c, d)
+__device__ __forceinline__ int had4_at(int a, int b, int c, int d, int i) {
+  const int s01 = a + b, d01 = a - b, s23 = c + d, d23 = c - d;
+  return i == 0 ? s01 + s23 : i == 1 ? s01 - s23 : i == 2 ? d01 - d23
+                                                          : d01 + d23;
+}
+
 // H4 x H4^T of a 4x4 block held raster in v[16], in place
-__device__ void had4x4(int* v) {
+__device__ __forceinline__ void had4x4(int* v) {
   for (int r = 0; r < 4; ++r)
     had4(v[4 * r], v[4 * r + 1], v[4 * r + 2], v[4 * r + 3]);
   for (int c = 0; c < 4; ++c) had4(v[c], v[4 + c], v[8 + c], v[12 + c]);
 }
 
-// sum |H4 x H4^T| of a 4x4 block held raster in v[16]
-__device__ int satd4(int* v) {
-  had4x4(v);
-  int s = 0;
-  for (int k = 0; k < 16; ++k) s += v[k] < 0 ? -v[k] : v[k];
-  return s;
-}
+__device__ __forceinline__ int iabs(int x) { return x < 0 ? -x : x; }
 
 // the forward core transform rows of ops/transform._cf_rows
 __device__ __forceinline__ void cf4(int& x0, int& x1, int& x2, int& x3) {
@@ -114,7 +190,7 @@ __device__ __forceinline__ void cf4(int& x0, int& x1, int& x2, int& x3) {
   x3 = d03 - 2 * d12;
 }
 
-__device__ void dct4(int* v) {  // raster 4x4, in place
+__device__ __forceinline__ void dct4(int* v) {  // raster 4x4, in place
   for (int c = 0; c < 4; ++c) cf4(v[c], v[4 + c], v[8 + c], v[12 + c]);
   for (int r = 0; r < 4; ++r)
     cf4(v[4 * r], v[4 * r + 1], v[4 * r + 2], v[4 * r + 3]);
@@ -122,7 +198,7 @@ __device__ void dct4(int* v) {  // raster 4x4, in place
 
 // normative 4x4 inverse (8.5.12.2) with the final (x + 32) >> 6, as
 // ops/transform.idct4x4: along each row first, then along each column
-__device__ void idct4(int* d) {
+__device__ __forceinline__ void idct4(int* d) {
   int f[16];
   for (int r = 0; r < 4; ++r) {
     const int* x = d + 4 * r;
@@ -151,332 +227,421 @@ __device__ __forceinline__ int quant(int c, int mf, int f, int qbits) {
   return c < 0 ? -l : l;
 }
 
-// the DC of a plane-mode predictor's gradient: sum_{x=1..half} x *
-// (e[half-1+x] - e[half-1-x]) with e[-1] = the corner
-__device__ int gradient(const int* e, int corner, int half) {
-  int s = 0;
-  for (int x = 1; x <= half; ++x) {
-    const int hi = e[half - 1 + x];
-    const int lo = half - 1 - x >= 0 ? e[half - 1 - x] : corner;
-    s += x * (hi - lo);
+__device__ __forceinline__ int pick4(int a, int b, int c, int d, int i) {
+  return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
+}
+
+__device__ __forceinline__ uint32_t pick4(const uint32_t* w, int i) {
+  return i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
+}
+
+__device__ __forceinline__ void unpack4(uint32_t w, int* v) {
+  for (int x = 0; x < 4; ++x) v[x] = (w >> (8 * x)) & 255;
+}
+
+// 16 bytes of an edge (luma; chroma uses the first 8) as 4 words
+__device__ __forceinline__ void load_words(const uint8_t* p, uint32_t* w) {
+  const uint2 a = *(const uint2*)p, b = *(const uint2*)(p + 8);
+  w[0] = a.x;
+  w[1] = a.y;
+  w[2] = b.x;
+  w[3] = b.y;
+}
+
+// per word of 4 edge pixels (indices 4i..4i+3): their sum and their sum
+// weighted by the index
+__device__ __forceinline__ void edge_sums(const uint32_t* w, int* d, int* e) {
+  for (int i = 0; i < 4; ++i) {
+    d[i] = (int)__dp4a(w[i], 0x01010101u, 0u);
+    e[i] = (int)__dp4a(w[i], 0x03020100u + 0x04040404u * i, 0u);
   }
-  return s;
 }
 
-__device__ int dc_pred(bool at, bool al, int st, int sl, int both_add,
-                       int both_sh, int one_add, int one_sh) {
-  if (at && al) return (st + sl + both_add) >> both_sh;
-  if (at) return (st + one_add) >> one_sh;
-  if (al) return (sl + one_add) >> one_sh;
-  return 128;
+// 16 words from 16-byte aligned shared memory
+__device__ __forceinline__ void load16(const int* p, int* v) {
+  for (int i = 0; i < 4; ++i) {
+    const int4 q = ((const int4*)p)[i];
+    v[4 * i] = q.x;
+    v[4 * i + 1] = q.y;
+    v[4 * i + 2] = q.z;
+    v[4 * i + 3] = q.w;
+  }
 }
 
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ void store4(int* p, int a, int b, int c, int d) {
+  *(int4*)p = make_int4(a, b, c, d);
+}
+
+// whether a launch's planes take the kernel's 16- and 8-byte copies and
+// its 16-byte stores: the source planes' and the recon planes' rows are
+// whole such units when the planes start on their boundaries, and so are
+// the AC levels' blocks
+inline bool vector_io(const void* y, const void* u, const void* v,
+                      const void* ry, const void* ru, const void* rv,
+                      const void* luma_ac, const void* chroma_ac) {
+  return !(((uintptr_t)y | (uintptr_t)ry | (uintptr_t)ru | (uintptr_t)rv |
+            (uintptr_t)luma_ac | (uintptr_t)chroma_ac) & 15) &&
+         !(((uintptr_t)u | (uintptr_t)v) & 7);
+}
+
+__global__ void __launch_bounds__(32 * kMaxGroups)
 pir_column_kernel(const uint8_t* __restrict__ ysrc,
                   const uint8_t* __restrict__ usrc,
                   const uint8_t* __restrict__ vsrc, int* ry, int* ru, int* rv,
                   const int* __restrict__ qpa, const int* __restrict__ qpca,
                   Fields out, const int* __restrict__ tab_g, int pir_col,
                   int ncols, int mbw, int mbh) {
-  __shared__ Smem s;
-  const int t = threadIdx.x;
+  const int t = threadIdx.x, nt = blockDim.x, G = nt >> 5;
+  const int w = t >> 5, lane = t & 31;
+  const int ncl = imin(ncols, mbw - pir_col), steps = mbh + ncl - 1;
   const int W = 16 * mbw, CW = 8 * mbw;
-  for (int k = t; k < 208; k += 256) s.tab[k] = tab_g[k];
-  const int py = t >> 4, px = t & 15;
-  // chroma lanes: threads 0-127, plane t >> 6, pixel t & 63
-  const int cpl = (t >> 6) & 1, cp = t & 63, cy = cp >> 3, cx = cp & 7;
-  const bool clane = t < 128;
 
-  for (int r = 0; r < mbh; ++r) {
-    for (int ci = 0; ci < ncols; ++ci) {
-      const int c = pir_col + ci;
-      if (c >= mbw) continue;  // uniform across the block
-      const bool at = r > 0, al = c > 0;
-      const int y0 = 16 * r, x0 = 16 * c, cy0 = 8 * r, cx0 = 8 * c;
-      const int mb = r * mbw + c;
-      const int qp = qpa[mb], qpc = qpca[mb];
-      __syncthreads();  // the previous MB's recon writes are visible
+  unsigned char* base = smem_base();
+  int* tab = (int*)base;
+  Src* srcb = (Src*)(base + kTab * 4) + 2 * w;  // this warp's two buffers
+  Edge* edge = (Edge*)(base + kTab * 4 + sizeof(Src) * 2 * G);
+  int* lcol = (int*)(edge + 2 * ncl);  // (16 mbh) luma, then (2, 8 mbh)
 
-      // ---- load the source and the edges (clamped reads) ----
-      s.src[t] = ysrc[(y0 + py) * W + x0 + px];
-      const int yt = y0 > 0 ? y0 - 1 : 0, xl = x0 > 0 ? x0 - 1 : 0;
-      if (t < 16) s.top[t] = ry[yt * W + x0 + t];
-      else if (t < 32) s.left[t - 16] = ry[(y0 + t - 16) * W + xl];
-      else if (t == 32) s.tl = ry[yt * W + xl];
-      if (clane) {
-        const uint8_t* sp = cpl ? vsrc : usrc;
-        s.csrc[cpl][cp] = sp[(cy0 + cy) * CW + cx0 + cx];
-      }
-      const int cyt = cy0 > 0 ? cy0 - 1 : 0, cxl = cx0 > 0 ? cx0 - 1 : 0;
-      if (t >= 64 && t < 96) {
-        const int k = t - 64, pl = k >> 4, i = k & 7;
-        int* rp = pl ? rv : ru;
-        if ((k & 15) < 8) s.ctop[pl][i] = rp[cyt * CW + cx0 + i];
-        else s.cleft[pl][i] = rp[(cy0 + i) * CW + cxl];
-      } else if (t == 96 || t == 97) {
-        int* rp = t == 97 ? rv : ru;
-        s.ctl[t - 96] = rp[cyt * CW + cxl];
-      }
-      __syncthreads();
-
-      // ---- predictor scalars ----
-      if (t == 0) {
-        int st = 0, sl = 0;
-        for (int k = 0; k < 16; ++k) {
-          st += s.top[k];
-          sl += s.left[k];
-        }
-        s.dc_pred = dc_pred(at, al, st, sl, 16, 5, 8, 4);
-        s.pl_b = (5 * gradient(s.top, s.tl, 8) + 32) >> 6;
-        s.pl_c = (5 * gradient(s.left, s.tl, 8) + 32) >> 6;
-        s.pl_a = 16 * (s.left[15] + s.top[15]);
-      } else if (t == 32 || t == 64) {
-        const int pl = t == 64;
-        const int* tp = s.ctop[pl];
-        const int* lp = s.cleft[pl];
-        const int st0 = tp[0] + tp[1] + tp[2] + tp[3];
-        const int st1 = tp[4] + tp[5] + tp[6] + tp[7];
-        const int sl0 = lp[0] + lp[1] + lp[2] + lp[3];
-        const int sl1 = lp[4] + lp[5] + lp[6] + lp[7];
-        s.cq[pl][0] = dc_pred(at, al, st0, sl0, 4, 3, 2, 2);
-        s.cq[pl][3] = dc_pred(at, al, st1, sl1, 4, 3, 2, 2);
-        s.cq[pl][1] = at ? (st1 + 2) >> 2 : (al ? (sl0 + 2) >> 2 : 128);
-        s.cq[pl][2] = al ? (sl1 + 2) >> 2 : (at ? (st0 + 2) >> 2 : 128);
-        s.cpa[pl] = 16 * (lp[7] + tp[7]);
-        s.cpb[pl] = (17 * gradient(tp, s.ctl[pl], 4) + 16) >> 5;
-        s.cpc[pl] = (17 * gradient(lp, s.ctl[pl], 4) + 16) >> 5;
-      }
-      __syncthreads();
-
-      // ---- every mode's prediction and difference ----
-      {
-        const int v = s.src[t];
-        const int pv = s.top[px], ph = s.left[py], pd = s.dc_pred;
-        const int pp = clamp255(
-            (s.pl_a + s.pl_b * (px - 7) + s.pl_c * (py - 7) + 16) >> 5);
-        s.diff[0][t] = v - pv;
-        s.diff[1][t] = v - ph;
-        s.diff[2][t] = v - pd;
-        s.diff[3][t] = v - pp;
-      }
-      if (clane) {
-        const int v = s.csrc[cpl][cp];
-        const int q = (cy < 4 ? 0 : 2) + (cx < 4 ? 0 : 1);
-        const int pdc = s.cq[cpl][q];
-        const int ph = s.cleft[cpl][cy], pv = s.ctop[cpl][cx];
-        const int pp = clamp255((s.cpa[cpl] + s.cpb[cpl] * (cx - 3) +
-                                 s.cpc[cpl] * (cy - 3) + 16) >> 5);
-        s.cdiff[0][cpl][cp] = v - pdc;
-        s.cdiff[1][cpl][cp] = v - ph;
-        s.cdiff[2][cpl][cp] = v - pv;
-        s.cdiff[3][cpl][cp] = v - pp;
-      }
-      __syncthreads();
-
-      // ---- SATD of every 4x4 block of every mode ----
-      if (t < 64) {
-        const int m = t >> 4, b = t & 15, by = b >> 2, bx = b & 3;
-        int v[16];
-        for (int k = 0; k < 16; ++k)
-          v[k] = s.diff[m][(4 * by + (k >> 2)) * 16 + 4 * bx + (k & 3)];
-        s.blk[m][b] = satd4(v);
-      } else if (t < 96) {
-        const int k = t - 64, m = k >> 3, pl = (k >> 2) & 1, b = k & 3;
-        const int by = b >> 1, bx = b & 1;
-        int v[16];
-        for (int j = 0; j < 16; ++j)
-          v[j] = s.cdiff[m][pl][(4 * by + (j >> 2)) * 8 + 4 * bx + (j & 3)];
-        s.cblk[m][pl][b] = satd4(v);
-      }
-      __syncthreads();
-
-      // ---- mode decisions: the first cheapest available mode ----
-      if (t == 0) {
-        const bool av[4] = {at, al, true, at && al};
-        int best = kBig, bm = 0;
-        for (int m = 0; m < 4; ++m) {
-          int sum = 0;
-          for (int b = 0; b < 16; ++b) sum += s.blk[m][b];
-          const int cost = av[m] ? sum >> 1 : kBig;
-          if (cost < best) {
-            best = cost;
-            bm = m;
-          }
-        }
-        s.mode = bm;
-        s.cost = best;
-      } else if (t == 32) {
-        const bool av[4] = {true, al, at, at && al};
-        int best = kBig, bm = 0;
-        for (int m = 0; m < 4; ++m) {
-          int su = 0, sv = 0;
-          for (int b = 0; b < 4; ++b) {
-            su += s.cblk[m][0][b];
-            sv += s.cblk[m][1][b];
-          }
-          const int cost = av[m] ? (su >> 1) + (sv >> 1) : kBig;
-          if (cost < best) {
-            best = cost;
-            bm = m;
-          }
-        }
-        s.cmode = bm;
-      }
-      __syncthreads();
-
-      // ---- forward transforms of the chosen residuals ----
-      if (t < 16) {
-        const int by = t >> 2, bx = t & 3;
-        int v[16];
-        for (int k = 0; k < 16; ++k)
-          v[k] = s.diff[s.mode][(4 * by + (k >> 2)) * 16 + 4 * bx + (k & 3)];
-        dct4(v);
-        for (int k = 0; k < 16; ++k) s.coef[16 * t + k] = v[k];
-        s.dc[t] = v[0];
-      } else if (t >= 32 && t < 40) {
-        const int k = t - 32, pl = k >> 2, b = k & 3, by = b >> 1, bx = b & 1;
-        int v[16];
-        for (int j = 0; j < 16; ++j)
-          v[j] = s.cdiff[s.cmode][pl]
-                        [(4 * by + (j >> 2)) * 8 + 4 * bx + (j & 3)];
-        dct4(v);
-        for (int j = 0; j < 16; ++j) s.ccoef[pl][16 * b + j] = v[j];
-        s.cdc[pl][b] = v[0];
-      }
-      __syncthreads();
-
-      const int q6 = qp / 6, qm = qp % 6;
-      const int qbits = 15 + q6, fi = (1 << qbits) / 3;
-      const int cq6 = qpc / 6, cqm = qpc % 6;
-      const int cqbits = 15 + cq6, cfi = (1 << cqbits) / 3;
-      // ---- the DC paths (one thread each) ----
-      if (t == 0) {
-        // luma: forward Hadamard with (x + 1) >> 1, quant, inverse, scale
-        int h[16];
-        for (int k = 0; k < 16; ++k) h[k] = s.dc[k];
-        had4x4(h);
-        const int mf0 = s.tab[kQ4 + 16 * qm];
-        int lv[16];
-        for (int k = 0; k < 16; ++k) {
-          lv[k] = quant((h[k] + 1) >> 1, mf0, 2 * fi, qbits + 1);
-          s.dcq[k] = lv[k];
-        }
-        had4x4(lv);
-        const int ls16 = s.tab[kD4 + 16 * qm] * 16;
-        for (int k = 0; k < 16; ++k)
-          s.dcdeq[k] = q6 >= 6 ? (lv[k] * ls16) << (q6 - 6)
-                               : (lv[k] * ls16 + (1 << (5 - q6))) >> (6 - q6);
-      } else if (t == 32 || t == 33) {
-        // chroma plane t - 32: the 2x2 Hadamard, quant, inverse, scale
-        const int pl = t - 32;
-        const int x00 = s.cdc[pl][0], x01 = s.cdc[pl][1];
-        const int x10 = s.cdc[pl][2], x11 = s.cdc[pl][3];
-        const int a0 = x00 + x10, a1 = x01 + x11;
-        const int b0 = x00 - x10, b1 = x01 - x11;
-        const int hd[4] = {a0 + a1, a0 - a1, b0 + b1, b0 - b1};
-        const int mf0 = s.tab[kQ4 + 16 * cqm];
-        int lv[4];
-        for (int k = 0; k < 4; ++k) {
-          lv[k] = quant(hd[k], mf0, 2 * cfi, cqbits + 1);
-          s.cdcq[pl][k] = lv[k];
-        }
-        const int c0 = lv[0] + lv[2], c1 = lv[1] + lv[3];
-        const int e0 = lv[0] - lv[2], e1 = lv[1] - lv[3];
-        const int ih[4] = {c0 + c1, c0 - c1, e0 + e1, e0 - e1};
-        const int ls16 = s.tab[kD4 + 16 * cqm] * 16;
-        for (int k = 0; k < 4; ++k)
-          s.cdcdeq[pl][k] = ((ih[k] * ls16) << cq6) >> 5;
-      }
-      // ---- AC quant of every coefficient (position 0 left to the DC) ----
-      {
-        const int k = t & 15;
-        const int lv = k == 0 ? 0
-                              : quant(s.coef[t], s.tab[kQ4 + 16 * qm + k], fi,
-                                      qbits);
-        s.coef[t] = lv;
-      }
-      if (clane) {
-        const int k = cp & 15;
-        const int lv = k == 0 ? 0
-                              : quant(s.ccoef[cpl][cp],
-                                      s.tab[kQ4 + 16 * cqm + k], cfi, cqbits);
-        s.ccoef[cpl][cp] = lv;
-      }
-      __syncthreads();
-
-      // ---- counts, zigzag levels out, dequant and inverse per block ----
-      if (t < 16) {
-        int* lv = s.coef + 16 * t;
-        int cnt = 0;
-        for (int j = 0; j < 16; ++j) {
-          const int v = lv[s.tab[kZig + j]];
-          out.luma_ac[(size_t)mb * 256 + 16 * t + j] = v;
-          cnt += v != 0;
-        }
-        s.nnz[t] = cnt;
-        out.luma_nnz[(size_t)mb * 16 + t] = cnt;
-        out.nnz_deblock[(size_t)mb * 16 + t] = cnt;
-        out.luma_dc[(size_t)mb * 16 + t] = s.dcq[s.tab[kZig + t]];
-        int d[16];
-        for (int j = 0; j < 16; ++j)
-          d[j] = (lv[j] * s.tab[kD4 + 16 * qm + j]) << q6;
-        d[0] = s.dcdeq[t];
-        idct4(d);
-        for (int j = 0; j < 16; ++j) lv[j] = d[j];  // the residual, raster
-      } else if (t >= 32 && t < 40) {
-        const int k = t - 32, pl = k >> 2, b = k & 3;
-        int* lv = s.ccoef[pl] + 16 * b;
-        int cnt = 0;
-        const size_t o = ((size_t)mb * 2 + pl) * 4 + b;
-        for (int j = 0; j < 16; ++j) {
-          const int v = lv[s.tab[kZig + j]];
-          out.chroma_ac[o * 16 + j] = v;
-          cnt += v != 0;
-        }
-        s.cnnz[pl][b] = cnt;
-        out.chroma_nnz[o] = cnt;
-        out.chroma_dc[o] = s.cdcq[pl][b];
-        int d[16];
-        for (int j = 0; j < 16; ++j)
-          d[j] = (lv[j] * s.tab[kD4 + 16 * cqm + j]) << cq6;
-        d[0] = s.cdcdeq[pl][b];
-        idct4(d);
-        for (int j = 0; j < 16; ++j) lv[j] = d[j];
-      }
-      __syncthreads();
-
-      // ---- recon into the live planes, and the MB's scalar fields ----
-      {
-        const int b = (py >> 2) * 4 + (px >> 2), k = (py & 3) * 4 + (px & 3);
-        const int pred = s.src[t] - s.diff[s.mode][t];
-        ry[(y0 + py) * W + x0 + px] = clamp255(pred + s.coef[16 * b + k]);
-      }
-      if (clane) {
-        const int b = (cy >> 2) * 2 + (cx >> 2), k = (cy & 3) * 4 + (cx & 3);
-        const int pred = s.csrc[cpl][cp] - s.cdiff[s.cmode][cpl][cp];
-        int* rp = cpl ? rv : ru;
-        rp[(cy0 + cy) * CW + cx0 + cx] =
-            clamp255(pred + s.ccoef[cpl][16 * b + k]);
-      }
-      if (t == 0) {
-        int any = 0;
-        for (int b = 0; b < 16; ++b) any |= s.nnz[b];
-        out.cbp_luma[mb] = any ? 15 : 0;
-        out.i16_mode[mb] = s.mode;
-        out.mb_cost[mb] = s.cost;
-        out.intra_mask[mb] = true;
-        out.t8[mb] = false;
-      } else if (t == 32) {
-        int any_ac = 0, any_dc = 0;
-        for (int pl = 0; pl < 2; ++pl)
-          for (int b = 0; b < 4; ++b) {
-            any_ac |= s.cnnz[pl][b];
-            any_dc |= s.cdcq[pl][b];
-          }
-        out.cbp_chroma[mb] = any_ac ? 2 : (any_dc ? 1 : 0);
-        out.chroma_mode[mb] = s.cmode;
+  // ---- once: the constant block, the edges cleared, the left column ----
+  for (int k = t; k < kTab; k += nt) tab[k] = tab_g[k];
+  for (int k = t; k < 2 * ncl * (int)sizeof(Edge) / 4; k += nt)
+    ((int*)edge)[k] = 0;
+  for (int k = t; k < 32 * mbh + 16; k += nt) {
+    int v = 0;
+    if (pir_col > 0 && k < 32 * mbh) {
+      if (k < 16 * mbh) {
+        v = ry[(size_t)k * W + 16 * pir_col - 1];
+      } else {
+        const int pl = (k - 16 * mbh) / (8 * mbh);
+        const int y = k - 16 * mbh - pl * 8 * mbh;
+        v = (pl ? rv : ru)[(size_t)y * CW + 8 * pir_col - 1];
       }
     }
+    lcol[k] = v;
+  }
+
+  // ---- the lane's part of an MB ----
+  const bool isl = lane < 16;                 // a luma block
+  const int cl = (lane - 16) & 7;             // chroma lanes: U 0-3, V 4-7
+  const int pl = isl ? 0 : cl >> 2, cb = cl & 3;
+  const int bx = isl ? lane & 3 : cb & 1, by = isl ? lane >> 2 : cb >> 1;
+  const int half = isl ? 8 : 4, last = isl ? 3 : 1;
+  const bool writer = lane < 24;
+  // the luma DC Hadamard's place of every lane (a luma lane's own block)
+  const int lbx = lane & 3, lby = (lane >> 2) & 3;
+
+  auto diag_len = [&](int d) {
+    return imin(d, ncl - 1) - imax(0, d - mbh + 1) + 1;
+  };
+  // copy MB j of diagonal d's source and QPs into buffer b, asynchronously:
+  // lanes 0-15 a luma row of 16 bytes, 16-31 a chroma row of 8 (U, then
+  // V), lanes 0 and 1 the QPs
+  const bool ly = lane < 16;
+  const int fp = (lane >> 3) & 1, frow = lane & 7;
+  const uint8_t* fsrc =
+      ly ? ysrc + (size_t)lane * W : (fp ? vsrc : usrc) + (size_t)frow * CW;
+  const size_t fmb_row = ly ? (size_t)16 * W : (size_t)8 * CW;
+  const int fmb_col = ly ? 16 : 8;
+  const int fdst = ly ? 16 * lane : 256 + 64 * fp + 8 * frow;  // in a Src
+  auto fetch = [&](int d, int j, Src* b) {
+    const int ci = imax(0, d - mbh + 1) + j, r = d - ci, c = pir_col + ci;
+    unsigned char* dst = (unsigned char*)b + fdst;
+    const uint8_t* src = fsrc + r * fmb_row + fmb_col * c;
+    copy_async(dst, src, ly ? 16 : 8);
+    if (lane < 2)
+      copy_async(lane ? &b->qpc : &b->qp, (lane ? qpca : qpa) + r * mbw + c,
+                 4);
+    copy_async_commit();
+  };
+
+  // the warp's MBs: j = w, w + G, ... of each diagonal in turn; (cd, cj) is
+  // the next one to fetch
+  int cd = 0, cj = w;
+  while (cd < steps && cj >= diag_len(cd)) {
+    ++cd;
+    cj = w;
+  }
+  if (cd < steps) fetch(cd, cj, srcb);
+  __syncthreads();
+
+  int k = 0;
+  for (int d = 0; d < steps; ++d) {
+    const int n = diag_len(d), lo = imax(0, d - mbh + 1);
+    const Edge* prev = edge + ((d + 1) & 1) * ncl;  // written at step d - 1
+    Edge* cur = edge + (d & 1) * ncl;
+    for (int j = w; j < n; j += G, ++k) {
+      // ---- this MB's source in, the next one's copy started ----
+      copy_async_wait();
+      __syncwarp();
+      cj += G;
+      while (cd < steps && cj >= diag_len(cd)) {
+        ++cd;
+        cj = w;
+      }
+      if (cd < steps) fetch(cd, cj, srcb + ((k + 1) & 1));
+      const Src& sb = srcb[k & 1];
+
+      const int ci = lo + j, r = d - ci, c = pir_col + ci;
+      const int mb = r * mbw + c;
+      const bool at = r > 0, al = c > 0;
+
+      // ---- edges: top and corner from the MB above, left from the MB
+      // to the left or the column left of the bar ----
+      const Edge& et = prev[ci];
+      const Edge& el = prev[ci ? ci - 1 : 0];  // read only when ci > 0
+      // the lane's plane's top and left edges: per 4 pixels their sum and
+      // index-weighted sum, the lane's own 4 pixels, and the last pixel
+      int td[4], te[4], ld[4], le[4], t4[4], l4[4], top_e, left_e;
+      {
+        uint32_t wd[4];
+        load_words(isl ? et.bot : et.cbot[pl], wd);
+        edge_sums(wd, td, te);
+        unpack4(pick4(wd, bx), t4);
+        top_e = (int)((isl ? wd[3] : wd[1]) >> 24);
+      }
+      if (ci) {
+        uint32_t wd[4];
+        load_words(isl ? el.right : el.cright[pl], wd);
+        edge_sums(wd, ld, le);
+        unpack4(pick4(wd, by), l4);
+        left_e = (int)((isl ? wd[3] : wd[1]) >> 24);
+      } else {  // the column left of the bar, int32
+        int v[16];
+        load16(isl ? lcol + 16 * r : lcol + (16 + 8 * pl) * mbh + 8 * r, v);
+        for (int i = 0; i < 4; ++i) {
+          ld[i] = v[4 * i] + v[4 * i + 1] + v[4 * i + 2] + v[4 * i + 3];
+          le[i] = 4 * i * ld[i] + v[4 * i + 1] + 2 * v[4 * i + 2] +
+                  3 * v[4 * i + 3];
+          l4[i] = pick4(v[i], v[4 + i], v[8 + i], v[12 + i], by);
+        }
+        left_e = isl ? v[15] : v[7];
+      }
+      const int tl = isl ? et.corner : et.ccorner[pl];
+
+      // ---- predictor scalars: DC, and the plane's gradients, where
+      // sum_x x (e[half-1+x] - e[half-1-x]) = sum_i i e[i] - (half - 1)
+      // sum_i e[i] - half * corner ----
+      // (one formula for both kinds of lane, so no lane waits on the
+      // other kind's branch; chroma quadrant 1 prefers the top, 2 the left)
+      const int sum_t = td[0] + td[1] + (isl ? td[2] + td[3] : 0);
+      const int sum_l = ld[0] + ld[1] + (isl ? ld[2] + ld[3] : 0);
+      const int gt = te[0] + te[1] + (isl ? te[2] + te[3] : 0) -
+                     (half - 1) * sum_t - half * tl;
+      const int gl = le[0] + le[1] + (isl ? le[2] + le[3] : 0) -
+                     (half - 1) * sum_l - half * tl;
+      const int gm = isl ? 5 : 17, gsh = isl ? 6 : 5;
+      const int pb = (gm * gt + (1 << (gsh - 1))) >> gsh;
+      const int pc = (gm * gl + (1 << (gsh - 1))) >> gsh;
+      const int dt = isl ? sum_t : (cb & 1 ? td[1] : td[0]);
+      const int dl = isl ? sum_l : (cb >> 1 ? ld[1] : ld[0]);
+      const int dsh = isl ? 4 : 2, drnd = 1 << (dsh - 1);
+      const bool use_t = at && (isl || cb != 2 || !al);
+      const bool use_l = al && (isl || cb != 1 || !at);
+      const int dcv = use_t && use_l ? (dt + dl + 2 * drnd) >> (dsh + 1)
+                      : use_t        ? (dt + drnd) >> dsh
+                      : use_l        ? (dl + drnd) >> dsh
+                                     : 128;
+      const int pa = 16 * (left_e + top_e);
+
+      // ---- the source block, the plane prediction ----
+      int src[16], pp[16];
+      {
+        const uint8_t* sp = isl ? sb.y + 64 * by + 4 * bx
+                                : sb.c[pl] + 32 * by + 4 * bx;
+        const int stride = isl ? 16 : 8;
+        for (int y = 0; y < 4; ++y) {
+          const uint32_t wd = *(const uint32_t*)(sp + y * stride);
+          for (int x = 0; x < 4; ++x) src[4 * y + x] = (wd >> (8 * x)) & 255;
+        }
+        const int b0 = pa + pb * (4 * bx - half + 1) +
+                       pc * (4 * by - half + 1) + 16;
+        for (int y = 0; y < 4; ++y)
+          for (int x = 0; x < 4; ++x)
+            pp[4 * y + x] = clamp255((b0 + pb * x + pc * y) >> 5);
+      }
+
+      // ---- SATD of the four modes, in the order [V, H, DC, Plane] ----
+      int sat[4];
+      {
+        int hs[16];
+        for (int i = 0; i < 16; ++i) hs[i] = src[i];
+        had4x4(hs);
+        int all = 0;
+        for (int i = 0; i < 16; ++i) all += iabs(hs[i]);
+        int tv[4] = {t4[0], t4[1], t4[2], t4[3]};
+        int lv[4] = {l4[0], l4[1], l4[2], l4[3]};
+        had4(tv[0], tv[1], tv[2], tv[3]);
+        had4(lv[0], lv[1], lv[2], lv[3]);
+        int sv = all, sh = all;
+        for (int i = 0; i < 4; ++i) {
+          sv += iabs(hs[i] - 4 * tv[i]) - iabs(hs[i]);
+          sh += iabs(hs[4 * i] - 4 * lv[i]) - iabs(hs[4 * i]);
+        }
+        sat[0] = sv;
+        sat[1] = sh;
+        sat[2] = all - iabs(hs[0]) + iabs(hs[0] - 16 * dcv);
+        int dp[16];
+        for (int i = 0; i < 16; ++i) dp[i] = src[i] - pp[i];
+        had4x4(dp);
+        int s = 0;
+        for (int i = 0; i < 16; ++i) s += iabs(dp[i]);
+        sat[3] = s;
+      }
+      // ---- the mode costs: luma sums 16 blocks then halves, chroma
+      // halves each plane's sum of 4 then adds the planes ----
+      for (int m = 0; m < 4; ++m) {
+        int v = sat[m];
+        v += __shfl_xor_sync(kAll, v, 1);
+        v += __shfl_xor_sync(kAll, v, 2);
+        v >>= isl ? 0 : 1;
+        v += __shfl_xor_sync(kAll, v, 4);
+        const int o = __shfl_xor_sync(kAll, v, 8);
+        sat[m] = isl ? (v + o) >> 1 : v;
+      }
+      // the first cheapest available mode in the plane's own order (luma
+      // [V, H, DC, Plane], chroma [DC, H, V, Plane]); g: its kind above
+      int best = kBig, bm = 0, bg = 0;
+      for (int m = 0; m < 4; ++m) {
+        const int g = (isl || (m & 1)) ? m : 2 - m;
+        const int v = (isl || (m & 1)) ? sat[m] : sat[2 - m];
+        const bool av = g == 0 ? at : g == 1 ? al : g == 2 ? true : at && al;
+        const int cost = av ? v : kBig;
+        if (cost < best) {
+          best = cost;
+          bm = m;
+          bg = g;
+        }
+      }
+
+      // ---- the chosen prediction, the residual's transform ----
+      int pr[16], co[16];
+      for (int y = 0; y < 4; ++y)
+        for (int x = 0; x < 4; ++x) {
+          const int i = 4 * y + x;
+          pr[i] = bg == 3 ? pp[i] : bg == 2 ? dcv : bg == 1 ? l4[y] : t4[x];
+          co[i] = src[i] - pr[i];
+        }
+      dct4(co);
+
+      const int qq = isl ? sb.qp : sb.qpc;
+      const int q6 = qq / 6, qm = qq % 6;
+      const int qbits = 15 + q6, fi = (1 << qbits) / 3;
+      int mf[16], dq[16];
+      load16(tab + kQ4 + 16 * qm, mf);
+      load16(tab + kD4 + 16 * qm, dq);
+      // ---- AC quant (position 0 is the DC's) ----
+      int lv[16];
+      int nnz = 0;
+      lv[0] = 0;
+      for (int i = 1; i < 16; ++i) {
+        lv[i] = quant(co[i], mf[i], fi, qbits);
+        nnz += lv[i] != 0;
+      }
+
+      // ---- luma DC: the 16-point Hadamard across lanes 0-15, (x + 1) >>
+      // 1, quant, the inverse and the scale; every lane runs it ----
+      const int dc0 = co[0];
+      int a0 = __shfl_sync(kAll, dc0, 4 * lby), a1 = __shfl_sync(kAll, dc0, 4 * lby + 1);
+      int a2 = __shfl_sync(kAll, dc0, 4 * lby + 2), a3 = __shfl_sync(kAll, dc0, 4 * lby + 3);
+      int h = had4_at(a0, a1, a2, a3, lbx);
+      a0 = __shfl_sync(kAll, h, lbx);
+      a1 = __shfl_sync(kAll, h, 4 + lbx);
+      a2 = __shfl_sync(kAll, h, 8 + lbx);
+      a3 = __shfl_sync(kAll, h, 12 + lbx);
+      h = had4_at(a0, a1, a2, a3, lby);
+      const int lq = quant((h + 1) >> 1, mf[0], 2 * fi, qbits + 1);
+      const int zq = __shfl_sync(kAll, lq, zigzag(lane & 15));
+      a0 = __shfl_sync(kAll, lq, 4 * lby);
+      a1 = __shfl_sync(kAll, lq, 4 * lby + 1);
+      a2 = __shfl_sync(kAll, lq, 4 * lby + 2);
+      a3 = __shfl_sync(kAll, lq, 4 * lby + 3);
+      h = had4_at(a0, a1, a2, a3, lbx);
+      a0 = __shfl_sync(kAll, h, lbx);
+      a1 = __shfl_sync(kAll, h, 4 + lbx);
+      a2 = __shfl_sync(kAll, h, 8 + lbx);
+      a3 = __shfl_sync(kAll, h, 12 + lbx);
+      h = had4_at(a0, a1, a2, a3, lby);
+      const int ls16 = dq[0] * 16;
+      // ---- chroma DC: each plane's 2x2 transform across its 4 lanes ----
+      const int gb = lane & ~3;
+      const int x0 = __shfl_sync(kAll, dc0, gb), x1 = __shfl_sync(kAll, dc0, gb + 1);
+      const int x2 = __shfl_sync(kAll, dc0, gb + 2), x3 = __shfl_sync(kAll, dc0, gb + 3);
+      int cdc, dcd;
+      {
+        const int s0 = x0 + x2, s1 = x1 + x3, e0 = x0 - x2, e1 = x1 - x3;
+        const int c0 = quant(s0 + s1, mf[0], 2 * fi, qbits + 1);
+        const int c1 = quant(s0 - s1, mf[0], 2 * fi, qbits + 1);
+        const int c2 = quant(e0 + e1, mf[0], 2 * fi, qbits + 1);
+        const int c3 = quant(e0 - e1, mf[0], 2 * fi, qbits + 1);
+        const int u0 = c0 + c2, u1 = c1 + c3, v0 = c0 - c2, v1 = c1 - c3;
+        const int ih = pick4(u0 + u1, u0 - u1, v0 + v1, v0 - v1, cb);
+        cdc = pick4(c0, c1, c2, c3, cb);
+        dcd = isl ? (q6 >= 6 ? (h * ls16) << (q6 - 6)
+                             : (h * ls16 + (1 << (5 - q6))) >> (6 - q6))
+                  : ((ih * ls16) << q6) >> 5;
+      }
+
+      // ---- the levels, counts and fields out, early: their stores drain
+      // while the inverse runs ----
+      const unsigned any_l = __ballot_sync(kAll, isl && nnz);
+      const unsigned any_cac = __ballot_sync(kAll, !isl && writer && nnz);
+      const unsigned any_cdc = __ballot_sync(kAll, !isl && writer && cdc);
+      if (writer) {
+        const int o = isl ? mb * 16 + lane : (mb * 2 + pl) * 4 + cb;
+        int* acp = (isl ? out.luma_ac : out.chroma_ac) + 16 * o;
+        for (int i = 0; i < 16; i += 4)
+          store4(acp + i, lv[zigzag(i)], lv[zigzag(i + 1)],
+                       lv[zigzag(i + 2)], lv[zigzag(i + 3)]);
+        (isl ? out.luma_nnz : out.chroma_nnz)[o] = nnz;
+        (isl ? out.luma_dc : out.chroma_dc)[o] = isl ? zq : cdc;
+        if (isl) out.nnz_deblock[o] = nnz;
+      }
+      if (lane == 0) {
+        out.cbp_luma[mb] = any_l ? 15 : 0;
+        out.i16_mode[mb] = bm;
+        out.mb_cost[mb] = best;
+        out.intra_mask[mb] = true;
+        out.t8[mb] = false;
+      }
+      if (lane == 16) {
+        out.cbp_chroma[mb] = any_cac ? 2 : (any_cdc ? 1 : 0);
+        out.chroma_mode[mb] = bm;
+      }
+
+      // ---- the block's dequant, inverse and recon ----
+      int res[16];
+      res[0] = dcd;
+      for (int i = 1; i < 16; ++i) res[i] = (lv[i] * dq[i]) << q6;
+      idct4(res);
+      int rec[16];
+      for (int i = 0; i < 16; ++i) rec[i] = clamp255(pr[i] + res[i]);
+
+      if (writer) {
+        // ---- the edges this MB leaves its neighbours ----
+        Edge& eo = cur[ci];
+        if (by == last) {
+          uint8_t* bp = (isl ? eo.bot : eo.cbot[pl]) + 4 * bx;
+          *(uint32_t*)bp = (uint32_t)rec[12] | ((uint32_t)rec[13] << 8) |
+                           ((uint32_t)rec[14] << 16) |
+                           ((uint32_t)rec[15] << 24);
+          if (bx == 0) (isl ? eo.corner : eo.ccorner[pl]) = l4[3];
+        }
+        if (bx == last) {
+          uint8_t* rpp = (isl ? eo.right : eo.cright[pl]) + 4 * by;
+          *(uint32_t*)rpp = (uint32_t)rec[3] | ((uint32_t)rec[7] << 8) |
+                            ((uint32_t)rec[11] << 16) |
+                            ((uint32_t)rec[15] << 24);
+        }
+        // ---- the recon rows ----
+        int* rp = isl ? ry + (16 * r + 4 * by) * W + 16 * c + 4 * bx
+                      : (pl ? rv : ru) + (8 * r + 4 * by) * CW + 8 * c + 4 * bx;
+        const int stride = isl ? W : CW;
+        for (int y = 0; y < 4; ++y)
+          store4(rp + y * stride, rec[4 * y], rec[4 * y + 1],
+                       rec[4 * y + 2], rec[4 * y + 3]);
+      }
+    }
+    __syncthreads();  // this step's edges are written
   }
 }
 
@@ -490,16 +655,38 @@ extern "C" int pir_column_launch(
     void* chroma_mode, void* mb_cost, void* intra_mask, void* t8,
     const void* tab, int pir_col, int ncols, int mbw, int mbh,
     void* stream) {
-  if (pir_col < 0 || pir_col >= mbw || ncols < 1 || mbh < 1)
+  if (pir_col < 0 || pir_col >= mbw || ncols < 1 || mbh < 1 ||
+      !vector_io(y, u, v, ry, ru, rv, luma_ac, chroma_ac))
     return (int)cudaErrorInvalidValue;
+  const int ncl = imin(ncols, mbw - pir_col), groups = mb_warps(ncl, mbh);
+  const size_t smem = smem_bytes(groups, ncl, mbh);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pir_column_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   Fields f{(int*)luma_dc,    (int*)luma_ac,    (int*)luma_nnz,
            (int*)nnz_deblock, (int*)cbp_luma,  (int*)chroma_dc,
            (int*)chroma_ac,  (int*)chroma_nnz, (int*)cbp_chroma,
            (int*)i16_mode,   (int*)chroma_mode, (int*)mb_cost,
            (bool*)intra_mask, (bool*)t8};
-  pir_column_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(
+  pir_column_kernel<<<1, 32 * groups, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)y, (const uint8_t*)u, (const uint8_t*)v, (int*)ry,
       (int*)ru, (int*)rv, (const int*)qp, (const int*)qpc, f,
       (const int*)tab, pir_col, ncols, mbw, mbh);
   return (int)cudaGetLastError();
+}
+
+// The launch's geometry for a bar, as pir_column_launch makes it:
+// out = (MB warps, dynamic shared memory bytes, wavefront steps).
+extern "C" int pir_column_geom(int pir_col, int ncols, int mbw, int mbh,
+                               int* out) {
+  if (pir_col < 0 || pir_col >= mbw || ncols < 1 || mbh < 1)
+    return (int)cudaErrorInvalidValue;
+  const int ncl = imin(ncols, mbw - pir_col);
+  out[0] = mb_warps(ncl, mbh);
+  out[1] = (int)smem_bytes(out[0], ncl, mbh);
+  out[2] = mbh + ncl - 1;
+  return 0;
 }

@@ -48,6 +48,7 @@ SIGNATURES = {
     "bitpack_launch": [_P] * 4 + [_I] * 3 + [_P],
     "bitpack_max_words": [],
     "pir_column_launch": [_P] * 23 + [_I] * 4 + [_P],
+    "pir_column_geom": [_I] * 4 + [_P],
 }
 
 _lib = None

@@ -1,7 +1,8 @@
 """The periodic-intra-refresh bar of a P frame: the wrapper of the CUDA
-kernel ``csrc/pir_column.cu`` (one launch per P frame, one CUDA block that
-walks the bar's MBs in order, a thread per pixel), its plain twin
-``pir_column_pass_plain`` and the work it does, for its bound.
+kernel ``csrc/pir_column.cu`` (one launch per P frame, one CUDA block
+that codes the bar as a wavefront over its anti-diagonals, a warp an
+MB), its plain twin ``pir_column_pass_plain`` and the work it does, for
+its bound.
 
 Replaces x264_tpu/models/inter_device.py::_pir_column_pass, which the
 reference runs as XLA (a ``lax.scan`` over the MB rows; no Pallas
@@ -122,7 +123,11 @@ def pir_column_pass_(y, u, v, ry, ru, rv, acc: dict, qp, qpc, pir_col: int,
                      mbw: int, mbh: int, ncols: int):
     """Launch the kernel on CUDA tensors (as ``pir_column_pass_plain``;
     every tensor contiguous, the fields int32 but ``intra_mask`` and
-    ``t8``, which are bool)."""
+    ``t8``, which are bool).  The planes and the AC levels must start on
+    16-byte boundaries (``u`` and ``v`` on 8-byte ones), as whole
+    allocations and MB-padded frames of a batch do: the kernel copies and
+    stores them 16 bytes at a time, and its launcher refuses them
+    otherwise (RuntimeError)."""
     dev = ry.device
     n = mbw * mbh
     want = [("y", y, torch.uint8, (16 * mbh, 16 * mbw)),
@@ -142,13 +147,24 @@ def pir_column_pass_(y, u, v, ry, ru, rv, acc: dict, qp, qpc, pir_col: int,
     if not 0 <= pir_col < mbw or ncols < 1:
         raise ValueError(f"pir_column: bar at column {pir_col}, {ncols} "
                          f"wide, outside a frame {mbw} MBs wide")
-    err = library().pir_column_launch(
-        *(t.data_ptr() for _, t, _, _ in want),
-        _tables(str(dev)).data_ptr(), pir_col, ncols, mbw, mbh,
-        torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = [t.data_ptr() for _, t, _, _ in want]
+    ptrs.append(_tables(str(dev)).data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = library().pir_column_launch(*ptrs, pir_col, ncols, mbw, mbh,
+                                      stream)
     check(err, "pir_column")
     LAUNCHES["pir_column"] += 1
     return ry, ru, rv, acc
+
+
+def geometry(pir_col: int, ncols: int, mbw: int, mbh: int) -> tuple:
+    """(MB warps, dynamic shared memory bytes, wavefront steps) of the
+    kernel's launch for a bar, from the kernel library (card only)."""
+    import ctypes
+    out = (ctypes.c_int * 3)()
+    check(library().pir_column_geom(pir_col, ncols, mbw, mbh,
+                                    ctypes.addressof(out)), "pir_column")
+    return tuple(out)
 
 
 def pir_column_pass(y, u, v, ry, ru, rv, acc: dict, qp, qpc, pir_col: int,
