@@ -42,7 +42,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      worker processes started at the beginning run on the host, each
      with its wavefront steps, us a step, MB warps and shared memory;
      the registers, spills and shared memory of the ESA, trellis, NxN,
-     CAVLC and refresh-bar kernels (ptxas);
+     CAVLC and refresh-bar kernels (ptxas); the kernels of the
+     multi-slice path at its band shapes: esa16 on a 4K band of 34 and of
+     33 MB rows (3840x2160 in four slices) and on a 1080p band of 17 rows
+     at range 8, deblock on a 4K frame put together from four superfast P
+     bands, and the CAVLC pair on a 1080p ultrafast P band, each with its
+     time, the twin's and the bound;
   4. the main paths, each with the kernels' launch counts reset just
      before and read just after: Encoder(device="cuda") encodes a 1080p
      clip of one IDR and 5 P frames (the clip formula of bench.py's
@@ -64,7 +69,16 @@ Phases, each of which raises (exit code != 0) when it fails:
      kbit/s over 1500 kbit, NAL HRD, intra refresh at keyint 60 with the
      sweep started before frame 1: the VBV re-encodes and their ms, the
      decoder-buffer walk's lowest fill, encode() ms p50/p95/max, the
-     launches per P frame); fps, bytes,
+     launches per P frame), then BASELINE.json's fifth configuration
+     through the port's CLI (cli.main on a 4K y4m written from
+     make_clip's formula: superfast on 4 slices at 20000 kbit/s, --pass 1
+     then --pass 2 --stats, 12 frames each: fps per pass, kbit a frame
+     against the target, the recon's Y-PSNR, the I16 graph keys of the
+     bands and their capture ms, the ms per band, the band re-runs,
+     esa16 and deblock launches per frame), then 30 frames of ultrafast
+     with tune zerolatency on 4 slices at CRF 23 through the API (fps,
+     encode() ms p50/p95/max, esa16, cavlc_blocks and bitpack launches
+     per P frame); fps, bytes,
      Y-PSNR, the partition shapes chosen, the share
      of 8x8-transform MBs, the P frames with a non-neutral weight, the
      esa_parts launches of each P frame (one per active reference) and
@@ -84,9 +98,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      b_adapt, and CAVLC with AQ on I/B/P8x8, and the live settings:
      intra refresh with CABAC (I4x4, the 8x8 transform, trellis) and
      with CAVLC, VBV with CAVLC (re-encodes), NAL HRD with VBV and B
-     frames.
-Every I frame's core on the card is a CUDA graph replay
-(x264_tpu_torch/models/graph.py).
+     frames, and the multi-slice and fullpel settings: 4 slices (bands
+     of 5, 5, 4 and 4 MB rows) with CABAC under ABR and with CAVLC,
+     ultrafast with bframes=2, and a forced band re-run (noise at QP 12,
+     CAVLC, 4 slices).
+Every I frame's core, and every I band's, on the card is a CUDA graph
+replay (x264_tpu_torch/models/graph.py).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits 1.
@@ -2236,6 +2253,515 @@ def _check_small_live() -> None:
               f"launches {launches}")
 
 
+UHD_W, UHD_H = 3840, 2160    # BASELINE.json's fifth configuration's frame
+UHD_FRAMES = 12              # per pass of the 4K two-pass CLI run
+UHD_SLICES = 4
+UHD_KBPS = 20000
+UF_FRAMES = 30               # the 1080p ultrafast four-slice run
+
+
+def make_clip_at(w: int, h: int, n: int):
+    """make_clip's formula (bench.py's seed) at another frame size."""
+    rng = np.random.default_rng(20260816)
+    pad = 4 * CLIP_FRAMES
+    tex = rng.integers(-24, 25, (h + pad, w + pad)).astype(np.int16)
+    tex = (tex + np.roll(tex, 1, 0) + np.roll(tex, 1, 1)
+           + np.roll(tex, (1, 1), (0, 1))) // 4
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for t in range(n):
+        dx, dy = 3 * t, 2 * t
+        base = (128 + 60 * np.sin((xx + dx) / 41.0)
+                * np.cos((yy + dy) / 59.0))
+        y = np.clip(base + tex[dy:dy + h, dx:dx + w] + t, 0, 255
+                    ).astype(np.uint8)
+        u = (128 + 32 * np.sin((xx[::2, ::2] + dx) / 61.0)).astype(np.uint8)
+        v = (128 + 32 * np.cos((yy[::2, ::2] + dy) / 59.0)).astype(np.uint8)
+        frames.append((y, u, v))
+    return frames
+
+
+def _bands(mbh: int, slices: int) -> list:
+    """(first MB row, rows) of each band, as the encoder splits them."""
+    nsl = max(1, min(slices, mbh))
+    base, rem = divmod(mbh, nsl)
+    heights = [base + (1 if i < rem else 0) for i in range(nsl)]
+    return list(zip(np.cumsum([0] + heights[:-1]).tolist(), heights))
+
+
+def _band_planes(frame, y0: int, bh: int, dev):
+    """A band's rows of a frame's planes, as views of the whole planes on
+    the card."""
+    import torch
+    planes = [torch.from_numpy(p).to(dev) for p in frame]
+    return (planes[0][16 * y0:16 * (y0 + bh)],
+            planes[1][8 * y0:8 * (y0 + bh)], planes[2][8 * y0:8 * (y0 + bh)])
+
+
+def _padded(recon):
+    """Reference planes padded as the encoder pads them (PAD luma, PAD//2
+    chroma)."""
+    from x264_tpu_torch.ops.mc import pad_edge
+    from x264_tpu_torch.state import PAD
+    return [pad_edge(p, s) for p, s in zip(recon, (PAD, PAD // 2, PAD // 2))]
+
+
+def _band_refs(padded, y0: int, bh: int):
+    """A band's rows of the padded reference planes (PAD and PAD//2 rows
+    of the neighbouring bands on each side)."""
+    from x264_tpu_torch.state import PAD
+    ry, ru, rv = padded
+    return (ry[16 * y0:16 * (y0 + bh) + 2 * PAD],
+            ru[8 * y0:8 * (y0 + bh) + PAD], rv[8 * y0:8 * (y0 + bh) + PAD])
+
+
+def _esa_band_check(label, src, ref, lam, mbw, bh, esa_rate) -> None:
+    """esa16 on one band at r = 8 against its twin; its time through the
+    wrapper, its launch alone and its bound."""
+    from x264_tpu_torch.kernels import esa16 as KE
+    mv_k, c_k = KE.full_search_16x16(src, ref, lam, 8, mbw, bh)
+    mv_p, c_p = KE.full_search_16x16_plain(src, ref, lam, 8, mbw, bh)
+    err = max(_max_err(mv_k, mv_p), _max_err(c_k, c_p))
+    if err:
+        raise AssertionError(f"esa16 disagrees with its twin on the {label} "
+                             f"band: {err}")
+    ms = _time_ms(lambda: KE.full_search_16x16(src, ref, lam, 8, mbw, bh),
+                  20)
+    alone = _time_ms(KE.esa_launcher("esa16", KE.OUT_SHAPES, src, ref, lam,
+                                     8, mbw, bh)[0], 50)
+    plain = _time_ms(lambda: KE.full_search_16x16_plain(src, ref, lam, 8,
+                                                        mbw, bh), 3)
+    bound = _esa_bound_ms(src, ref, 8, 1, 3, esa_rate)
+    print(f"esa16 on the {label} band ({mbw}x{bh} MBs, r = 8): bit-exact, "
+          f"{ms:.4f} ms through the wrapper (launch alone {alone:.4f} ms), "
+          f"twin {plain:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]}")
+
+
+def _band_kernel_phase(esa_rate: float, int_ops_per_s: float) -> None:
+    """The kernels of the multi-slice path at its band shapes, each
+    against its plain twin on the same inputs: esa16 on a 4K band of 34
+    and of 33 MB rows (3840x2160 in four slices, 240 MBs wide) and on a
+    1080p band of 17 rows (four slices), r = 8; the deblock kernel on a
+    4K frame put together from four P bands (superfast: subpel 1,
+    CABAC); the CAVLC block coder and packer on a 1080p ultrafast P band
+    (fullpel, CAVLC)."""
+    import torch
+    from x264_tpu_torch.kernels import bitpack as KB
+    from x264_tpu_torch.kernels import cavlc as KC
+    from x264_tpu_torch.kernels import deblock as KD
+    from x264_tpu_torch.models.inter import p_band_core
+    from x264_tpu_torch.models.intra import i_frame_core
+    from x264_tpu_torch.ops import cavlc as CV
+    from x264_tpu_torch.ops import header as HD
+    from x264_tpu_torch.ops.deblock import deblock_prep
+    from x264_tpu_torch.state import PAD, sad_lambda
+    dev = torch.device("cuda")
+    lam = sad_lambda(QP)
+    uhd = make_clip_at(UHD_W, UHD_H, 2)
+    mbw, mbh = UHD_W // 16, (UHD_H + 15) // 16
+    uhd = [tuple(_pad_to_mb(p, s) for p, s in zip(f, (16, 8, 8)))
+           for f in uhd]
+    ref_pad = _padded([torch.from_numpy(uhd[0][0]).to(dev)])[0]
+    src = torch.from_numpy(uhd[1][0]).to(dev)
+    for y0, bh in _bands(mbh, UHD_SLICES)[::UHD_SLICES - 1]:
+        _esa_band_check(f"4K {bh}-row", src[16 * y0:16 * (y0 + bh)],
+                        ref_pad[16 * y0:16 * (y0 + bh) + 2 * PAD], lam, mbw,
+                        bh, esa_rate)
+    # deblock on a 4K P frame of four superfast bands
+    padded = _padded([torch.from_numpy(p).to(dev) for p in uhd[0]])
+    outs = []
+    for y0, bh in _bands(mbh, UHD_SLICES):
+        outs.append(p_band_core(*_band_planes(uhd[1], y0, bh, dev),
+                                *_band_refs(padded, y0, bh), QP, lam, mbw=mbw,
+                                mbh=bh, me_range=8, cqp_off=0, subpel=1,
+                                lv_cap=96))
+    cat = {k: torch.cat([o[k] for o in outs]) for k in (
+        "recon_y", "recon_u", "recon_v", "mb_class", "cbp_luma",
+        "cbp_chroma", "luma_nnz", "mv", "qp_mb")}
+    n = mbw * mbh
+    bs_v, bs_h, qp_mb, qpc_mb = deblock_prep(
+        cat["mb_class"], cat["cbp_luma"], cat["cbp_chroma"],
+        cat["luma_nnz"], cat["mv"], torch.zeros(n, dtype=torch.int32,
+                                                device=dev),
+        cat["qp_mb"], mbw, mbh)
+    ry, ru, rv = cat["recon_y"], cat["recon_u"], cat["recon_v"]
+    out_k = KD.deblock_filter(ry, ru, rv, bs_v, bs_h, qp_mb, qpc_mb, 0, 0,
+                              mbw, mbh)
+    # the twin takes seconds at 4K: its one run, timed, is its time
+    t0 = time.perf_counter()
+    out_p = KD.deblock_filter_plain(ry, ru, rv, bs_v, bs_h, qp_mb, qpc_mb,
+                                    0, 0, mbw, mbh)
+    torch.cuda.synchronize()
+    plain = 1000 * (time.perf_counter() - t0)
+    err = max(_max_err(a, b) for a, b in zip(out_k, out_p))
+    if err:
+        raise AssertionError(f"deblock disagrees with its twin on the 4K "
+                             f"sliced P frame: {err}")
+    ms = _time_ms(lambda: KD.deblock_filter(ry, ru, rv, bs_v, bs_h, qp_mb,
+                                            qpc_mb, 0, 0, mbw, mbh), 10)
+    alone = _deblock_kernel_only_ms(KD, ry, ru, rv, bs_v, bs_h, qp_mb,
+                                    qpc_mb, mbw, mbh, 10)
+    from x264_tpu_torch.kernels import build
+    bound = _deblock_bound_ms(build.library(), (ry, ru, rv),
+                              (bs_v, bs_h, qp_mb, qpc_mb), mbw, mbh)
+    print(f"deblock on the 4K frame of four P bands ({mbw}x{mbh} MBs): "
+          f"bit-exact, {ms:.4f} ms through the wrapper (launch alone "
+          f"{alone:.4f} ms), twin {plain:.3f} ms, bound {bound[0]:.4f} ms "
+          f"by {bound[1]}")
+    del uhd, outs, cat, out_k, out_p, padded, ref_pad, src
+    # a 1080p ultrafast P band: esa16 and the CAVLC pair
+    hd = [tuple(_pad_to_mb(p, s) for p, s in zip(f, (16, 8, 8)))
+          for f in make_clip(2)]
+    mbw, mbh = (W + 15) // 16, (H + 15) // 16
+    y0, bh = _bands(mbh, 4)[1]
+    planes = [torch.from_numpy(p).to(dev) for p in hd[0]]
+    rec_i = i_frame_core(*planes, QP, mbw=mbw, mbh=mbh, cqp_off=0,
+                         n_words=64)
+    refs = _band_refs(_padded([rec_i[k] for k in ("recon_y", "recon_u",
+                                                  "recon_v")]), y0, bh)
+    src = _band_planes(hd[1], y0, bh, dev)
+    _esa_band_check(f"1080p {bh}-row", src[0], refs[0], lam, mbw, bh,
+                    esa_rate)
+    out = p_band_core(*src, *refs, QP, lam, mbw=mbw, mbh=bh, me_range=8,
+                      cqp_off=0, subpel=0, n_words=64)
+    intra = out["mb_class"] == 0
+    coefs, blen, nc, gate = CV.block_inputs(
+        out["luma_dc"], out["luma_ac"], out["luma_nnz"], out["chroma_dc"],
+        out["chroma_ac"], out["chroma_nnz"], out["cbp_luma"],
+        out["cbp_chroma"], intra, mbw, bh)
+    hv, hl = HD.header_slots(out["mb_class"], out["i16_mode"],
+                             out["chroma_mode"], out["mvd"],
+                             out["cbp_luma"], out["cbp_chroma"],
+                             out["qp_mb"], is_p_slice=True,
+                             ref=out["ref_mb"], num_ref=1)
+    kv, kl = KC.code_blocks_(coefs, blen, nc, gate)
+    pv, pl = CV.code_blocks_plain(coefs, blen, nc)
+    pl = torch.where(gate[:, None], pl, 0)
+    nb, nmb = coefs.shape[0], hv.shape[0]
+    vals = torch.cat([hv, kv.reshape(nmb, -1)], 1).contiguous()
+    lens = torch.cat([hl, kl.reshape(nmb, -1)], 1).contiguous()
+    err = max(_max_err(kv, pv), _max_err(kl, pl))
+    for n_words in (64, 416):
+        kw_, kn = KB.pack_tokens_(vals, lens, n_words)
+        pw, pn = KB.pack_tokens_plain(vals, lens, n_words)
+        err = max(err, _max_err(kw_, pw), _max_err(kn, pn))
+    if err:
+        raise AssertionError(f"the CAVLC kernels disagree with their twins "
+                             f"on the 1080p ultrafast band: {err}")
+    s = vals.shape[1]
+    nonzero = int((coefs != 0).sum())
+    for name, ms, plain, by_bytes, by_ops in (
+            ("cavlc_blocks",
+             _time_ms(lambda: KC.code_blocks_(coefs, blen, nc, gate), 20),
+             _time_ms(lambda: CV.code_blocks_plain(coefs, blen, nc), 3),
+             KC.work(nb) / HBM_BYTES_PER_S * 1e3,
+             (48 * nb + 24 * nonzero) / int_ops_per_s * 1e3),
+            ("bitpack", _time_ms(lambda: KB.pack_tokens_(vals, lens, 64), 20),
+             _time_ms(lambda: KB.pack_tokens_plain(vals, lens, 64), 3),
+             KB.work(nmb, s, 64) / HBM_BYTES_PER_S * 1e3,
+             15 * nmb * s / int_ops_per_s * 1e3)):
+        by = "bytes" if by_bytes >= by_ops else "operations"
+        print(f"{name} on the 1080p ultrafast {bh}-row P band ({nb} blocks, "
+              f"{nmb} x {s} slots): bit-exact, {ms:.4f} ms through the "
+              f"wrapper, twin {plain:.3f} ms, bound "
+              f"{max(by_bytes, by_ops):.4f} ms by {by}")
+
+
+class _BandTimes:
+    """Spies on the encoder class's band loop: CUDA events around every
+    band's core (its time on the card's timeline, no synchronisation
+    added), the band re-runs, and the sliced frames' submits."""
+
+    def __init__(self):
+        from x264_tpu_torch.api import Encoder
+        self.cls = Encoder
+        self.saved = {k: getattr(Encoder, k) for k in
+                      ("_band_core", "_rerun_band")}
+        self.events, self.reruns = [], []
+        spy = self
+
+        def band_core(enc, job, b, n_words):
+            import torch
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = spy.saved["_band_core"](enc, job, b, n_words)
+            e1.record()
+            spy.events.append((job["ftype"], job["heights"][b], e0, e1))
+            return out
+
+        def rerun(enc, job, b, n_words):
+            spy.reruns.append((job["ftype"], b, n_words))
+            return spy.saved["_rerun_band"](enc, job, b, n_words)
+
+        Encoder._band_core = band_core
+        Encoder._rerun_band = rerun
+
+    def close(self) -> dict:
+        """Restore the class; ms of the bands by (frame type, rows)."""
+        import torch
+        for k, fn in self.saved.items():
+            setattr(self.cls, k, fn)
+        torch.cuda.synchronize()
+        ms = {}
+        for ftype, bh, e0, e1 in self.events:
+            ms.setdefault((ftype, bh), []).append(e0.elapsed_time(e1))
+        return ms
+
+
+def _band_ms_line(ms: dict) -> str:
+    return "; ".join(f"{t} bands of {bh} rows: {len(v)}, ms p50 "
+                     f"{np.percentile(v, 50):.2f} min {min(v):.2f} max "
+                     f"{max(v):.2f}" for (t, bh), v in sorted(ms.items()))
+
+
+def _graph_keys(shapes) -> str:
+    """The I16 core graphs captured for band planes of these luma shapes:
+    rows, entropy rung and capture ms of each."""
+    from x264_tpu_torch.models import graph
+    keys = sorted((k[2][0] // 16, dict(k[5]), g.capture_ms)
+                  for k, g in graph._GRAPHS.items()
+                  if k[0] == "i_frame_core" and k[2] in shapes)
+    return ", ".join(f"{rows} rows at {st.get('lv_cap') or st.get('n_words')}"
+                     f" ({'levels' if 'lv_cap' in st else 'words'}) a MB: "
+                     f"capture {ms:.1f} ms" for rows, st, ms in keys)
+
+
+def _slice_counts(stream: bytes) -> list:
+    """Slice NALs (types 1 and 5) per access unit, an access unit
+    starting at a slice whose first_mb (its first ue) is 0."""
+    import re
+    counts = []
+    for m in re.finditer(b"\x00\x00\x01", stream):
+        i = m.end()
+        if i < len(stream) and stream[i] & 31 in (1, 5):
+            first_bit = stream[i + 1] >> 7   # ue(0) is the bit '1'
+            if first_bit:
+                counts.append(0)
+            counts[-1] += 1
+    return counts
+
+
+def _run_4k_cli(records) -> None:
+    """BASELINE.json's fifth configuration on one card through the port's
+    CLI (``cli.main``): 3840x2160 from a y4m written from make_clip's
+    formula, x264's superfast preset on 4 slices at 20000 kbit/s ABR, 30
+    fps, two passes of UHD_FRAMES frames (``--pass 1``, then ``--pass 2
+    --stats``).  Counts reset just before each pass and read just after.
+    Fails unless every frame has 4 slices, esa16 launched once per P band
+    and deblock once per frame.  Prints fps per pass (the CLI's own
+    line), kbit/frame against the target, the mean Y-PSNR of the port's
+    recon (``--psnr``), the I16 graph keys with their capture ms, the ms
+    per band, the band re-runs and the launches per frame."""
+    import contextlib
+    import io
+    import torch
+    import x264_tpu_torch
+    from x264_tpu_torch import cli
+    from x264_tpu_torch.utils.y4m import write_y4m
+    from x264_tpu_torch.utils.yuv import Frame420
+    mbh = (UHD_H + 15) // 16
+    bands = _bands(mbh, UHD_SLICES)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        src = os.path.join(td, "uhd.y4m")
+        write_y4m(src, [Frame420(*f) for f in
+                        make_clip_at(UHD_W, UHD_H, UHD_FRAMES)], (30, 1))
+        print(f"4K y4m: {UHD_FRAMES} frames {UHD_W}x{UHD_H} written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        log = os.path.join(td, "2pass.log")
+        target = UHD_KBPS / 30.0
+        for p in (1, 2):
+            out = os.path.join(td, f"pass{p}.264")
+            args = [src, "-o", out, "--preset", "superfast", "--slices",
+                    str(UHD_SLICES), "--bitrate", str(UHD_KBPS), "--fps",
+                    "30", "--pass", str(p), "--stats", log, "--frames",
+                    str(UHD_FRAMES), "--psnr", "--quiet", "--device",
+                    "cuda"]
+            spy = _BandTimes()
+            err = io.StringIO()
+            torch.cuda.synchronize()
+            x264_tpu_torch.reset_launch_counts()
+            try:
+                with contextlib.redirect_stderr(err):
+                    rc = cli.main(args)
+                torch.cuda.synchronize()
+            finally:
+                band_ms = spy.close()
+            launches = x264_tpu_torch.launch_counts()
+            for r in records:
+                r["launches"] += launches[r["name"]]
+            text = err.getvalue()
+            with open(out, "rb") as f:
+                stream = f.read()
+            counts = _slice_counts(stream)
+            n_p = UHD_FRAMES - 1
+            p_reruns = sum(1 for t, *_ in spy.reruns if t == "P")
+            if rc != 0 or counts != [UHD_SLICES] * UHD_FRAMES or \
+                    launches["esa16"] != UHD_SLICES * n_p + p_reruns or \
+                    launches["deblock"] != UHD_FRAMES or \
+                    "PSNR Mean Y" not in text:
+                raise AssertionError(f"4K CLI pass {p}: rc {rc}, slices per "
+                                     f"frame {counts}, launches {launches}, "
+                                     f"stderr {text[-2000:]}")
+            lines = [ln.strip() for ln in text.replace("\r", "\n")
+                     .splitlines() if ln.strip()]
+            psnr = float([ln for ln in lines if "PSNR Mean Y" in ln][0]
+                         .split()[3])
+            if not 25.0 < psnr < 99.0:
+                raise AssertionError(f"4K CLI pass {p}: Y-PSNR {psnr}")
+            kbit = len(stream) * 8 / UHD_FRAMES / 1000
+            print(f"4K CLI pass {p} (superfast, {UHD_SLICES} slices, "
+                  f"{UHD_KBPS} kbit/s ABR, 30 fps) x{UHD_FRAMES}: "
+                  + [ln for ln in lines if ln.startswith("encoded")][0]
+                  + f"; {len(stream)} bytes, {kbit:.1f} kbit/frame against "
+                  f"{target:.1f} targeted; mean Y-PSNR {psnr:.3f} dB (the "
+                  "port's recon, the CLI's --psnr)")
+            print(f"4K CLI pass {p} launches: {launches}; per frame: "
+                  f"esa16 {launches['esa16'] / UHD_FRAMES:.3f} "
+                  f"({launches['esa16'] / n_p:.3f} per P frame), deblock "
+                  f"{launches['deblock'] / UHD_FRAMES:.3f}")
+            print(f"4K CLI pass {p} band ms (CUDA events around each "
+                  f"band's core): {_band_ms_line(band_ms)}; band re-runs "
+                  f"{spy.reruns}")
+    shapes = {(16 * bh, UHD_W) for _, bh in bands}
+    print("4K I16 graph keys: " + _graph_keys(shapes))
+
+
+def _run_1080p_ultrafast(records) -> None:
+    """The low-latency live and screen-capture setting through the API
+    (counts reset just before, read just after): x264's ultrafast preset
+    (fullpel only, CAVLC, no deblock) with tune zerolatency on 4 slices
+    at CRF 23, UF_FRAMES frames of make_clip at 1080p.  Fails unless
+    every P frame launched esa16, cavlc_blocks and bitpack 4 times each
+    (one a band; more only where a band re-ran) and deblock never.
+    Prints fps over the P frames, encode() ms p50/p95/max, kbit/frame,
+    Y-PSNR and the launches per P frame, the ms per band and the I16
+    graph keys."""
+    import torch
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    from x264_tpu_torch.params import RC_CRF, param_default_preset
+    clip = make_clip(UF_FRAMES)
+    p = param_default_preset("ultrafast", tune="zerolatency").clone(
+        width=W, height=H, rc_method=RC_CRF, crf=23.0, fps_num=30,
+        fps_den=1, slices=4)
+    enc = Encoder(p, device="cuda")
+    recons = {}
+    enc.recon_hook = recons.__setitem__
+    spy = _BandTimes()
+    stream, times = b"", []
+    try:
+        torch.cuda.synchronize()
+        x264_tpu_torch.reset_launch_counts()
+        for i, (y, u, v) in enumerate(clip):
+            t0 = time.perf_counter()
+            stream += enc.encode(Frame420(y, u, v))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                after_idr = x264_tpu_torch.launch_counts()
+        stream += enc.flush()
+        torch.cuda.synchronize()
+    finally:
+        band_ms = spy.close()
+    launches = x264_tpu_torch.launch_counts()
+    print(f"launches in the 1080p ultrafast run: {launches}")
+    for r in records:
+        r["launches"] += launches[r["name"]]
+    n_p = len(clip) - 1
+    per_p = {k: (launches[k] - after_idr[k]) / n_p for k in launches}
+    reruns = sum(1 for t, *_ in spy.reruns if t == "P")
+    types = [s.frame_type for s in enc.stats]
+    if types != ["IDR"] + ["P"] * n_p or \
+            launches["esa16"] != 4 * n_p + reruns or launches["deblock"] or \
+            not 4 * n_p <= launches["cavlc_blocks"] - after_idr[
+                "cavlc_blocks"] <= 4 * n_p + reruns or \
+            launches["cavlc_blocks"] != launches["bitpack"] or \
+            _slice_counts(stream) != [4] * len(clip):
+        raise AssertionError(f"ultrafast: types {types}, launches "
+                             f"{launches}, after the IDR {after_idr}, "
+                             f"re-runs {spy.reruns}")
+    psnr = _check_recon("ultrafast", stream, recons, clip)
+    ms = np.array(times) * 1000
+    print(f"1080p ultrafast (tune zerolatency, 4 slices, CRF 23, CAVLC, "
+          f"fullpel, no deblock) x{len(clip)}: {len(stream)} bytes, "
+          f"{len(stream) * 8 / len(clip) / 1000:.1f} kbit/frame, mean "
+          f"Y-PSNR {psnr:.3f} dB; {n_p / (ms[1:].sum() / 1000):.3f} fps "
+          f"over the P frames; encode() ms p50 {np.percentile(ms, 50):.1f}, "
+          f"p95 {np.percentile(ms, 95):.1f}, max {ms.max():.1f} (IDR "
+          f"{ms[0]:.1f})")
+    print("ultrafast launches per P frame: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in per_p.items() if v)
+        + f"; band re-runs {spy.reruns}")
+    print(f"ultrafast band ms (CUDA events around each band's core): "
+          f"{_band_ms_line(band_ms)}")
+    print("ultrafast I16 graph keys: " + _graph_keys({(16 * 17, W)}))
+    print("ultrafast encode() ms: " + " ".join(f"{t:.1f}" for t in ms))
+
+
+def _check_small_slices() -> None:
+    """352x288 card stream == CPU stream for the multi-slice and fullpel
+    settings: 4 slices (bands of 5, 5, 4 and 4 MB rows) with CABAC under
+    ABR, and with CAVLC; ultrafast with bframes=2; and noise at QP
+    12 with CAVLC on 4 slices, whose bands re-run at the second rung
+    (the same re-runs on both)."""
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    from x264_tpu_torch.params import RC_ABR, param_default_preset
+    rng = np.random.default_rng(14)
+    noise = [tuple(rng.integers(0, 256, s).astype(np.uint8) for s in
+                   ((CHECK_H, CHECK_W), (CHECK_H // 2, CHECK_W // 2),
+                    (CHECK_H // 2, CHECK_W // 2))) for _ in range(2)]
+    motion = split_motion_clip(CHECK_W, CHECK_H, CHECK_FRAMES)
+    for label, p, frames, want in (
+            ("4 slices, CABAC, ABR",
+             _params(CHECK_W, CHECK_H, False, slices=4, rc_method=RC_ABR,
+                     bitrate=400, me_range=8), motion, "esa16"),
+            ("4 slices, CAVLC",
+             _params(CHECK_W, CHECK_H, False, slices=4, cabac=False,
+                     me_range=8), motion, "cavlc_blocks"),
+            ("ultrafast, bframes=2",
+             param_default_preset("ultrafast").clone(
+                 width=CHECK_W, height=CHECK_H, bframes=2), motion, "esa16"),
+            ("4 slices, CAVLC, noise at QP 12 (band re-runs)",
+             _params(CHECK_W, CHECK_H, False, slices=4, cabac=False, qp=12,
+                     me_range=8), noise, "rerun")):
+        small = [Frame420(*f) for f in frames]
+        streams, reruns = {}, {}
+        for d in ("cuda", "cpu"):
+            e = Encoder(p, device=d)
+            log = reruns[d] = []
+            run = e._rerun_band
+
+            def spy(job, b, n_words, run=run, log=log):
+                log.append((b, n_words))
+                return run(job, b, n_words)
+            e._rerun_band = spy
+            x264_tpu_torch.reset_launch_counts()
+            streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
+            if d == "cuda":
+                launches = x264_tpu_torch.launch_counts()
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"352x288 {label}: card stream != CPU "
+                                 "stream")
+        if reruns["cuda"] != reruns["cpu"] or \
+                (want == "rerun" and not reruns["cuda"]) or \
+                (want != "rerun" and not launches[want]):
+            raise AssertionError(f"352x288 {label}: launches {launches}, "
+                                 f"re-runs {reruns}")
+        slices = _slice_counts(streams["cuda"])
+        if p.slices > 1 and slices != [p.slices] * len(small):
+            raise AssertionError(f"352x288 {label}: slices {slices}")
+        if _avdec_available():
+            if len(_decode(streams["cuda"], CHECK_W, CHECK_H)) != len(small):
+                raise AssertionError(f"352x288 {label}: avdec frame count")
+        print(f"{CHECK_W}x{CHECK_H} {label} x{len(small)}: card stream == "
+              f"CPU stream ({len(streams['cuda'])} bytes), slices per "
+              f"frame {slices}, band re-runs {reruns['cuda']}, launches "
+              f"{launches}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2427,6 +2953,7 @@ def main() -> int:
     _aq_kernel_phase(clip)
     _cavlc_phase(cavlc_frames, record, int_ops_per_s)
     bar_ms = _pir_phase(clip, record, int_ops_per_s, pir_twins)
+    _band_kernel_phase(esa_rate, int_ops_per_s)
     for r in records:
         print(f"kernel {r['name']}: bit-exact, {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
@@ -2460,6 +2987,8 @@ def main() -> int:
     _run_1080p_cavlc(bclip, records)
     _run_1080p_medium(records)
     _run_1080p_live(records, bar_ms)
+    _run_4k_cli(records)
+    _run_1080p_ultrafast(records)
 
     # ---- 5. card streams == CPU (plain twins) streams at 352x288 ----
     small = [Frame420(*f) for f in split_motion_clip(CHECK_W, CHECK_H,
@@ -2489,6 +3018,7 @@ def main() -> int:
     _check_small_cavlc()
     _check_small_lookahead()
     _check_small_live()
+    _check_small_slices()
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -121,14 +121,15 @@ def test_scenecut_promotes_like_reference():
 
 
 def test_unported_settings_and_missing_card_raise():
-    for kw in (dict(i4x4=True, cabac=False),
-               dict(subpel=0), dict(backend="reference"),
-               dict(slices=2), dict(me_range=PAD + 1)):
+    for kw in (dict(i4x4=True, cabac=False), dict(backend="reference"),
+               dict(me_range=PAD + 1)):
         with pytest.raises(NotImplementedError):
             Encoder(_params(64, 48, 26, **kw), device="cpu")
-    with pytest.raises(NotImplementedError):            # subpel 0
-        Encoder(param_default_preset("ultrafast"), device="cpu")
-    for kw in (dict(p8x8=True, ref_frames=2), dict(trellis=1, weightp=1),
+    # slices and the fullpel-only search (ultrafast) run since they were
+    # ported
+    Encoder(param_default_preset("ultrafast"), device="cpu")
+    for kw in (dict(subpel=0), dict(slices=2), dict(slices=4, threads=4),
+               dict(p8x8=True, ref_frames=2), dict(trellis=1, weightp=1),
                dict(p8x8=True, transform_8x8=True, i4x4=True, weightp=1),
                dict(p8x8=True, weightp=2, ref_frames=4), dict(cabac=False),
                dict(cabac=False, p8x8=True, transform_8x8=True, bframes=2),

@@ -28,6 +28,7 @@ import x264_tpu.params as r_params  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 import x264_tpu.bitstream.bits as r_bits  # noqa: E402
 from x264_tpu.bitstream import cabac_init as r_cabac_init  # noqa: E402
+from x264_tpu.bitstream import nal as r_nal  # noqa: E402
 from x264_tpu.bitstream import sei as r_sei  # noqa: E402
 from x264_tpu.bitstream import slice_assemble as r_sa  # noqa: E402
 from x264_tpu.bitstream import tables as r_tables  # noqa: E402
@@ -45,6 +46,7 @@ import x264_tpu_torch.params as t_params  # noqa: E402
 from x264_tpu_torch import state  # noqa: E402
 import x264_tpu_torch.bitstream.bits as t_bits  # noqa: E402
 from x264_tpu_torch.bitstream import cabac_init as t_cabac_init  # noqa: E402
+from x264_tpu_torch.bitstream import nal as t_nal  # noqa: E402
 from x264_tpu_torch.bitstream import sei as t_sei  # noqa: E402
 from x264_tpu_torch.bitstream import slice_assemble as t_sa  # noqa: E402
 from x264_tpu_torch.bitstream import tables as t_tables  # noqa: E402
@@ -123,6 +125,7 @@ FUNCTIONS = [
     ("_pack_ct", r_tables, t_tables),
     ("_pack_rect", r_tables, t_tables),
     ("merge_mb_strings", r_sa, t_sa),
+    ("split_annexb", r_nal, t_nal),
     ("append_payload", r_sa, t_sa),
     ("aq_offsets", r_rc, t_rc),
     ("propagate", r_mbtree, t_mbtree),
@@ -185,6 +188,9 @@ def test_copied_function_equals_reference(name, ref_mod, port_mod):
             "_te_ref_bits": [(k,) for k in range(1, 6)],
             "_pack_ct": [()],
             "_pack_rect": [(r_tables._TZ, 15, 16), (r_tables._RB, 7, 15)],
+            "split_annexb": [(b"\x00\x00\x00\x01\x67\x42\x00\x00\x01"
+                              b"\x68\xce\x00\x00\x03\x00\x00\x01\x65\x88"
+                              b"\x00",)],
             "merge_mb_strings": [
                 (rng.integers(0, 1 << 32, (6, 8), dtype=np.uint64)
                  .astype(np.uint32), rng.integers(0, 257, 6))
@@ -290,9 +296,8 @@ def test_params_and_headers_equal_reference(kw):
     rp = r_params.EncoderParams(**kw).validate()
     tp = t_params.EncoderParams(**kw).validate()
     assert dataclasses.asdict(tp) == dataclasses.asdict(rp)
-    if tp.subpel >= 1:
-        assert Encoder(t_params.EncoderParams(**kw), device="cpu").headers() \
-            == RefEncoder(r_params.EncoderParams(**kw)).headers()
+    assert Encoder(t_params.EncoderParams(**kw), device="cpu").headers() \
+        == RefEncoder(r_params.EncoderParams(**kw)).headers()
 
 
 @pytest.mark.parametrize("kw", [dict(p8x8=True, slices=2),
@@ -305,6 +310,52 @@ def test_validate_rejects_like_reference(kw):
     with pytest.raises(type(ref_err.value)) as port_err:
         t_params.EncoderParams(**kw).validate()
     assert str(port_err.value) == str(ref_err.value)
+
+
+# the CLI's modules, copied but for their import lines and module
+# docstrings (a copy names its origin)
+CLI_MODULES = ["__main__.py", "output/__init__.py", "output/mux.py",
+               "utils/y4m.py", "utils/filters.py", "utils/metrics.py"]
+
+# what the port's CLI changes, each (port text, reference text): its
+# program name, --device and the recon planes it reads back from the
+# device; everything else is the reference's
+CLI_CHANGES = [
+    ('prog="x264_tpu_torch"', 'prog="x264_tpu"'),
+    ('description="H.264 encoder on PyTorch + CUDA (x264_tpu\'s port)"',
+     'description="TPU-native H.264 encoder (x264 capability surface)"'),
+    ('    ap.add_argument("--device", default="cuda",\n'
+     '                    help="where the frames are encoded: cuda or '
+     'cpu")\n', ""),
+    ("Encoder(p, device=args.device)", "Encoder(p)"),
+    ("r.y.cpu()", "r.y"), ("r.u.cpu()", "r.u"), ("r.v.cpu()", "r.v"),
+]
+
+
+def _module_code(src: str) -> str:
+    """A module's code without its docstring and import statements."""
+    tree = _DropImports().visit(ast.parse(src))
+    body = tree.body
+    if body and isinstance(body[0], ast.Expr) and \
+            isinstance(body[0].value, ast.Constant):
+        tree.body = body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", CLI_MODULES + ["cli.py"])
+def test_cli_modules_are_copies(rel):
+    """The port's CLI modules are the reference's, docstrings and import
+    lines aside; cli.py also but for ``CLI_CHANGES``, each of which is
+    made exactly once."""
+    with open(os.path.join(REPO, "x264_tpu_torch", rel)) as f:
+        port = f.read()
+    with open(os.path.join(REPO, "x264_tpu", rel)) as f:
+        ref = f.read()
+    if rel == "cli.py":
+        for new, old in CLI_CHANGES:
+            assert port.count(new) == 1, new
+            port = port.replace(new, old)
+    assert _module_code(port) == _module_code(ref)
 
 
 def test_zones_parse_like_reference():

@@ -19,7 +19,7 @@ from x264_tpu_torch.kernels import trellis as k_tr
 from x264_tpu_torch.models import graph, intra
 from x264_tpu_torch.ops import trellis as tr
 from x264_tpu_torch.ops.deblock import bs_grids
-from x264_tpu_torch.params import EncoderParams
+from x264_tpu_torch.params import RC_ABR, EncoderParams
 from x264_tpu_torch.state import PAD, me_lambda, sad_lambda
 from x264_tpu_torch.utils.yuv import Frame420
 
@@ -1037,3 +1037,91 @@ def test_live_encoder_on_card_matches_cpu(cuda, cabac):
         if d == "cuda":
             assert x264_tpu_torch.launch_counts()["pir_column"] >= 2
     assert streams["cuda"] == streams["cpu"]
+
+
+# ---- multi-slice frames and the fullpel-only search ----
+
+@pytest.mark.parametrize("bh", [34, 33])
+def test_esa16_kernel_at_4k_band_shape(cuda, bh):
+    """esa16 on a 4K band (240 MBs wide, 34 or 33 rows: 3840x2160 in four
+    slices) at r = 8, the band's source and reference rows being views of
+    whole padded planes (as the band loop hands them in), against the
+    twin."""
+    mbw, y0 = 240, 34
+    rng = np.random.default_rng(bh)
+    h, w = 16 * 135, 16 * mbw
+    src = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.uint8))
+    ref = np.clip(np.roll(src.numpy(), (5, -3), (0, 1)).astype(np.int32)
+                  + rng.integers(-4, 5, (h, w)), 0, 255).astype(np.uint8)
+    src = src.to(cuda)
+    ref_pad = torch.from_numpy(np.pad(ref, PAD, mode="edge")).to(cuda)
+    s = src[16 * y0:16 * (y0 + bh)]
+    r = ref_pad[16 * y0:16 * (y0 + bh) + 2 * PAD]
+    lam = sad_lambda(26)
+    before = x264_tpu_torch.launch_counts()["esa16"]
+    mv_k, c_k = esa16.full_search_16x16(s, r, lam, 8, mbw, bh)
+    assert x264_tpu_torch.launch_counts()["esa16"] == before + 1
+    mv_p, c_p = esa16.full_search_16x16_plain(s, r, lam, 8, mbw, bh)
+    torch.cuda.synchronize()
+    assert torch.equal(mv_k, mv_p) and torch.equal(c_k, c_p)
+    assert int((mv_k[:, 1] == 20).sum()) > mbw * bh // 2
+
+
+def test_cavlc_kernels_at_4k_band_shape(cuda):
+    """The CAVLC block coder on a 4K band's slot count (8160 MBs x 27
+    blocks) and the packer on its MBs at both word rungs, against their
+    twins."""
+    from x264_tpu_torch.kernels import bitpack
+    from x264_tpu_torch.kernels import cavlc as k_cv
+    from x264_tpu_torch.ops import cavlc as cv
+    coefs, blen, nc, gate = _cavlc_blocks("large", 34 * 240 * 27, 34)
+    pv, pl = cv.code_blocks(coefs, blen, nc, gate)
+    kv, kl = k_cv.code_blocks_(*(t.to(cuda) for t in (coefs, blen, nc,
+                                                      gate)))
+    torch.cuda.synchronize()
+    assert torch.equal(kv.cpu(), pv) and torch.equal(kl.cpu(), pl)
+    vals, lens = _tokens(34 * 240, 750, 34)
+    for n_words in (64, 416):
+        pw, pn = bitpack.pack_tokens(vals, lens, n_words)
+        kw, kn = bitpack.pack_tokens(vals.to(cuda), lens.to(cuda), n_words)
+        torch.cuda.synchronize()
+        assert torch.equal(kw.cpu(), pw) and torch.equal(kn.cpu(), pn)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(slices=4, cabac=True, rc_method=RC_ABR, bitrate=300),
+    dict(slices=3, cabac=False),
+    dict(preset="ultrafast", bframes=2),
+    dict(preset="ultrafast", tune="zerolatency", slices=4)],
+    ids=["slices4_cabac_abr", "slices3_cavlc", "ultrafast_b",
+         "ultrafast_zerolatency_slices4"])
+def test_sliced_and_fullpel_encoder_on_card_matches_cpu(cuda, kw):
+    """Multi-slice and fullpel-only streams: card == CPU, esa16 launched
+    once per P band and once more per re-run of a P band."""
+    from chip_smoke import split_motion_clip
+    from x264_tpu_torch.params import param_default_preset
+    w, h, n = 96, 64, 5
+    frames = [Frame420(*f) for f in split_motion_clip(w, h, n)]
+    kw = dict(kw)
+    p = param_default_preset(kw.pop("preset", "superfast"),
+                             tune=kw.pop("tune", None))
+    p = p.clone(width=w, height=h, qp=26, me_range=8, **kw)
+    streams, reruns = [], []
+    for d in (cuda, "cpu"):
+        enc = Encoder(p, device=d)
+        rerun = enc._rerun_band
+
+        def spy(job, b, n_words, rerun=rerun):
+            reruns.append((str(d), job["ftype"], b, n_words))
+            return rerun(job, b, n_words)
+        enc._rerun_band = spy
+        x264_tpu_torch.reset_launch_counts()
+        streams.append(b"".join(enc.encode(f) for f in frames) + enc.flush())
+        if d is cuda:
+            c = x264_tpu_torch.launch_counts()
+    assert streams[0] == streams[1]
+    on_card = [r[1:] for r in reruns if r[0] == "cuda"]
+    assert on_card == [r[1:] for r in reruns if r[0] == "cpu"]
+    if not p.bframes:
+        assert c["esa16"] == (n - 1) * min(p.slices, h // 16) + sum(
+            r[0] == "P" for r in on_card), c

@@ -17,7 +17,8 @@ what ran on the TPU runs on PyTorch tensors:
               and the trellis's host tables and plain twin (trellis)
   models/   — frame cores: the I16 wavefront (intra), the P pipeline
               (inter, P16x16 or P8x8 partitions, one or more
-              references) and the B frames (b_frame), with their
+              references, fullpel only at subpel 0; p_band_core, its
+              band entry) and the B frames (b_frame), with their
               residual paths (4x4 or 8x8, deadzone or trellis), and
               weighted prediction (weightp: the host analysis, the
               weighting step)
@@ -25,7 +26,12 @@ what ran on the TPU runs on PyTorch tensors:
               hand-written CUDA kernels in csrc/
   state.py  — constant tables (copied from x264_tpu) on a device,
               reference-output conversion
-  api.py    — ``Encoder(params, device)``
+  api.py    — ``Encoder(params, device)``: one slice, or bands of MB
+              rows each coded as a slice (``slices`` > 1)
+  cli.py, output/, utils/y4m.py, utils/filters.py, utils/metrics.py
+            — the command line (copies of x264_tpu's but for
+              ``--device``): ``python -m x264_tpu_torch --device cpu``
+              runs the plain twins, the default ``cuda`` the kernels
 
 ``Encoder(..., device="cuda")`` raises when no CUDA device is present;
 ``device="cpu"`` runs the kernels' plain twins.

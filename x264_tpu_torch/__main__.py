@@ -1,0 +1,3 @@
+from x264_tpu_torch.cli import main
+
+raise SystemExit(main())

@@ -29,9 +29,12 @@ buffer, NAL HRD buffering-period and pic-timing SEIs, periodic intra
 refresh (a moving I16 bar, ``kernels/pir_column``, with its
 recovery-point SEI), and the run-time entry points ``reconfig``,
 ``delayed_frames``, ``intra_refresh``, ``invalidate_reference`` and
-``encode_pipelined``.  The settings in ``_NOT_PORTED`` and I4x4 with
-CAVLC raise ``NotImplementedError``.  On the card an I frame's core is
-one CUDA graph replay (``models/graph.py``).
+``encode_pipelined``; the fullpel-only search (``subpel`` 0, x264's
+``ultrafast``); and multi-slice frames (``slices`` > 1: bands of MB rows,
+each an I16 or P16 slice of its own, ``_submit_device_sliced``).  The
+settings ``_check_params`` names, I4x4 with CAVLC among them, raise
+``NotImplementedError``.  On the card an I frame's core, or an I band's,
+is one CUDA graph replay (``models/graph.py``).
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ from x264_tpu_torch.bitstream.slice_assemble import (append_payload,
 from x264_tpu_torch.models.b_frame import b_frame_core, b_pair_core
 from x264_tpu_torch.models.graph import run_core
 from x264_tpu_torch.models import mbtree as MT
-from x264_tpu_torch.models.inter import p_frame_core
+from x264_tpu_torch.models.inter import p_band_core, p_frame_core
 from x264_tpu_torch.models.intra import i4_frame_core, i_frame_core
 from x264_tpu_torch.models.lookahead import (Lookahead,
                                              intra_cost_estimate,
@@ -63,6 +66,7 @@ from x264_tpu_torch.models.lookahead import (Lookahead,
 from x264_tpu_torch.models.weightp import analyse_weights
 from x264_tpu_torch.ops.deblock import deblock_frame, deblock_frame_b
 from x264_tpu_torch.ops.entropy_pack import blob_stride, write_slice_cabac
+from x264_tpu_torch.ops.mc import pad_edge
 from x264_tpu_torch.ops.trellis import frame_trellis
 from x264_tpu_torch.params import RC_CQP, EncoderParams
 from x264_tpu_torch.rc import RateControl, aq_offsets
@@ -75,18 +79,11 @@ __all__ = ["Encoder", "EncoderParams", "Frame420", "FrameStats",
 # MB classes (x264_tpu/models/syntax.py)
 MB_I16, MB_I4, MB_PSKIP = 0, 1, 3
 
-# parameters whose paths are not ported yet (ROADMAP queue A), with the
-# value the port runs
-_NOT_PORTED = dict(slices=1)
-
 
 def _check_params(p: EncoderParams) -> None:
-    bad = {k: getattr(p, k) for k, want in _NOT_PORTED.items()
-           if getattr(p, k) != want}
+    bad = {}
     if p.backend not in ("auto", "device"):
         bad["backend"] = p.backend
-    if p.subpel < 1:
-        bad["subpel"] = p.subpel
     # the reference codes I4x4 with CAVLC on its host-syntax path
     if p.i4x4 and not p.cabac:
         bad["i4x4"] = "on with CAVLC"
@@ -102,6 +99,13 @@ def _check_params(p: EncoderParams) -> None:
     # recon (ROADMAP C, fault 3)
     if p.intra_refresh and p.p8x8:
         bad["p8x8"] = "on with intra_refresh"
+    # the reference deblocks a multi-slice frame along one QP chain over
+    # the whole frame, so an MB at a slice's start that carries its QP
+    # takes the previous slice's where the decoder takes the slice QP:
+    # with AQ's per-MB QPs its streams stop decoding to its recon
+    # (ROADMAP C, fault 4)
+    if p.slices > 1 and p.aq_mode:
+        bad["aq_mode"] = "on with slices"
     if bad:
         raise NotImplementedError(
             f"x264_tpu_torch does not run these settings yet: {bad}")
@@ -489,6 +493,8 @@ class Encoder:
 
     def _submit_device(self, y, u, v, ftype: str, qp: int) -> dict:
         """Upload the frame, run its core and deblock, advance the DPB."""
+        if self.p.slices > 1:
+            return self._submit_device_sliced(y, u, v, ftype, qp)
         h, w = y.shape
         mbw, mbh = w // 16, h // 16
         idr = ftype == "IDR"
@@ -575,6 +581,170 @@ class Encoder:
         self.frame_idx += 1
         return job
 
+    # ---- multi-slice frames: bands of MB rows, one slice NAL each ----
+
+    def _band_core(self, job: dict, b: int, n_words: int) -> dict:
+        """Band ``b`` of a sliced job through the I16 core (on the card a
+        graph replay, one key per band height and rung) or ``p_band_core``
+        on the band's rows of the padded references; ``host_blob`` comes
+        back as a ``_HostCopy``.  The band is coded as a frame of its own:
+        nothing above or below it is available to its MBs."""
+        yd, ud, vd = job["planes"]
+        y0, bh = int(job["starts"][b]), job["heights"][b]
+        mbw = job["mbw"]
+        yb = yd[16 * y0:16 * (y0 + bh)]
+        ub = ud[8 * y0:8 * (y0 + bh)]
+        vb = vd[8 * y0:8 * (y0 + bh)]
+        qp = job["qp"]
+        ekw = self._entropy_kw(n_words)
+        if job["refpads"] is None:
+            kw = dict(mbw=mbw, mbh=bh, cqp_off=self.p.chroma_qp_offset,
+                      **ekw)
+            out = (run_core(i_frame_core, yb, ub, vb, qp, **kw)
+                   if self.device.type == "cuda"
+                   else i_frame_core(yb, ub, vb, qp, **kw))
+        else:
+            ry_pad, ru_pad, rv_pad = job["refpads"]
+            out = p_band_core(
+                yb, ub, vb, ry_pad[16 * y0:16 * (y0 + bh) + 2 * PAD],
+                ru_pad[8 * y0:8 * (y0 + bh) + PAD],
+                rv_pad[8 * y0:8 * (y0 + bh) + PAD], qp,
+                sad_lambda(qp), mbw=mbw, mbh=bh,
+                me_range=self.p.me_range, cqp_off=self.p.chroma_qp_offset,
+                subpel=self.p.subpel, **ekw)
+        out["host_blob"] = _HostCopy(out["host_blob"])
+        return out
+
+    def _submit_device_sliced(self, y, u, v, ftype: str, qp: int) -> dict:
+        """A multi-slice frame (the reference's ``_submit_device_sliced``,
+        its band loop): the MB rows split into min(slices, mbh) bands, the
+        first ``mbh % nsl`` one row taller; each band through its core,
+        the frame deblocked from the bands' outputs, one slice NAL per
+        band at finalize.  Slice-local entropy (nC availability, skip runs,
+        the QP chain, the MVP) follows from coding each band on its own,
+        as x264's sliced threads do.  An IDR or a P frame on the newest
+        reference only, every MB at the frame QP (AQ is refused with
+        slices: ROADMAP C, fault 4; MB-tree is off); no scenecut
+        promotion.  The reference's device mesh over the bands
+        (``threads`` > 1) codes the same bytes; one card runs the loop."""
+        h, w = y.shape
+        mbw, mbh = w // 16, h // 16
+        idr = ftype == "IDR" or not self.dpb
+        if idr:
+            ftype = "IDR"
+        nsl = max(1, min(self.p.slices, mbh))
+        base, rem = divmod(mbh, nsl)
+        heights = [base + (1 if i < rem else 0) for i in range(nsl)]
+        starts = np.concatenate(([0], np.cumsum(heights)))[:-1]
+        # the fixed ladder of the stream's coder, not the ratcheting
+        # ``_ladder`` (the reference's sliced path keeps its own)
+        ladder = self._RUNGS[self.p.cabac]
+        yd, ud, vd = self._upload((y, u, v))
+        ref = None if idr else self.dpb[0]
+        refpads = None if ref is None else (
+            pad_edge(ref.y, PAD), pad_edge(ref.u, PAD // 2),
+            pad_edge(ref.v, PAD // 2))
+        job = dict(sliced=True, starts=starts, heights=heights,
+                   slice_type=SLICE_I if idr else SLICE_P, idr=idr, qp=qp,
+                   mbw=mbw, mbh=mbh, n_words=ladder[0], ladder=ladder,
+                   planes=(yd, ud, vd), refpads=refpads,
+                   frame_num=self.frame_num, idr_pic_id=self.idr_pic_id,
+                   ftype=ftype)
+        outs = [self._band_core(job, b, ladder[0]) for b in range(nsl)]
+        # the whole frame's recon and deblock from the bands' outputs
+        full = {k: torch.cat([o[k] for o in outs])
+                for k in ("recon_y", "recon_u", "recon_v", "mb_class",
+                          "luma_nnz", "cbp_luma", "cbp_chroma", "qp_mb")}
+        full["mv"] = (torch.zeros((mbw * mbh, 2), dtype=torch.int32,
+                                  device=self.device) if idr
+                      else torch.cat([o["mv"] for o in outs]))
+        recon = self._deblock_device(full, qp, mbw, mbh)
+        job["outs"] = outs
+        new = ReconFrame(*recon, frame_num=self.frame_num)
+        job["rec"] = new
+        self.dpb = [new]
+        self.last_recon = new
+        if idr:
+            self.idr_pic_id = (self.idr_pic_id + 1) % 65536
+        self.frame_num = (self.frame_num + 1) % (
+            1 << self.sps.log2_max_frame_num)
+        self.frame_idx += 1
+        return job
+
+    def _rerun_band(self, job: dict, b: int, n_words: int) -> dict:
+        """Re-run one band at a larger entropy budget (its recon does not
+        depend on the budget; only the blob changes)."""
+        return self._band_core(job, b, n_words)
+
+    def _finalize_device_sliced(self, job: dict) -> bytes:
+        """A multi-slice frame's bytes: per band, the re-run at the next
+        rung of the fixed ladder while its blob overflows (past the last
+        rung the reference raises, and so does the port), the slice header
+        with the band's first MB and QP, and its CABAC payload or merged
+        CAVLC strings with the trailing mb_skip_run; then the frame's
+        stats.  There is no VBV re-encode: a sliced frame has only rate
+        control's soft clip, as in the reference."""
+        mbw = job["mbw"]
+        cab = self.p.cabac
+        out_bytes = self._frame_prefix(job)
+        total_cost = 0
+        classes = []
+        for b, ob in enumerate(job["outs"]):
+            n_words = job["n_words"]
+            bh = job["heights"][b]
+            nmb = bh * mbw
+            blob = ob["host_blob"].numpy()
+
+            def over(blob, n_words):
+                if cab:
+                    rows = self._cab_rows(blob, nmb)
+                    return int(rows[:, 14 + 8].astype(np.int64).sum()) \
+                        > nmb * n_words
+                return int(blob[:, n_words].max(initial=0)) > 32 * n_words
+
+            if over(blob, n_words):
+                for n_words in job["ladder"][1:]:
+                    blob = self._rerun_band(job, b, n_words)[
+                        "host_blob"].numpy()
+                    if not over(blob, n_words):
+                        break
+                else:
+                    raise RuntimeError(
+                        "sliced entropy overflow beyond the largest budget")
+            first_mb = int(job["starts"][b]) * mbw
+            if cab:
+                rows = self._cab_rows(blob, nmb)
+                mb_class = rows[:, 14]
+                total_cost += int(rows[:, 14 + 9].astype(np.int64).sum())
+            else:
+                mb_class = blob[:, n_words + 1]
+                total_cost += int(blob[:, n_words + 2].astype(np.int64)
+                                  .sum())
+            classes.append(mb_class)
+            bs = BitWriter()
+            write_slice_header(bs, self.p, self.sps, init_qp=self._init_qp,
+                               slice_type=job["slice_type"], idr=job["idr"],
+                               frame_num=job["frame_num"],
+                               idr_pic_id=job["idr_pic_id"],
+                               first_mb=first_mb, qp=job["qp"], num_ref=1)
+            if cab:
+                pad = (-bs.bit_length) % 8
+                if pad:
+                    bs.put(pad, (1 << pad) - 1)  # cabac_alignment_one_bit
+                payload = write_slice_cabac(
+                    blob, mbw, bh, 0 if job["slice_type"] == SLICE_I else 1,
+                    job["qp"], n_words, t8_mode=self.p.transform_8x8)
+                out_bytes += wrap_slice_nal(bs.to_bytes_aligned() + payload,
+                                            job["idr"])
+            else:
+                _append_mbs(bs, blob, n_words,
+                            skip_class=MB_PSKIP if job["slice_type"]
+                            == SLICE_P else None)
+                out_bytes += wrap_slice_nal(bs.to_rbsp(), job["idr"])
+        self._account(job, len(out_bytes), total_cost,
+                      np.concatenate(classes))
+        return out_bytes
+
     def _vbv_retry_qp(self, job: dict, nbytes: int):
         """Frame-grain VBV hard guarantee: if the coded frame would
         underflow the decoder buffer, return a bumped QP to re-encode at
@@ -622,7 +792,10 @@ class Encoder:
         return job
 
     def _finalize_device(self, job: dict) -> bytes:
-        """An I or P frame's bytes, by the stream's entropy coder."""
+        """An I or P frame's bytes, by the stream's entropy coder; a
+        multi-slice frame's slice by slice."""
+        if job.get("sliced"):
+            return self._finalize_device_sliced(job)
         return (self._finalize_cabac(job) if self.p.cabac
                 else self._finalize_cavlc(job))
 
@@ -1244,8 +1417,10 @@ class Encoder:
     _mbt_off = None             # the offsets of the frame being submitted
 
     def _mbtree_on(self) -> bool:
-        """MB-tree runs under CRF and ABR; under CQP it is off."""
-        return self.p.mbtree and self.p.rc_method != RC_CQP
+        """MB-tree runs under CRF and ABR with one slice; under CQP or with
+        slices it is off."""
+        return (self.p.mbtree and self.p.rc_method != RC_CQP
+                and self.p.slices <= 1)
 
     def _drop_mbt_off(self, disp: int) -> None:
         if self._mbt_off_by_disp:

@@ -4,7 +4,8 @@ Equivalent capability to reference common/bitstream.c `x264_nal_encode` /
 `nal_escape` (common/bitstream.h:57-69), implemented as a vectorized NumPy
 scan rather than a byte loop.
 
-Copied from x264_tpu/bitstream/nal.py (the writer side only).
+Copied from x264_tpu/bitstream/nal.py (the writers, and the Annex-B
+splitter the muxers use).
 """
 
 from __future__ import annotations
@@ -56,3 +57,31 @@ def make_nal(nal_type: int, ref_idc: int, rbsp: bytes,
     header = bytes([(ref_idc << 5) | nal_type])
     start = b"\x00\x00\x00\x01" if long_startcode else b"\x00\x00\x01"
     return start + header + escape_rbsp(rbsp)
+
+
+def split_annexb(data: bytes):
+    """Split an Annex-B elementary stream into raw NAL payloads (test use)."""
+    b = np.frombuffer(data, dtype=np.uint8)
+    starts = []
+    i = 0
+    n = len(b)
+    while i + 2 < n:
+        if b[i] == 0 and b[i + 1] == 0:
+            if b[i + 2] == 1:
+                starts.append(i + 3)
+                i += 3
+                continue
+            if i + 3 < n and b[i + 2] == 0 and b[i + 3] == 1:
+                starts.append(i + 4)
+                i += 4
+                continue
+        i += 1
+    nals = []
+    for k, s in enumerate(starts):
+        e = len(data) if k + 1 == len(starts) else starts[k + 1] - 3
+        # trim trailing zeros belonging to next start code
+        chunk = data[s:e]
+        while chunk.endswith(b"\x00"):
+            chunk = chunk[:-1]
+        nals.append(chunk)
+    return nals

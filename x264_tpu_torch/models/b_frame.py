@@ -8,7 +8,8 @@ the anchors use several references).
 Temporal direct (8.4.1.2.3) derives every MB's direct mvs from the
 colocated quadrant of the future anchor's motion field, so the whole B
 frame is one batch over all MBs: fullpel ME per list (kernel
-``kernels/esa16``), subpel refinement, direct / L0 / L1 / bi predictions
+``kernels/esa16``), subpel refinement (none at ``subpel`` 0), direct /
+L0 / L1 / bi predictions
 and the SATD + lambda-bits mode decision, the inter residual, the
 intra-in-B I16x16 escape, the per-list MVPs and the CABAC blob or the
 CAVLC packed words.  The
@@ -33,7 +34,7 @@ from x264_tpu_torch.ops.entropy_pack import cabac_blob
 from x264_tpu_torch.ops.header import (B_BI, B_DIRECT, B_L0, B_L1,
                                        header_slots_b, mvp_for_list, shifted)
 from x264_tpu_torch.ops.mc import (hpel_planes, mc_chroma_uv_quad,
-                                   mc_luma_qpel_quad, pad_edge)
+                                   mc_luma_qpel, mc_luma_qpel_quad, pad_edge)
 from x264_tpu_torch.ops.me import full_search_16x16, subpel_refine
 from x264_tpu_torch.state import PAD, tables
 
@@ -128,12 +129,15 @@ def _b_body(y, u, v, a, col_mv, col_intra, dist_scale: int, qp, lam: int,
     lim = 4 * (me_range + 3)
     dmv0, dmv1 = dmv0.clamp(-lim, lim), dmv1.clamp(-lim, lim)
 
-    mv0, cost0, pred0 = subpel_refine(src_mbs, a["l0y"], mv0_fp, lam,
-                                      me_range, subpel, mbw, mbh,
-                                      return_pred=True)
-    mv1, cost1, pred1 = subpel_refine(src_mbs, a["l1y"], mv1_fp, lam,
-                                      me_range, subpel, mbw, mbh,
-                                      return_pred=True)
+    def me(ref_pad, planes, mv, cost):
+        if subpel > 0:
+            return subpel_refine(src_mbs, ref_pad, mv, lam, me_range, subpel,
+                                 mbw, mbh, return_pred=True)
+        # fullpel only: the search's mv and cost, the block at the mv
+        return mv, cost, mc_luma_qpel(planes, mv, mbw, mbh, PAD)
+
+    mv0, cost0, pred0 = me(a["l0y"], a["planes0"], mv0_fp, cost0_fp)
+    mv1, cost1, pred1 = me(a["l1y"], a["planes1"], mv1_fp, cost1_fp)
     pred_bi = (pred0 + pred1 + 1) >> 1
     pred_dir = (mc_luma_qpel_quad(a["planes0"], dmv0, mbw, mbh, PAD)
                 + mc_luma_qpel_quad(a["planes1"], dmv1, mbw, mbh, PAD)

@@ -6,7 +6,8 @@ classification and the CABAC blob or the CAVLC packed words — over all
 MBs at once, and the periodic-intra-refresh bar when asked (port of
 x264_tpu/models/inter_device.py: ``p_frame_pipeline`` with one or more
 references, with or without weights, P16x16 only or with P8x8
-partitions, ``p_entropy_tail`` and ``p_frame_core``; the bar is
+partitions, ``p_entropy_tail``, ``p_frame_core`` and the band entry of
+a multi-slice frame, ``p_band_core``; the bar is
 ``kernels/pir_column``).  The reference runs the
 partition path as two device programs to dodge a TPU miscompile; here it
 is one eager pass."""
@@ -31,7 +32,8 @@ from x264_tpu_torch.ops.entropy_pack import cabac_blob
 from x264_tpu_torch.ops.header import (MB_PSKIP_D, classify_p,
                                        classify_p_parts, header_slots,
                                        header_slots_parts, shifted)
-from x264_tpu_torch.ops.mc import mc_chroma_uv, mc_chroma_uv_quad, pad_edge
+from x264_tpu_torch.ops.mc import (mc_chroma_uv, mc_chroma_uv_quad,
+                                  mc_luma_fullpel, mc_luma_qpel, pad_edge)
 from x264_tpu_torch.ops.me import full_search_16x16, subpel_refine
 from x264_tpu_torch.ops.me_parts import (choose_shape, full_search_parts,
                                          subpel_refine_parts)
@@ -107,7 +109,9 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     """P-frame pipeline on pre-padded reference planes (PAD luma, PAD//2
     chroma): one reference (H, W) or stacked (K, H, W) in list0 order,
     most recent first.  y/u/v uint8 source planes; qp int or per-MB (N,);
-    lam int; parts: P8x8 partitions (16x16/16x8/8x16/8x8 per MB); t8: the
+    lam int; subpel 0 keeps the fullpel search's mvs and costs (P16x16
+    only), 1-2 refine them to half- or quarter-pel; parts: P8x8
+    partitions (16x16/16x8/8x16/8x8 per MB); t8: the
     adaptive 8x8 transform; trellis_tbl: the ``ops/trellis.frame_trellis``
     bundle or None; wts: (K, 2) int32 [weight, offset] per reference
     (``models/weightp``) or None; n_words > 0 codes CAVLC into that many
@@ -121,9 +125,6 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     no intra-in-P.  Returns the per-MB syntax tensors (ref_mb each MB's
     list0 ref_idx), pre-deblock recon planes and ``host_blob``; with
     partitions also shape, mv8, ref8 and mvd_part."""
-    if subpel < 1:
-        raise NotImplementedError("the fullpel-only P path (subpel=0) is "
-                                  "not ported")
     n = mbw * mbh
     dev = y.device
     qp = qp_per_mb(qp, n, dev)
@@ -202,10 +203,22 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
         if pir:
             mv = torch.stack([pir_clamp_mvx(mv[:, 0], mbx_of * 16, 16),
                               mv[:, 1]], dim=1)
-        mv, mb_cost, pred = subpel_refine(src_mbs, stack_or_one(ref_y_pad),
-                                          mv, lam, me_range, subpel, mbw,
-                                          mbh, return_pred=True,
-                                          ref_idx=ref if multi else None)
+        if subpel > 0:
+            mv, mb_cost, pred = subpel_refine(
+                src_mbs, stack_or_one(ref_y_pad), mv, lam, me_range, subpel,
+                mbw, mbh, return_pred=True, ref_idx=ref if multi else None)
+        elif not multi:
+            # fullpel only: the search's cost, the block at the mv
+            mb_cost = best
+            pred = mc_luma_fullpel(ref_y_pad[0], mv, mbw, mbh, PAD)
+        else:
+            # fullpel from each MB's reference: the stacked planes as the
+            # four half-pel planes of each reference (the reference's
+            # broadcast), gathered at each MB's ref_idx
+            mb_cost = best
+            pred = mc_luma_qpel(
+                ref_y_pad.to(_I32)[:, None].expand(-1, 4, -1, -1), mv, mbw,
+                mbh, PAD, ref_idx=ref)
     if wts is not None:
         # explicit weighted prediction (8.4.2.3.3: interpolate, then
         # weight); the search stayed unweighted.  P_Skip MBs use this
@@ -406,3 +419,10 @@ def p_frame_core(y, u, v, ref_y, ref_u, ref_v, qp, lam: int, mbw: int,
                             trellis_tbl=trellis_tbl, wts=wts,
                             n_words=n_words, pir_ncols=pir_ncols,
                             pir_col=pir_col, pir_bound=pir_bound)
+
+
+# the band entry of a multi-slice frame: the same pipeline on a band's
+# source planes and the band's rows of the padded references (its MB rows
+# and PAD, or PAD//2, rows of the neighbouring bands' pixels on each
+# side), as the reference's p_band_core (inter_device.py:663)
+p_band_core = p_frame_pipeline

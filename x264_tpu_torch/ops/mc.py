@@ -1,5 +1,6 @@
 """Motion compensation (port of x264_tpu/ops/device/mc.py's half-pel
-planes, quadrant quarter-pel luma MC and chroma MC; parity: reference
+planes, fullpel luma MC, quarter-pel luma MC per MB and per quadrant, and
+chroma MC; parity: reference
 common/mc.c): the 6-tap half-pel planes, every quarter-pel sample as the
 rounded mean of two plane samples, and the normative 1/8-pel bilinear
 chroma interpolation, as index gathers over edge-padded planes."""
@@ -142,6 +143,55 @@ def mc_chroma_uv_quad(ref_u_pad, ref_v_pad, mv8, mbw: int, mbh: int,
 def _qpel_table(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(QPEL_TWO_SAMPLE_TBL, dtype=torch.long,
                            device=device)
+
+
+def mc_luma_fullpel(ref_pad, mv, mbw: int, mbh: int, pad: int):
+    """Fullpel luma MC (port of x264_tpu/ops/device/mc.py
+    ``mc_luma_fullpel``): each MB's 16x16 block of the padded reference at
+    its mv (N,2), qpel units that are multiples of 4.  Returns (N,16,16)
+    int32."""
+    n = mbw * mbh
+    dev = mv.device
+    mb = torch.arange(n, dtype=_I32, device=dev)
+    mby, mbx = torch.div(mb, mbw, rounding_mode="floor"), mb % mbw
+    r16 = torch.arange(16, dtype=_I32, device=dev)
+    y0 = pad + mby * 16 + (mv[:, 1] >> 2)
+    x0 = pad + mbx * 16 + (mv[:, 0] >> 2)
+    yi = (y0[:, None, None] + r16[None, :, None]).long()
+    xi = (x0[:, None, None] + r16[None, None, :]).long()
+    return ref_pad[yi, xi].to(_I32)
+
+
+def mc_luma_qpel(planes4, mv, mbw: int, mbh: int, pad: int, ref_idx=None):
+    """Quarter-pel luma MC of one mv per MB (port of
+    x264_tpu/ops/device/mc.py ``mc_luma_qpel``): planes4 (4, Hp, Wp)
+    [fp, hh, hv, hc] from ``hpel_planes`` of the reference padded by
+    ``pad``, or stacked (K, 4, Hp, Wp) with ref_idx (N,) each MB's
+    reference; mv (N,2) qpel.  Each sample is (S1 + S2 + 1) >> 1 over the
+    two plane samples QPEL_TWO_SAMPLE_TBL names, gathered straight from
+    the planes (the reference's one-hot ``wingather`` windows hold the
+    same samples).  Returns (N,16,16) int32."""
+    n = mbw * mbh
+    dev = mv.device
+    hp, wp = planes4.shape[-2], planes4.shape[-1]
+    mv = mv.to(_I32)
+    mb = torch.arange(n, dtype=_I32, device=dev)
+    mby, mbx = torch.div(mb, mbw, rounding_mode="floor"), mb % mbw
+    y0 = pad + mby * 16 + (mv[:, 1] >> 2)
+    x0 = pad + mbx * 16 + (mv[:, 0] >> 2)
+    tbl = _qpel_table(dev)[(mv[:, 0] & 3).long(), (mv[:, 1] & 3).long()]
+    r16 = torch.arange(16, dtype=_I32, device=dev)
+
+    def sample(p, dy, dx):
+        yi = ((y0 + dy)[:, None, None] + r16[None, :, None]).clamp(0, hp - 1)
+        xi = ((x0 + dx)[:, None, None] + r16[None, None, :]).clamp(0, wp - 1)
+        ix = (p[:, None, None], yi.long(), xi.long())
+        if ref_idx is not None:
+            ix = (ref_idx.long()[:, None, None],) + ix
+        return planes4[ix].to(_I32)
+
+    return (sample(tbl[:, 0], tbl[:, 1], tbl[:, 2])
+            + sample(tbl[:, 3], tbl[:, 4], tbl[:, 5]) + 1) >> 1
 
 
 def mc_luma_qpel_quad(planes4, mv8, mbw: int, mbh: int, pad: int):
