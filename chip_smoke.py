@@ -1298,6 +1298,37 @@ def _cavlc_inputs(out, b: bool):
     return blocks, hdr
 
 
+def _cavlc_alone(coefs, blen, nc, gate, vals, lens):
+    """(blocks, pack): the CAVLC kernels' launches alone (cavlc_blocks on
+    the block inputs, bitpack at 64 words on the slot grids), on outputs
+    and inputs made once."""
+    import torch
+    from x264_tpu_torch.kernels import build, cavlc as KC
+    from x264_tpu_torch.kernels.build import check
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = coefs.device
+    nb, (n, s) = coefs.shape[0], vals.shape
+    tab = KC.tables_on(str(dev))["block"]
+    g8 = gate.to(torch.uint8)
+    bv = torch.empty((nb, 36), dtype=torch.int32, device=dev)
+    bl = torch.empty_like(bv)
+    words = torch.empty((n, 64), dtype=torch.int32, device=dev)
+    nbits = torch.empty(n, dtype=torch.int32, device=dev)
+
+    def blocks():
+        check(lib.cavlc_blocks_launch(
+            coefs.data_ptr(), blen.data_ptr(), nc.data_ptr(), g8.data_ptr(),
+            tab.data_ptr(), bv.data_ptr(), bl.data_ptr(), nb, stream),
+            "cavlc_blocks")
+
+    def pack():
+        check(lib.bitpack_launch(vals.data_ptr(), lens.data_ptr(),
+                                 words.data_ptr(), nbits.data_ptr(), n, s,
+                                 64, stream), "bitpack")
+    return blocks, pack
+
+
 def _cavlc_phase(frames: dict, record, int_ops_per_s: float) -> None:
     """The CAVLC block coder and bit packer against their twins,
     bit-exact, at the 1080p shapes of a P8x8 frame and a B frame (the
@@ -1307,11 +1338,8 @@ def _cavlc_phase(frames: dict, record, int_ops_per_s: float) -> None:
     recorded."""
     import torch
     from x264_tpu_torch.kernels import bitpack as KB
-    from x264_tpu_torch.kernels import build, cavlc as KC
-    from x264_tpu_torch.kernels.build import check
+    from x264_tpu_torch.kernels import cavlc as KC
     from x264_tpu_torch.ops import cavlc as CV
-    lib = build.library()
-    stream = torch.cuda.current_stream().cuda_stream
     rec = {}
     for label, (out, is_b) in frames.items():
         (coefs, blen, nc, gate), (hv, hl) = _cavlc_inputs(out, is_b)
@@ -1334,24 +1362,8 @@ def _cavlc_phase(frames: dict, record, int_ops_per_s: float) -> None:
         if err_p:
             raise AssertionError(f"bitpack disagrees with its twin on the "
                                  f"1080p {label} frame: {err_p}")
-        # the launches alone, on outputs and inputs made once
-        tab = KC.tables_on(str(dev))["block"]
-        g8 = gate.to(torch.uint8)
-        bv, bl = torch.empty_like(kv), torch.empty_like(kl)
-        words = torch.empty((n, 64), dtype=torch.int32, device=dev)
-        nbits = torch.empty(n, dtype=torch.int32, device=dev)
-
-        def blocks_alone():
-            check(lib.cavlc_blocks_launch(
-                coefs.data_ptr(), blen.data_ptr(), nc.data_ptr(),
-                g8.data_ptr(), tab.data_ptr(), bv.data_ptr(), bl.data_ptr(),
-                nb, stream), "cavlc_blocks")
-
-        def pack_alone():
-            check(lib.bitpack_launch(vals.data_ptr(), lens.data_ptr(),
-                                     words.data_ptr(), nbits.data_ptr(), n,
-                                     s, 64, stream), "bitpack")
-
+        blocks_alone, pack_alone = _cavlc_alone(coefs, blen, nc, gate,
+                                                vals, lens)
         nonzero = int((coefs != 0).sum())
         t = dict(
             cavlc_blocks=(_time_ms(lambda: KC.code_blocks_(coefs, blen, nc,
@@ -2450,21 +2462,25 @@ def _band_kernel_phase(esa_rate: float, int_ops_per_s: float) -> None:
                              f"on the 1080p ultrafast band: {err}")
     s = vals.shape[1]
     nonzero = int((coefs != 0).sum())
-    for name, ms, plain, by_bytes, by_ops in (
+    blocks_alone, pack_alone = _cavlc_alone(coefs, blen, nc, gate, vals,
+                                            lens)
+    for name, ms, alone, plain, by_bytes, by_ops in (
             ("cavlc_blocks",
              _time_ms(lambda: KC.code_blocks_(coefs, blen, nc, gate), 20),
+             _time_ms(blocks_alone, 50),
              _time_ms(lambda: CV.code_blocks_plain(coefs, blen, nc), 3),
              KC.work(nb) / HBM_BYTES_PER_S * 1e3,
              (48 * nb + 24 * nonzero) / int_ops_per_s * 1e3),
             ("bitpack", _time_ms(lambda: KB.pack_tokens_(vals, lens, 64), 20),
+             _time_ms(pack_alone, 50),
              _time_ms(lambda: KB.pack_tokens_plain(vals, lens, 64), 3),
              KB.work(nmb, s, 64) / HBM_BYTES_PER_S * 1e3,
              15 * nmb * s / int_ops_per_s * 1e3)):
         by = "bytes" if by_bytes >= by_ops else "operations"
         print(f"{name} on the 1080p ultrafast {bh}-row P band ({nb} blocks, "
               f"{nmb} x {s} slots): bit-exact, {ms:.4f} ms through the "
-              f"wrapper, twin {plain:.3f} ms, bound "
-              f"{max(by_bytes, by_ops):.4f} ms by {by}")
+              f"wrapper (launch alone {alone:.4f} ms), twin {plain:.3f} ms, "
+              f"bound {max(by_bytes, by_ops):.4f} ms by {by}")
 
 
 class _BandTimes:
@@ -2762,6 +2778,245 @@ def _check_small_slices() -> None:
               f"{launches}")
 
 
+
+# ---- the host-syntax path (ROADMAP A16): I4x4 with CAVLC, the
+# device_host_entropy and reference backends ----
+
+def syntax_clip(w: int, h: int, n: int, cut=None):
+    """A pan over texture where each intra class wins somewhere (a sine
+    field with noise, 45-degree stripes of 3-px grain on a third of the
+    MBs, which pick I4x4, ramps on a fifth), seed 15; from frame ``cut``
+    on a still noise scene that inter prediction cannot follow (the
+    syntax path's scenecut promotes it)."""
+    rng = np.random.default_rng(15)
+    yy, xx = np.mgrid[0:h + 2 * n, 0:w + 3 * n]
+    y = 120 + 70 * np.sin(xx / 11) * np.cos(yy / 8) \
+        + rng.integers(0, 9, yy.shape)
+    mbx, mby = xx // 16, yy // 16
+    y = np.where((mbx + mby) % 3 == 0,
+                 np.where(((xx + yy) // 3) % 2 == 0, 40, 210), y)
+    y = np.where((mbx + 2 * mby) % 5 == 1, 60 + xx // 4, y)
+    y = np.clip(y, 0, 255).astype(np.uint8)
+    u = (128 + 40 * np.sin(xx[::2, ::2] / 7)).astype(np.uint8)
+    v = (128 + 40 * np.cos(yy[::2, ::2] / 5)).astype(np.uint8)
+    noise = [rng.integers(0, 256, sh, dtype=np.uint8)
+             for sh in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    frames = []
+    for t in range(n):
+        if cut is not None and t >= cut:
+            frames.append(tuple(noise))
+            continue
+        frames.append(tuple(np.ascontiguousarray(p) for p in (
+            y[t:t + h, 2 * t:2 * t + w], u[t:t + h // 2, t:t + w // 2],
+            v[:h // 2, t:t + w // 2])))
+    return frames
+
+
+def _fastdecode_params(w: int, h: int, **kw):
+    """x264's medium preset with tune fastdecode (CAVLC, no deblock, no
+    weightp, P16 anchors, no 8x8 transform, no trellis; I4x4 and two B
+    frames stay) at CRF 23 with AQ mode 1, MB-tree and b_adapt=1: the
+    host-syntax path (I4x4 with CAVLC)."""
+    from x264_tpu_torch.params import RC_CRF, param_default_preset
+    return param_default_preset("medium", "fastdecode").clone(
+        width=w, height=h, rc_method=RC_CRF, crf=23.0, aq_mode=1,
+        mbtree=True, b_adapt=1, **kw)
+
+
+def _syntax_spies(enc) -> dict:
+    """Wrap the host-syntax path's steps of ``enc``, the card synchronised
+    after each: an anchor's whole encode (_encode_frame_syn, keyed by the
+    type it coded), its writer (_syn_slice: the slice header and the
+    CABAC coder or the CAVLC writers, keyed "writer IDR" or "writer P",
+    with the IDR's count of I4x4 MBs) and a B frame's submit and
+    finalize (keyed "B").  Returns the log: key -> list of (ms, I4x4
+    MBs or None)."""
+    import torch
+    from x264_tpu_torch.models.syntax import MB_I4
+    log = {}
+
+    def wrap(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            ms = 1000 * (time.perf_counter() - t0)
+            kk, i4 = key(a)
+            log.setdefault(kk, []).append((ms, i4))
+            return out
+        return run
+
+    enc._encode_frame_syn = wrap(enc._encode_frame_syn,
+                                 lambda a: (enc.stats[-1].frame_type, None))
+    enc._syn_slice = wrap(enc._syn_slice, lambda a: (
+        "writer IDR" if a[2] else "writer P",
+        int((a[0].mb_class == MB_I4).sum()) if a[2] else None))
+    enc._submit_b = wrap(enc._submit_b, lambda a: ("B submit", None))
+    enc._finalize_b = wrap(enc._finalize_b, lambda a: ("B finalize", None))
+    return log
+
+
+def _run_1080p_syntax(label, clip, params, records) -> tuple:
+    """One run of the host-syntax path at 1080p (counts reset just before,
+    read just after): each encode() call's ms (the card synchronised at
+    its end), fps over the calls after the one that coded the first IDR
+    (flush included), bytes, kbit/frame, Y-PSNR (where avdec runs, every
+    frame's decode equals its recon), the frame types, ms per frame by
+    type and the writer's host ms per IDR and per P anchor (the spies of
+    _syntax_spies); adds the launches to ``records``.  Returns
+    (launches, frame types, the spies' log)."""
+    import torch
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    enc = Encoder(params, device="cuda")
+    recons = {}
+    enc.recon_hook = recons.__setitem__
+    log = _syntax_spies(enc)
+    la_log, restore = _lookahead_spies(enc, synced=False)
+    stream, times, sizes = b"", [], []
+    torch.cuda.synchronize()
+    x264_tpu_torch.reset_launch_counts()
+    try:
+        for y, u, v in clip:
+            t0 = time.perf_counter()
+            data = enc.encode(Frame420(y, u, v))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            sizes.append(len(data))
+            stream += data
+        t0 = time.perf_counter()
+        stream += enc.flush()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    finally:
+        restore()
+    launches = x264_tpu_torch.launch_counts()
+    print(f"launches in the 1080p {label} run: {launches}")
+    for r in records:
+        r["launches"] += launches[r["name"]]
+    types = [st.frame_type for st in enc.stats]
+    n = len(clip)
+    first = next(i for i, sz in enumerate(sizes) if sz)
+    psnr = _check_recon(label, stream, recons, clip)
+    print(f"1080p {label} x{n}: frame types (coded order) {' '.join(types)}"
+          f"; {len(stream)} bytes, {len(stream) * 8 / n / 1000:.1f} "
+          f"kbit/frame, mean Y-PSNR {psnr:.3f} dB; "
+          f"{(n - 1) / sum(times[first + 1:]):.3f} fps over display "
+          f"1-{n - 1} (the encode() calls after the one that coded the "
+          f"first IDR, call {first}, flush included)")
+    print(f"{label} encode() ms: "
+          + " ".join(f"{1000 * t:.1f}" for t in times))
+
+    def stat(key):
+        ms = [m for m, _ in log.get(key, [])]
+        return (f"{key} {np.mean(ms):.1f} ms a frame over {len(ms)} (max "
+                f"{max(ms):.1f})") if ms else f"{key}: none"
+    print(f"1080p {label} ms per frame by type (the card synchronised "
+          f"after each step): " + "; ".join(
+              stat(k) for k in ("IDR", "P", "B submit", "B finalize")))
+    print(f"1080p {label} host writer ms: IDR " + ", ".join(
+        f"{m:.1f} ({i4} I4x4 MBs)" for m, i4 in log.get("writer IDR", []))
+        + "; " + stat("writer P"))
+    la_launch = {k: {x: sum(c[1][x] for c in v) for x in ("esa16",
+                                                          "esa_parts")}
+                 for k, v in la_log.items()}
+    return launches, types, log, la_launch
+
+
+def _run_1080p_fastdecode(records):
+    """x264's medium preset with tune fastdecode at CRF 23 (AQ 1, MB-tree,
+    b_adapt=1) on cut_clip at 1080p: the host-syntax path's anchors
+    (the I4x4 IDRs through the scalar CAVLC writer, the P16 anchors
+    through the vectorised one with the device's slot grids) and B
+    frames on their own cores.  Checks the launches: no deblock, no
+    trellis, intra_nxn a multiple of the knight steps, esa_parts only in
+    MB-tree's lowres_stats8, cavlc_blocks once per P anchor and B core
+    run, bitpack once per B core run."""
+    clip = cut_clip(LA_FRAMES, LA_CUT)
+    launches, types, log, la = _run_1080p_syntax(
+        "fastdecode", clip, _fastdecode_params(W, H), records)
+    steps = (W + 15) // 16 + 2 * ((H + 15) // 16) - 2
+    n_p = types.count("P")
+    if types[0] != "IDR" or "B" not in types or launches["deblock"] or \
+            launches["trellis"] or not launches["intra_nxn"] or \
+            launches["intra_nxn"] % steps or \
+            launches["esa_parts"] != la.get("lowres_stats8", {}).get(
+                "esa_parts") or \
+            launches["cavlc_blocks"] - launches["bitpack"] != n_p or \
+            launches["bitpack"] < types.count("B"):
+        raise AssertionError(f"fastdecode: frame types {types}, launches "
+                             f"{launches}, lookahead launches {la}")
+
+
+def _run_1080p_host_entropy(clip, records):
+    """backend="device_host_entropy" at 1080p, bench.py's GOP (IDR + 3 x
+    (B B P)) with CABAC, CQP 26, I4x4, deblock and full_recon: the anchors
+    through the device cores' syntax entries and the C coder's FrameSyntax
+    entry, deblocked from the host arrays; each B frame on its own core.
+    Checks the launches: deblock once a frame, esa16 once a P anchor and
+    twice a B frame, intra_nxn a multiple of the knight steps, no CAVLC
+    kernel."""
+    launches, types, log, _ = _run_1080p_syntax(
+        "host-entropy", clip, _params(W, H, False, bframes=2, i4x4=True,
+                                      backend="device_host_entropy"),
+        records)
+    steps = (W + 15) // 16 + 2 * ((H + 15) // 16) - 2
+    n_b, n_p = types.count("B"), types.count("P")
+    if types[0] != "IDR" or launches["deblock"] != len(clip) or \
+            launches["esa16"] != n_p + 2 * n_b or \
+            not launches["intra_nxn"] or launches["intra_nxn"] % steps or \
+            launches["cavlc_blocks"] or launches["bitpack"]:
+        raise AssertionError(f"host-entropy: frame types {types}, launches "
+                             f"{launches}")
+
+
+def _check_small_syntax() -> None:
+    """352x288 card stream == CPU stream on the host-syntax path: I4x4 with
+    CAVLC on I/P16 under AQ; the fastdecode preset with B frames (CRF 23,
+    AQ, MB-tree, b_adapt); the host-entropy backend with CABAC and with
+    CAVLC on a cut that the syntax path's scenecut promotes to an IDR;
+    the reference backend (the NumPy tier) on three frames."""
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    cut = dict(scenecut_threshold=40, keyint_min=2)
+    for label, frames, p in (
+            ("I4x4, CAVLC, AQ 1, I/P16", syntax_clip(CHECK_W, CHECK_H, 4),
+             _params(CHECK_W, CHECK_H, False, cabac=False, i4x4=True,
+                     aq_mode=1, me_range=8)),
+            ("fastdecode, CRF 23, B frames",
+             syntax_clip(CHECK_W, CHECK_H, 7),
+             _fastdecode_params(CHECK_W, CHECK_H)),
+            ("host entropy, CABAC, I4x4, a promoted cut",
+             syntax_clip(CHECK_W, CHECK_H, 5, cut=3),
+             _params(CHECK_W, CHECK_H, False, i4x4=True, me_range=8,
+                     backend="device_host_entropy", **cut)),
+            ("host entropy, CAVLC, a promoted cut",
+             syntax_clip(CHECK_W, CHECK_H, 5, cut=3),
+             _params(CHECK_W, CHECK_H, False, cabac=False, me_range=8,
+                     backend="device_host_entropy", **cut)),
+            ("reference backend, CAVLC, I4x4",
+             syntax_clip(CHECK_W, CHECK_H, 3),
+             _params(CHECK_W, CHECK_H, False, cabac=False, i4x4=True,
+                     me_range=8, backend="reference"))):
+        small = [Frame420(*f) for f in frames]
+        streams = {}
+        for d in ("cuda", "cpu"):
+            e = Encoder(p, device=d)
+            x264_tpu_torch.reset_launch_counts()
+            streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
+            if d == "cuda":
+                launches = x264_tpu_torch.launch_counts()
+                types = [st.frame_type for st in e.stats]
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"352x288 {label}: card stream != CPU "
+                                 "stream")
+        if "cut" in label and types[3] != "IDR":
+            raise AssertionError(f"352x288 {label}: frame types {types}")
+        print(f"{CHECK_W}x{CHECK_H} {label} x{len(small)}: card stream == "
+              f"CPU stream ({len(streams['cuda'])} bytes), frame types "
+              f"{' '.join(types)}, launches {launches}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2989,6 +3244,8 @@ def main() -> int:
     _run_1080p_live(records, bar_ms)
     _run_4k_cli(records)
     _run_1080p_ultrafast(records)
+    _run_1080p_fastdecode(records)
+    _run_1080p_host_entropy(bclip, records)
 
     # ---- 5. card streams == CPU (plain twins) streams at 352x288 ----
     small = [Frame420(*f) for f in split_motion_clip(CHECK_W, CHECK_H,
@@ -3019,6 +3276,7 @@ def main() -> int:
     _check_small_lookahead()
     _check_small_live()
     _check_small_slices()
+    _check_small_syntax()
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

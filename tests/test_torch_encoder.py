@@ -121,10 +121,14 @@ def test_scenecut_promotes_like_reference():
 
 
 def test_unported_settings_and_missing_card_raise():
-    for kw in (dict(i4x4=True, cabac=False), dict(backend="reference"),
-               dict(me_range=PAD + 1)):
+    for kw in (dict(backend="device_host_entropy", transform_8x8=True),
+               dict(backend="bogus"), dict(me_range=PAD + 1)):
         with pytest.raises(NotImplementedError):
             Encoder(_params(64, 48, 26, **kw), device="cpu")
+    # the host-syntax path's settings run since it was ported
+    for kw in (dict(i4x4=True, cabac=False), dict(backend="reference"),
+               dict(backend="device_host_entropy")):
+        Encoder(_params(64, 48, 26, **kw), device="cpu")
     # slices and the fullpel-only search (ultrafast) run since they were
     # ported
     Encoder(param_default_preset("ultrafast"), device="cpu")

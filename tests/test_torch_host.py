@@ -27,6 +27,7 @@ import _one_thread  # noqa: E402,F401
 import x264_tpu.params as r_params  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 import x264_tpu.bitstream.bits as r_bits  # noqa: E402
+from x264_tpu.bitstream import cabac_host as r_cabac_host  # noqa: E402
 from x264_tpu.bitstream import cabac_init as r_cabac_init  # noqa: E402
 from x264_tpu.bitstream import nal as r_nal  # noqa: E402
 from x264_tpu.bitstream import sei as r_sei  # noqa: E402
@@ -41,6 +42,7 @@ from x264_tpu.ops.device import me_parts as r_me_parts  # noqa: E402
 from x264_tpu.ops.reference import deblock as r_deblock  # noqa: E402
 from x264_tpu.ops.reference import mc as r_mc  # noqa: E402
 from x264_tpu.rc import ratecontrol as r_rc  # noqa: E402
+from x264_tpu.utils import yuv as r_yuv  # noqa: E402
 from x264_tpu.utils.yuv import Frame420 as RefFrame  # noqa: E402
 import x264_tpu_torch.params as t_params  # noqa: E402
 from x264_tpu_torch import state  # noqa: E402
@@ -54,8 +56,10 @@ from x264_tpu_torch.api import Encoder  # noqa: E402
 from x264_tpu_torch.models import inter as t_inter  # noqa: E402
 from x264_tpu_torch.models import mbtree as t_mbtree  # noqa: E402
 from x264_tpu_torch.models import weightp as t_weightp  # noqa: E402
+from x264_tpu_torch.ops import entropy_pack as t_entropy_pack  # noqa: E402
 from x264_tpu_torch.ops import me_parts as t_me_parts  # noqa: E402
 from x264_tpu_torch.rc import ratecontrol as t_rc  # noqa: E402
+from x264_tpu_torch.utils import yuv as t_yuv  # noqa: E402
 from x264_tpu_torch.utils.yuv import Frame420  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -356,6 +360,92 @@ def test_cli_modules_are_copies(rel):
             assert port.count(new) == 1, new
             port = port.replace(new, old)
     assert _module_code(port) == _module_code(ref)
+
+
+# the host-syntax path's copies (the FrameSyntax layer, the CAVLC writers
+# and the NumPy tier of backend="reference"): each module's definitions
+# are the reference's, docstrings and import lines aside, but for the
+# ones a copy leaves out because nothing in the port reaches them
+SYNTAX_MODULES = {
+    "models/syntax.py": (),
+    "bitstream/cavlc.py": ("_vlc_dict", "_CT_DICTS", "_read_vlc",
+                           "read_residual_block", "_read_row_vlc"),
+    "bitstream/cavlc_vec.py": (),
+    "bitstream/slice_writer.py": (),
+    "bitstream/slice_writer_vec.py": (),
+    "models/mvpred.py": (),
+    "models/intra_frame.py": (),
+    "models/inter_frame.py": (),
+    "ops/reference/pixel.py": (),
+    "ops/reference/predict.py": (),
+    "ops/reference/quant.py": (),
+    "ops/reference/transform.py": (),
+    "ops/reference/mc.py": (),
+    "ops/reference/deblock.py": (),
+}
+
+
+def _definitions(src: str) -> dict:
+    """A module's top-level definitions by name, as AST dumps without
+    docstrings and import statements."""
+    out = {}
+    for node in _DropImports().visit(ast.parse(src)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            body = node.body
+            if isinstance(body[0], ast.Expr) and \
+                    isinstance(body[0].value, ast.Constant):
+                node.body = body[1:]
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            out[",".join(ast.unparse(t) for t in targets)] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("rel", list(SYNTAX_MODULES))
+def test_syntax_modules_are_copies(rel):
+    """Every definition of the port's copy is the reference's, and every
+    definition of the reference's module is in the copy but the ones it
+    leaves out."""
+    with open(os.path.join(REPO, "x264_tpu_torch", rel)) as f:
+        port = _definitions(f.read())
+    with open(os.path.join(REPO, "x264_tpu", rel)) as f:
+        ref = _definitions(f.read())
+    assert set(port) == set(ref) - set(SYNTAX_MODULES[rel])
+    for name, code in port.items():
+        assert code == ref[name], name
+
+
+# single functions of the host-syntax path copied into other modules:
+# (reference module, reference name, port module, port name)
+SYNTAX_FUNCTIONS = [
+    (r_tables, "chroma_qp", t_tables, "chroma_qp"),
+    (r_yuv, "expand_border", t_yuv, "expand_border"),
+    (r_cabac_host, "write_slice_cabac", t_entropy_pack,
+     "write_slice_cabac_syn"),
+]
+
+
+@pytest.mark.parametrize("ref_mod,ref_name,port_mod,port_name",
+                         SYNTAX_FUNCTIONS,
+                         ids=[c[3] for c in SYNTAX_FUNCTIONS])
+def test_syntax_functions_are_copies(ref_mod, ref_name, port_mod,
+                                     port_name):
+    """The same arguments and body, docstrings and import statements
+    aside."""
+    def code(fn):
+        tree = _DropImports().visit(ast.parse(textwrap.dedent(
+            inspect.getsource(fn))))
+        node = tree.body[0]
+        body = node.body
+        if isinstance(body[0], ast.Expr) and \
+                isinstance(body[0].value, ast.Constant):
+            body = body[1:]
+        return ast.dump(node.args) + "".join(ast.dump(b) for b in body)
+
+    assert code(getattr(port_mod, port_name)) == \
+        code(getattr(ref_mod, ref_name))
 
 
 def test_zones_parse_like_reference():

@@ -1125,3 +1125,47 @@ def test_sliced_and_fullpel_encoder_on_card_matches_cpu(cuda, kw):
     if not p.bframes:
         assert c["esa16"] == (n - 1) * min(p.slices, h // 16) + sum(
             r[0] == "P" for r in on_card), c
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cabac=False, i4x4=True, aq_mode=1),
+    dict(preset="medium", tune="fastdecode"),
+    dict(backend="device_host_entropy", cabac=True, i4x4=True, cut=3),
+    dict(backend="device_host_entropy", cabac=False, cut=3),
+    dict(backend="reference", cabac=False, i4x4=True)],
+    ids=["i4_cavlc_aq", "fastdecode", "host_entropy_cabac_cut",
+         "host_entropy_cavlc_cut", "reference"])
+def test_syntax_path_encoder_on_card_matches_cpu(cuda, kw):
+    """The host-syntax path at 352x288: card stream == CPU stream, I4x4
+    with CAVLC under AQ, the fastdecode preset with B frames at CRF 23,
+    the host-entropy backend on a cut that its scenecut promotes, and
+    the reference backend; the I4x4 IDR launches intra_nxn, and the
+    promoted cut is an IDR."""
+    from chip_smoke import syntax_clip
+    from x264_tpu_torch.params import RC_CRF, param_default_preset
+    w, h = 352, 288
+    kw = dict(kw)
+    cut = kw.pop("cut", None)
+    n = 3 if kw.get("backend") == "reference" else 5
+    frames = [Frame420(*f) for f in syntax_clip(w, h, n, cut=cut)]
+    preset = kw.pop("preset", None)
+    if preset:
+        p = param_default_preset(preset, tune=kw.pop("tune")).clone(
+            rc_method=RC_CRF, crf=23.0, aq_mode=1, mbtree=True, b_adapt=1)
+    else:
+        p = EncoderParams(qp=26, bframes=0, scenecut_threshold=40,
+                          keyint_min=2)
+    p = p.clone(width=w, height=h, me_range=8, **kw)
+    streams = []
+    for d in (cuda, "cpu"):
+        enc = Encoder(p, device=d)
+        x264_tpu_torch.reset_launch_counts()
+        streams.append(b"".join(enc.encode(f) for f in frames) + enc.flush())
+        if d is cuda:
+            c = x264_tpu_torch.launch_counts()
+            types = [s.frame_type for s in enc.stats]
+    assert streams[0] == streams[1]
+    if p.i4x4 and p.backend != "reference":
+        assert c["intra_nxn"], c
+    if cut is not None:
+        assert types[cut] == "IDR", types

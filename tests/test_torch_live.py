@@ -447,18 +447,20 @@ def test_reconfig_refuses_like_the_reference():
 
 
 def test_live_settings_open_and_the_rest_still_refused():
-    """VBV, NAL HRD and intra refresh open, and so do slices and subpel 0
-    (ported since); I4x4 with CAVLC, other backends, fault 2's me_range
-    and intra refresh with P8x8 partitions (fault 3) still raise."""
+    """VBV, NAL HRD and intra refresh open, and so do slices, subpel 0,
+    I4x4 with CAVLC and the host-entropy backend (ported since); fault
+    2's me_range, intra refresh with P8x8 partitions (fault 3) and the
+    host-entropy backend with the 8x8 transform (fault 5) still
+    raise."""
     Encoder(_headline(t_params), device="cpu")
     Encoder(_cavlc(t_params, intra_refresh=True, rc_method=t_params.RC_ABR,
                    bitrate=100, vbv_maxrate=100, vbv_bufsize=50,
                    nal_hrd=True), device="cpu")
-    for kw in (dict(slices=2), dict(subpel=0)):
+    for kw in (dict(slices=2), dict(subpel=0), dict(i4x4=True, cabac=False),
+               dict(backend="device_host_entropy")):
         Encoder(t_params.EncoderParams(width=W, height=H, **kw),
                 device="cpu")
-    for kw in (dict(i4x4=True, cabac=False),
-               dict(backend="device_host_entropy"),
+    for kw in (dict(backend="device_host_entropy", transform_8x8=True),
                dict(me_range=32, cabac=True),
                dict(intra_refresh=True, p8x8=True, cabac=True)):
         with pytest.raises(NotImplementedError):

@@ -573,9 +573,9 @@ def test_cli_refuses_what_the_port_does_not_run(tmp_path):
     family test)."""
     src = str(tmp_path / "in.y4m")
     write_y4m(src, [RefFrame(*f) for f in _clip(1)], (25, 1))
-    for opts, key in ((["--backend", "reference"], "backend"),
+    for opts, key in ((["--merange", "32"], "me_range"),
                       (["--slices", "2", "--aq-mode", "1"], "aq_mode"),
-                      (["--i4x4", "--no-cabac"], "i4x4")):
+                      (["--p8x8", "--merange", "40"], "me_range")):
         with pytest.raises(NotImplementedError, match=key):
             t_cli.main(["--preset", "superfast", "--quiet", src, "-o",
                         str(tmp_path / "x.264"), "--device", "cpu", *opts])

@@ -7,8 +7,9 @@ what ran on the TPU runs on PyTorch tensors:
   params.py, utils/, bitstream/, rc/
             — host layer copied from x264_tpu: parameters, the frame
               container, SPS/PPS/SEI/slice-header writers, CAVLC's
-              tables and the merge of its packed MB strings, rate
-              control
+              tables and the merge of its packed MB strings, the
+              host-syntax path's CAVLC writers (cavlc, cavlc_vec,
+              slice_writer, slice_writer_vec), rate control
   native/   — the C CABAC coder (a copy of x264_tpu/native), built with
               gcc at first use (ops/entropy_pack.py)
   ops/      — primitive ops on tensors (pixel, transform, predict, mc,
@@ -21,7 +22,10 @@ what ran on the TPU runs on PyTorch tensors:
               band entry) and the B frames (b_frame), with their
               residual paths (4x4 or 8x8, deadzone or trellis), and
               weighted prediction (weightp: the host analysis, the
-              weighting step)
+              weighting step); the host-syntax path's FrameSyntax
+              (syntax) and the NumPy tier of backend="reference"
+              (intra_frame, inter_frame, mvpred, with ops/reference/),
+              copies of x264_tpu's
   kernels/  — wrappers, plain twins and the nvcc build of the
               hand-written CUDA kernels in csrc/
   state.py  — constant tables (copied from x264_tpu) on a device,

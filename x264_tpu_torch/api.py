@@ -31,14 +31,23 @@ recovery-point SEI), and the run-time entry points ``reconfig``,
 ``delayed_frames``, ``intra_refresh``, ``invalidate_reference`` and
 ``encode_pipelined``; the fullpel-only search (``subpel`` 0, x264's
 ``ultrafast``); and multi-slice frames (``slices`` > 1: bands of MB rows,
-each an I16 or P16 slice of its own, ``_submit_device_sliced``).  The
-settings ``_check_params`` names, I4x4 with CAVLC among them, raise
-``NotImplementedError``.  On the card an I frame's core, or an I band's,
-is one CUDA graph replay (``models/graph.py``).
+each an I16 or P16 slice of its own, ``_submit_device_sliced``); and
+the host-syntax path (``_syn_path``: I4x4 with CAVLC, and the backends
+``device_host_entropy`` and ``reference``), on which the device cores'
+syntax entries (``models/intra.encode_iframe_device``,
+``models/inter.encode_pframe_device``) or, with ``reference``, the NumPy
+tier (``models/intra_frame.py``, ``models/inter_frame.py``) hand a
+``FrameSyntax`` to the host writers (the C coder's FrameSyntax entry or
+``bitstream/slice_writer_vec.py``), ``_encode_frame_syn``.  ``auto`` is
+the device: nothing switches to the NumPy tier on its own.  The settings
+``_check_params`` names raise ``NotImplementedError``.  On the card an I
+frame's core, or an I band's, is one CUDA graph replay
+(``models/graph.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,39 +63,44 @@ from x264_tpu_torch.bitstream.sei import (buffering_period_sei,
                                           recovery_point_sei, version_sei)
 from x264_tpu_torch.bitstream.slice_assemble import (append_payload,
                                                      merge_mb_strings)
+from x264_tpu_torch.bitstream.slice_writer_vec import \
+    write_slice_data_vec as write_slice_data
 from x264_tpu_torch.models.b_frame import b_frame_core, b_pair_core
 from x264_tpu_torch.models.graph import run_core
 from x264_tpu_torch.models import mbtree as MT
-from x264_tpu_torch.models.inter import p_band_core, p_frame_core
-from x264_tpu_torch.models.intra import i4_frame_core, i_frame_core
+from x264_tpu_torch.models import inter_frame, intra_frame
+from x264_tpu_torch.models.inter import (encode_pframe_device, p_band_core,
+                                         p_frame_core)
+from x264_tpu_torch.models.intra import (encode_iframe_device,
+                                         i4_frame_core, i_frame_core)
 from x264_tpu_torch.models.lookahead import (Lookahead,
                                              intra_cost_estimate,
                                              lowres_plane, lowres_search,
                                              lowres_stats8)
+from x264_tpu_torch.models.syntax import (MB_I4, MB_I16, MB_PSKIP,
+                                          effective_qp)
 from x264_tpu_torch.models.weightp import analyse_weights
-from x264_tpu_torch.ops.deblock import deblock_frame, deblock_frame_b
-from x264_tpu_torch.ops.entropy_pack import blob_stride, write_slice_cabac
+from x264_tpu_torch.ops.deblock import (deblock_core, deblock_frame,
+                                        deblock_frame_b)
+from x264_tpu_torch.ops.entropy_pack import (blob_stride, write_slice_cabac,
+                                             write_slice_cabac_syn)
+from x264_tpu_torch.ops.reference import deblock as ref_deblock
 from x264_tpu_torch.ops.mc import pad_edge
 from x264_tpu_torch.ops.trellis import frame_trellis
 from x264_tpu_torch.params import RC_CQP, EncoderParams
 from x264_tpu_torch.rc import RateControl, aq_offsets
-from x264_tpu_torch.state import PAD, me_lambda, sad_lambda
+from x264_tpu_torch.state import CHROMA_QP_TABLE, PAD, me_lambda, sad_lambda
 from x264_tpu_torch.utils.yuv import Frame420, pad_to_mb
 
 __all__ = ["Encoder", "EncoderParams", "Frame420", "FrameStats",
            "ReconFrame"]
 
-# MB classes (x264_tpu/models/syntax.py)
-MB_I16, MB_I4, MB_PSKIP = 0, 1, 3
-
 
 def _check_params(p: EncoderParams) -> None:
     bad = {}
-    if p.backend not in ("auto", "device"):
+    if p.backend not in ("auto", "device", "device_host_entropy",
+                         "reference"):
         bad["backend"] = p.backend
-    # the reference codes I4x4 with CAVLC on its host-syntax path
-    if p.i4x4 and not p.cabac:
-        bad["i4x4"] = "on with CAVLC"
     # the reference gathers P16 and B windows from 80-row bands, which
     # hold every window only up to me_range PAD - 1: at PAD its streams
     # stop decoding to its recon (ROADMAP C)
@@ -106,6 +120,12 @@ def _check_params(p: EncoderParams) -> None:
     # (ROADMAP C, fault 4)
     if p.slices > 1 and p.aq_mode:
         bad["aq_mode"] = "on with slices"
+    # the reference's host-syntax path writes no transform_size_8x8_flag
+    # (its cores run no 8x8 transform) while its PPS turns the 8x8 mode
+    # on: with the host-entropy backend its streams stop decoding to its
+    # recon (ROADMAP C, fault 5)
+    if p.transform_8x8 and p.backend == "device_host_entropy":
+        bad["transform_8x8"] = "on with backend device_host_entropy"
     if bad:
         raise NotImplementedError(
             f"x264_tpu_torch does not run these settings yet: {bad}")
@@ -368,6 +388,20 @@ class Encoder:
         st = blob_stride(is_b, parts, i4)
         return np.asarray(blob).reshape(-1)[:n * st].reshape(n, st)
 
+    def _syn_path(self) -> bool:
+        """Frames go through the host FrameSyntax writers (instead of the
+        device-packed fast path): the reference backend, the host-entropy
+        debug backend, and I4x4 with CAVLC (the device CAVLC word packer
+        has no I4 header support)."""
+        return (self.p.backend in ("reference", "device_host_entropy")
+                or (self.p.i4x4 and not self.p.cabac))
+
+    def _use_device(self) -> bool:
+        """The frame cores run on ``device``, unless the caller asked for
+        the NumPy tier (``backend="reference"``); ``auto`` is the
+        device."""
+        return self.p.backend != "reference"
+
     def _run_core(self, yd, ud, vd, ref, idr: bool, base_qp: int, qp_arr,
                   n_words: int, mbw: int, mbh: int, wts=None, pir=None):
         """Run the I or P core; ``host_blob`` comes back as a
@@ -386,7 +420,10 @@ class Encoder:
                       trellis_tbl=self._trellis_tbl(base_qp, "I"),
                       **self._entropy_kw(n_words))
             core, args = i_frame_core, (yd, ud, vd, qp)
-            if self.p.i4x4:
+            if self.p.i4x4 and self.p.cabac:
+                # with CAVLC I4x4 runs on the host-syntax path; the fast
+                # path (encode_pipelined) codes I16 there, as the
+                # reference's does
                 core, args = i4_frame_core, args + (sad_lambda(base_qp),)
                 kw["t8_mode"] = self.p.transform_8x8
             out = run_core(core, *args, **kw) \
@@ -1032,6 +1069,27 @@ class Encoder:
             return b""
         anchor, ad = pend[-1]
         prev = self.dpb[0]
+        if self._syn_path():
+            # the anchor through the host writers, then each B frame on
+            # its own core (never the pair core), finalized at once
+            out = self._encode_anchor(anchor, ad, "P")
+            if len(pend) > 1 and self.stats[-1].frame_type == "IDR":
+                # the reference's post-encode scenecut promoted the anchor
+                # of a mini-GOP whose B frames are queued: they would
+                # predict from a picture the IDR drops, and its streams
+                # stop decoding to its recon (ROADMAP C, fault 6)
+                raise NotImplementedError(
+                    "x264_tpu_torch does not run this: the host-syntax "
+                    "path's scenecut promoted a mini-GOP's anchor to an "
+                    "IDR after its B frames were queued (fault 6)")
+            if self.p.b_adapt:
+                self._lookahead().push_anchor(self._pad(anchor)[0])
+            nxt = self.dpb[0]
+            jobs = [self._submit_b(bf, bd, prev, nxt)
+                    for (bf, bd) in pend[:-1]]
+            for j in jobs:
+                out += self._finalize_b(j)
+            return out
         if self.rc.vbv_on:
             # a VBV re-encode may rewrite a finalized anchor's recon in
             # place, so nothing is submitted against an anchor before it
@@ -1062,6 +1120,37 @@ class Encoder:
         return out
 
     def _encode_anchor(self, fr: Frame420, disp: int, ftype: str) -> bytes:
+        if self._syn_path():
+            # the host-syntax path: the QP of rate control alone (no
+            # zones, no forced QP, no MB-tree offsets), as the reference
+            y, u, v = self._pad(fr)
+            if ftype == "IDR":
+                self.frame_num = 0
+            qp = self._qp_for_frame(ftype)
+            out_bytes = b""
+            if ftype == "IDR" and self.p.repeat_headers:
+                out_bytes += self.headers()
+            out_bytes += self._hrd_sei(ftype == "IDR",
+                                       self._poc_lsb(disp))
+            out_bytes += self._encode_frame_syn(
+                y, u, v, ftype, qp, poc_lsb=self._poc_lsb(disp))
+            rec = self.dpb[0]
+            rec.poc = self._poc_lsb(disp)
+            self._note_recon(disp, rec)
+            # the colocated field from the FrameSyntax: the 16x16 mvs and
+            # refs over the quadrants, intra where the MB is I16
+            syn = self._last_syn
+            n = syn.mv.shape[0]
+            rec.col_mv = torch.as_tensor(
+                syn.mv.astype(np.int32), device=self.device)[:, None] \
+                .expand(n, 4, 2)
+            rec.col_intra = torch.as_tensor(syn.mb_class == 0,
+                                            device=self.device)
+            rec.col_ref = (None if syn.ref is None else torch.as_tensor(
+                syn.ref.astype(np.int32), device=self.device)[:, None]
+                .expand(n, 4))
+            self._note_au(len(out_bytes), ftype, self._poc_lsb(disp))
+            return out_bytes
         return self._finalize_device(self._submit_anchor(fr, disp, ftype))
 
     def _frame_qp_at(self, disp: int, ftype: str) -> int:
@@ -1400,7 +1489,7 @@ class Encoder:
         """(qp_arr, slice QP) of an I or P frame: the frame QP, or with
         AQ its per-MB map and the first MB's QP."""
         if not self.p.aq_mode:
-            return np.int32(qp), qp
+            return qp, qp
         qp_arr = self._aq_qp(qp, y, u, v, mbw, mbh)
         return qp_arr, int(qp_arr[0])
 
@@ -1417,10 +1506,10 @@ class Encoder:
     _mbt_off = None             # the offsets of the frame being submitted
 
     def _mbtree_on(self) -> bool:
-        """MB-tree runs under CRF and ABR with one slice; under CQP or with
-        slices it is off."""
+        """MB-tree runs under CRF and ABR with one slice on the device;
+        under CQP, with slices or on the NumPy tier it is off."""
         return (self.p.mbtree and self.p.rc_method != RC_CQP
-                and self.p.slices <= 1)
+                and self.p.slices <= 1 and self._use_device())
 
     def _drop_mbt_off(self, disp: int) -> None:
         if self._mbt_off_by_disp:
@@ -1493,12 +1582,140 @@ class Encoder:
         qp = self._frame_qp_at(disp, ftype)
         if ftype == "IDR":
             self.frame_num = 0
-        if self._pending is not None:
-            raise RuntimeError("encode() after encode_pipelined(): call "
-                               "flush() first")
-        job = self._submit_device(y, u, v, ftype, qp)
+        if not self._syn_path():
+            if self._pending is not None:
+                raise RuntimeError("encode() after encode_pipelined(): "
+                                   "call flush() first")
+            job = self._submit_device(y, u, v, ftype, qp)
+            self._note_recon(disp, self.dpb[0])
+            return self._finalize_device(job)
+        data = (self.headers() if ftype == "IDR" and self.p.repeat_headers
+                else b"") + self._encode_frame_syn(y, u, v, ftype, qp)
         self._note_recon(disp, self.dpb[0])
-        return self._finalize_device(job)
+        self._note_au(len(data), ftype, 0)
+        return data
+
+    _last_syn = None            # the last syntax-path frame's FrameSyntax
+
+    def _encode_frame_syn(self, y, u, v, ftype, qp, poc_lsb=0):
+        """The host-syntax path (the reference backend, the host-entropy
+        backend, I4x4 with CAVLC): the frame's FrameSyntax on the host
+        from the device cores' syntax entries (or the NumPy tier's), the
+        slice through the host writers, the deblock from the host arrays,
+        and the one-entry DPB.  A P frame whose inter cost reaches (1 -
+        bias) of its intra estimate past keyint_min is promoted to an IDR
+        after its encode.  Returns the frame's slice bytes (no SPS/PPS
+        but a promoted IDR's repeated headers)."""
+        out = b""
+        use_device = self._use_device()
+        mbw, mbh = (y.shape[1] // 16, y.shape[0] // 16)
+        qp_arr, slice_qp = self._qp_map(qp, y, u, v, mbw, mbh)
+        cavlc = not self.p.cabac
+        planes = self._upload((y, u, v)) if use_device else None
+        syn = None
+        if not (ftype == "IDR" or not self.dpb):
+            # encode as P, then possibly promote to IDR on scenecut
+            # (one reference on this path)
+            ref = self.dpb[0]
+            if use_device:
+                ry, ru, rv, syn = encode_pframe_device(
+                    *planes, ref, qp_arr, self.p, lam=sad_lambda(qp),
+                    cavlc=cavlc)
+            else:
+                ry, ru, rv, syn = inter_frame.encode_pframe(
+                    y, u, v, ReconFrame(*(t.cpu().numpy() for t in (
+                        ref.y, ref.u, ref.v))), qp_arr, self.p,
+                    lam=sad_lambda(qp))
+            if (self.p.scenecut_threshold > 0 and syn.icost is not None
+                    and self.frame_idx - self._last_idr_idx
+                    >= self.p.keyint_min):
+                bias = self.p.scenecut_threshold / 100.0
+                if float(syn.mb_cost.sum()) >= (1.0 - bias) * float(
+                        syn.icost.sum()):
+                    ftype = "IDR"
+                    self.frame_num = 0
+                    self._last_idr_idx = self.frame_idx
+                    if self.p.repeat_headers:
+                        out += self.headers()
+                    qp = self._requantize_idr(qp)
+                    qp_arr, slice_qp = self._qp_map(qp, y, u, v, mbw, mbh)
+                    syn = None
+        if syn is not None:
+            slice_type = SLICE_P
+            idr = False
+        else:
+            if use_device:
+                ry, ru, rv, syn = encode_iframe_device(
+                    *planes, qp_arr, self.p.chroma_qp_offset,
+                    i4x4=self.p.i4x4, lam=sad_lambda(qp), cavlc=cavlc)
+            else:
+                ry, ru, rv, syn = intra_frame.encode_iframe(
+                    y, u, v, qp_arr, self.p.chroma_qp_offset,
+                    i4x4=self.p.i4x4, lam=sad_lambda(qp))
+            slice_type = SLICE_I
+            idr = True
+        out += self._syn_slice(syn, slice_type, idr, slice_qp, poc_lsb)
+
+        if self.p.deblock:
+            eff_qp = effective_qp(syn.qp.astype(np.int32), syn.mb_class,
+                                  syn.cbp_luma, syn.cbp_chroma, slice_qp)
+            if use_device:
+                intra_mb = np.isin(syn.mb_class, (MB_I16, MB_I4))
+                qpc = CHROMA_QP_TABLE[np.clip(
+                    eff_qp + self.p.chroma_qp_offset, 0, 51)] \
+                    .astype(np.int32)
+                ry, ru, rv = deblock_core(
+                    ry, ru, rv, *self._upload((
+                        intra_mb, syn.luma_nnz.astype(np.int32),
+                        syn.mv.astype(np.int32), syn.ref.astype(np.int32),
+                        eff_qp, qpc)),
+                    self.p.deblock_alpha * 2, self.p.deblock_beta * 2,
+                    mbw=syn.mb_width, mbh=syn.mb_height)
+            else:
+                ry, ru, rv = ref_deblock.deblock_frame(
+                    ry, ru, rv,
+                    dataclasses.replace(syn, qp=eff_qp.astype(np.int64)),
+                    self.p.deblock_alpha,
+                    self.p.deblock_beta, self.p.chroma_qp_offset)
+        if not use_device:
+            # the DPB holds the planes on the device, as elsewhere
+            ry, ru, rv = self._upload((ry, ru, rv))
+
+        recon = ReconFrame(ry, ru, rv, frame_num=self.frame_num)
+        self.last_recon = recon
+        self.dpb = ([recon] + ([] if idr else self.dpb))[:1]
+        if idr:
+            self.idr_pic_id = (self.idr_pic_id + 1) % 65536
+        self.frame_num = (self.frame_num + 1) % (
+            1 << self.sps.log2_max_frame_num)
+        self.frame_idx += 1
+        self.stats.append(FrameStats(ftype, len(out) * 8, qp))
+        cost = int(syn.mb_cost.sum()) if syn.mb_cost is not None else 0
+        self.rc.update(ftype, len(out) * 8, cost)
+        self._record_stats(ftype, qp, len(out) * 8, cost, syn.mb_class)
+        self._last_syn = syn
+        return out
+
+    def _syn_slice(self, syn, slice_type: int, idr: bool, slice_qp: int,
+                   poc_lsb: int) -> bytes:
+        """One slice NAL from a FrameSyntax: the header, then the C CABAC
+        coder's FrameSyntax entry or the CAVLC writers
+        (``slice_writer_vec``, which hands a frame with I4x4 MBs to the
+        scalar writer)."""
+        bs = BitWriter()
+        write_slice_header(bs, self.p, self.sps,
+                           init_qp=self._init_qp, slice_type=slice_type,
+                           idr=idr, frame_num=self.frame_num,
+                           idr_pic_id=self.idr_pic_id, qp=slice_qp,
+                           num_ref=1, poc_lsb=poc_lsb)
+        if self.p.cabac:
+            pad = (-bs.bit_length) % 8
+            if pad:
+                bs.put(pad, (1 << pad) - 1)    # cabac_alignment_one_bit
+            payload = write_slice_cabac_syn(syn, slice_type, slice_qp)
+            return wrap_slice_nal(bs.to_bytes_aligned() + payload, idr)
+        write_slice_data(bs, syn, slice_type)
+        return wrap_slice_nal(bs.to_rbsp(), idr)
 
     def close(self) -> dict:
         """Summary stats (analog of encoder_close's log summary); writes

@@ -23,6 +23,7 @@ from x264_tpu_torch.models.intra import pick_mode, qp_per_mb
 from x264_tpu_torch.models.residual import (encode_chroma, encode_i16_luma,
                                             encode_p_luma, encode_p_luma_t8,
                                             trellis_args)
+from x264_tpu_torch.models.syntax import MB_P16, empty_syntax
 from x264_tpu_torch.models.weightp import apply_weights
 from x264_tpu_torch.ops import pixel as P
 from x264_tpu_torch.ops import predict as PR
@@ -37,7 +38,7 @@ from x264_tpu_torch.ops.mc import (mc_chroma_uv, mc_chroma_uv_quad,
 from x264_tpu_torch.ops.me import full_search_16x16, subpel_refine
 from x264_tpu_torch.ops.me_parts import (choose_shape, full_search_parts,
                                          subpel_refine_parts)
-from x264_tpu_torch.state import PAD, tables
+from x264_tpu_torch.state import PAD, sad_lambda, tables
 
 _I32 = torch.int32
 _BIG = 1 << 30
@@ -105,7 +106,7 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
                      parts: bool = False, decimate: bool = True,
                      t8: bool = False, trellis_tbl=None, wts=None,
                      n_words: int = 0, pir_ncols: int = 0, pir_col=None,
-                     pir_bound=None):
+                     pir_bound=None, res_slots: bool = False):
     """P-frame pipeline on pre-padded reference planes (PAD luma, PAD//2
     chroma): one reference (H, W) or stacked (K, H, W) in list0 order,
     most recent first.  y/u/v uint8 source planes; qp int or per-MB (N,);
@@ -116,8 +117,11 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
     bundle or None; wts: (K, 2) int32 [weight, offset] per reference
     (``models/weightp``) or None; n_words > 0 codes CAVLC into that many
     words per MB (``host_blob`` = words, nbits, mb_class, mb_cost,
-    icost), else lv_cap sizes the CABAC blob.  pir_ncols > 0 codes the
-    periodic-intra-refresh bar (reference encoder/encoder.c:3626): the
+    icost), else lv_cap > 0 sizes the CABAC blob, else (the host-syntax
+    path) there is no blob, and with ``res_slots`` the CAVLC residual
+    slot grids ``res_vals`` and ``res_lens`` come back.  pir_ncols > 0
+    codes the periodic-intra-refresh bar (reference
+    encoder/encoder.c:3626): the
     pir_ncols MB columns from pir_col on as I16x16, after the intra-in-P
     fix-up; MBs left of the bar predict only from the reference's
     refreshed region, left of pir_bound (px), through a clamp of their
@@ -377,17 +381,21 @@ def p_frame_pipeline(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, qp,
         ref8 = ref[:, None].expand(n, 4)
         out.update(shape=shape, mv8=mv8, ref8=ref8, mvd_part=mvd_part)
         blob_parts = dict(shape=shape, mvd_part=mvd_part, ref_part=ref8)
+    if n_words or res_slots:
+        res_vals, res_lens = residual_slots(luma_dc, ac_zz, nnz, cdc, cac,
+                                            cnnz, cbp_l, cbp_c, intra_mask,
+                                            mbw, mbh)
     if not n_words:
-        out["host_blob"] = cabac_blob(luma_dc, ac_zz, cdc, cac, mb_class,
-                                      mvd, i16_mode, chroma_mode, cbp_l,
-                                      cbp_c, qp, mb_cost, icost, K=lv_cap,
-                                      t8=t8_flag, ref=ref if multi else None,
-                                      **blob_parts)
+        if res_slots:
+            out["res_vals"], out["res_lens"] = res_vals, res_lens
+        if lv_cap:
+            out["host_blob"] = cabac_blob(
+                luma_dc, ac_zz, cdc, cac, mb_class, mvd, i16_mode,
+                chroma_mode, cbp_l, cbp_c, qp, mb_cost, icost, K=lv_cap,
+                t8=t8_flag, ref=ref if multi else None, **blob_parts)
         return out
     # CAVLC (p_entropy_tail's CAVLC branch): slot grids and per-MB packing
     # on the device; the host only merges the N packed strings
-    res_vals, res_lens = residual_slots(luma_dc, ac_zz, nnz, cdc, cac, cnnz,
-                                        cbp_l, cbp_c, intra_mask, mbw, mbh)
     t8_hdr = t8_flag if t8 else None
     if parts:
         hv, hl = header_slots_parts(mb_class, shape, i16_mode, chroma_mode,
@@ -407,7 +415,7 @@ def p_frame_core(y, u, v, ref_y, ref_u, ref_v, qp, lam: int, mbw: int,
                  lv_cap: int = 0, parts: bool = False, decimate: bool = True,
                  t8: bool = False, trellis_tbl=None, wts=None,
                  n_words: int = 0, pir_ncols: int = 0, pir_col=None,
-                 pir_bound=None):
+                 pir_bound=None, res_slots: bool = False):
     """Single-chip entry: edge-pad the reference planes (PAD luma, PAD//2
     chroma), one reference (H, W) or stacked (K, H, W) in list0 order,
     then run ``p_frame_pipeline``."""
@@ -418,7 +426,60 @@ def p_frame_core(y, u, v, ref_y, ref_u, ref_v, qp, lam: int, mbw: int,
                             parts=parts, decimate=decimate, t8=t8,
                             trellis_tbl=trellis_tbl, wts=wts,
                             n_words=n_words, pir_ncols=pir_ncols,
-                            pir_col=pir_col, pir_bound=pir_bound)
+                            pir_col=pir_col, pir_bound=pir_bound,
+                            res_slots=res_slots)
+
+
+# the fields of a core's output that a host-syntax writer or the deblock
+# reads (the reference's encode_pframe_device copies these)
+_P_SYNTAX = ("qp_mb", "mb_cost", "icost", "mv", "i16_mode", "chroma_mode",
+             "luma_dc", "luma_ac", "luma_nnz", "cbp_luma", "chroma_dc",
+             "chroma_ac", "chroma_nnz", "cbp_chroma", "mb_class", "mvd")
+
+
+def encode_pframe_device(y, u, v, ref, qp, params, lam=None,
+                         cavlc: bool = False):
+    """The host-syntax path's P frame (the counterpart of
+    x264_tpu/models/inter_device.py ``encode_pframe_device``):
+    ``p_frame_core`` at its defaults (P16x16, one reference ``ref``, a
+    ``ReconFrame`` on the device, no 8x8 transform, no weights, no
+    refresh bar) and no blob; under CAVLC (``cavlc``) the residual slot
+    grids come back too (the ``cavlc_blocks`` kernel).  y/u/v uint8
+    planes on the device; qp scalar or per-MB array.  Returns the
+    pre-deblock recon planes on the device and the ``FrameSyntax`` on the
+    host; the core's ``mb_class`` and ``mvd`` are final."""
+    h, w = y.shape
+    mbw, mbh = w // 16, h // 16
+    if lam is None:
+        lam = sad_lambda(int(np.atleast_1d(qp)[0]))
+    out = p_frame_core(y, u, v, ref.y, ref.u, ref.v,
+                       torch.as_tensor(np.asarray(qp, np.int32),
+                                       device=y.device), int(lam),
+                       mbw=mbw, mbh=mbh, me_range=params.me_range,
+                       cqp_off=params.chroma_qp_offset,
+                       subpel=params.subpel, decimate=params.dct_decimate,
+                       res_slots=cavlc)
+    o = {k: out[k].cpu().numpy()
+         for k in _P_SYNTAX + (("res_vals", "res_lens") if cavlc else ())}
+
+    syn = empty_syntax(mbw, mbh)
+    syn.qp[:] = o["qp_mb"]
+    syn.mb_cost = o["mb_cost"].astype(np.int64)
+    syn.icost = o["icost"].astype(np.int64)
+    syn.mv[:] = o["mv"]
+    syn.ref[:] = 0
+    for k in ("i16_mode", "chroma_mode", "luma_dc", "luma_ac", "luma_nnz",
+              "cbp_luma", "chroma_dc", "chroma_ac", "chroma_nnz",
+              "cbp_chroma"):
+        getattr(syn, k)[:] = o[k]
+    if cavlc:
+        syn.res_vals = o["res_vals"]
+        syn.res_lens = o["res_lens"]
+    # the pipeline classified on the device (incl. intra-in-P neighbour
+    # rules)
+    syn.mb_class[:] = o["mb_class"]
+    syn.mvd[:] = np.where((o["mb_class"] == MB_P16)[:, None], o["mvd"], 0)
+    return out["recon_y"], out["recon_u"], out["recon_v"], syn
 
 
 # the band entry of a multi-slice frame: the same pipeline on a band's

@@ -14,12 +14,15 @@ CUDA graph)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from x264_tpu_torch.kernels.intra_nxn import (knight_lanes, nxn_candidates,
                                               rate_proxy)
+from x264_tpu_torch.models.graph import run_core
 from x264_tpu_torch.models.residual import (encode_chroma, encode_i16_luma,
                                             trellis_args)
+from x264_tpu_torch.models.syntax import MB_I4, MB_I16, empty_syntax
 from x264_tpu_torch.ops import pixel as P
 from x264_tpu_torch.ops import predict as PR
 from x264_tpu_torch.ops.cavlc import cavlc_blob, residual_slots
@@ -95,15 +98,18 @@ def _chroma(ru, rv, usrc, vsrc, ys, xs, qpc_l, trc):
 
 
 def i_frame_core(y, u, v, qp, mbw: int, mbh: int, cqp_off: int,
-                 lv_cap: int = 0, trellis_tbl=None, n_words: int = 0):
+                 lv_cap: int = 0, trellis_tbl=None, n_words: int = 0,
+                 res_slots: bool = False):
     """All-device I-frame pipeline.  y/u/v uint8 planes (16mbh x 16mbw);
     qp int or per-MB (N,); trellis_tbl: the ``ops/trellis.frame_trellis``
     bundle (I16 AC, cat 1, and chroma AC, cat 4: x264's trellis=1 intra
     scope) or None.  The entropy budget: ``n_words`` > 0 codes CAVLC
     into that many words per MB (``host_blob`` = words, nbits, mb_class,
-    mb_cost), else ``lv_cap`` sizes the CABAC blob.  Returns the per-MB
-    syntax tensors (raster MB order), the pre-deblock recon planes and
-    ``host_blob``."""
+    mb_cost), else ``lv_cap`` > 0 sizes the CABAC blob, else (the
+    host-syntax path) there is no blob, and with ``res_slots`` the CAVLC
+    residual slot grids ``res_vals`` and ``res_lens`` come back instead.
+    Returns the per-MB syntax tensors (raster MB order), the pre-deblock
+    recon planes and ``host_blob``."""
     n = mbw * mbh
     dev = y.device
     qp = qp_per_mb(qp, n, dev)
@@ -160,19 +166,22 @@ def i_frame_core(y, u, v, qp, mbw: int, mbh: int, cqp_off: int,
     mb_class = torch.full((n,), MB_I16_D, dtype=_I32, device=dev)
     out["mb_class"] = mb_class
     zeros2 = torch.zeros((n, 2), dtype=_I32, device=dev)
-    if n_words:
-        # CAVLC: the whole slice body coded and packed per MB on the device
+    if n_words or res_slots:
         res_vals, res_lens = residual_slots(
             acc["luma_dc"], acc["luma_ac"], acc["luma_nnz"],
             acc["chroma_dc"], acc["chroma_ac"], acc["chroma_nnz"],
             acc["cbp_luma"], acc["cbp_chroma"],
             torch.ones(n, dtype=torch.bool, device=dev), mbw, mbh)
+    if n_words:
+        # CAVLC: the whole slice body coded and packed per MB on the device
         hv, hl = header_slots(mb_class, acc["i16_mode"], acc["chroma_mode"],
                               zeros2, acc["cbp_luma"], acc["cbp_chroma"], qp,
                               is_p_slice=False)
         out["host_blob"] = cavlc_blob(hv, hl, res_vals, res_lens, n_words,
                                       (mb_class, acc["mb_cost"]))
-    else:
+    elif res_slots:
+        out["res_vals"], out["res_lens"] = res_vals, res_lens
+    elif lv_cap:
         out["host_blob"] = cabac_blob(
             acc["luma_dc"], acc["luma_ac"], acc["chroma_dc"],
             acc["chroma_ac"], mb_class, zeros2, acc["i16_mode"],
@@ -193,7 +202,8 @@ def i4_frame_core(y, u, v, qp, lam, mbw: int, mbh: int, cqp_off: int,
     branch).  y/u/v uint8 planes (16mbh x 16mbw); qp int or per-MB (N,);
     lam the SATD-domain lambda, an int or a 0-d int32 tensor (on the card
     the graph's input buffer); t8_mode: the I8x8 candidate; trellis_tbl
-    as for ``i_frame_core`` (I16 AC and chroma AC only).
+    as for ``i_frame_core`` (I16 AC and chroma AC only); ``lv_cap`` 0
+    (the host-syntax path): no blob.
 
     Each of the mbw + 2*mbh - 2 knight steps runs the I16 candidate, the
     NxN candidates (``kernels/intra_nxn.nxn_candidates``: one kernel
@@ -317,15 +327,68 @@ def i4_frame_core(y, u, v, qp, lam, mbw: int, mbh: int, cqp_off: int,
         t = torch.empty((n, *val.shape[1:]), dtype=val.dtype, device=dev)
         t[s["mb"]] = val
         out[k] = t.to(_I32) if k != "t8" else t
-    out["host_blob"] = cabac_blob(
-        out["luma_dc"], out["luma_ac"], out["chroma_dc"], out["chroma_ac"],
-        out["mb_class"], torch.zeros((n, 2), dtype=_I32, device=dev),
-        out["i16_mode"], out["chroma_mode"], out["cbp_luma"],
-        out["cbp_chroma"], qp, out["mb_cost"],
-        torch.zeros(n, dtype=_I32, device=dev), K=lv_cap,
-        t8=out["t8"] if t8_mode else None, i4_modes=out["i4_modes"])
+    if lv_cap:
+        out["host_blob"] = cabac_blob(
+            out["luma_dc"], out["luma_ac"], out["chroma_dc"],
+            out["chroma_ac"], out["mb_class"],
+            torch.zeros((n, 2), dtype=_I32, device=dev),
+            out["i16_mode"], out["chroma_mode"], out["cbp_luma"],
+            out["cbp_chroma"], qp, out["mb_cost"],
+            torch.zeros(n, dtype=_I32, device=dev), K=lv_cap,
+            t8=out["t8"] if t8_mode else None, i4_modes=out["i4_modes"])
     out["recon_y"] = ry.to(torch.uint8)
     out["recon_u"] = ru.to(torch.uint8)
     out["recon_v"] = rv.to(torch.uint8)
     out["qp_mb"] = qp
     return out
+
+
+# the fields of a core's output that a host-syntax writer or the deblock
+# reads (the reference's encode_iframe_device copies these)
+_I_SYNTAX = ("i16_mode", "chroma_mode", "cbp_luma", "cbp_chroma", "luma_dc",
+             "luma_ac", "luma_nnz", "chroma_dc", "chroma_ac", "chroma_nnz")
+
+
+def encode_iframe_device(y, u, v, qp, chroma_qp_offset: int = 0,
+                         i4x4: bool = False, lam: int = 0,
+                         cavlc: bool = False):
+    """The host-syntax path's I frame (the counterpart of
+    x264_tpu/models/intra_device.py ``encode_iframe_device``): with
+    ``i4x4`` the I16x16 / I4x4 choice (``i4_frame_core`` at lambda
+    ``lam``, no trellis, no 8x8 transform), else the I16 core, with the
+    CAVLC residual slot grids under CAVLC (``cavlc``; the
+    ``cavlc_blocks`` kernel); no blob either way.  On the card the core
+    is a CUDA graph replay (``models/graph.run_core``), its key its own.
+    y/u/v uint8 planes on the device; qp scalar or per-MB array.
+    Returns the pre-deblock recon planes on the device and the
+    ``FrameSyntax`` on the host."""
+    h, w = y.shape
+    mbw, mbh = w // 16, h // 16
+    qp_t = torch.as_tensor(np.asarray(qp, np.int32), device=y.device)
+    kw = dict(mbw=mbw, mbh=mbh, cqp_off=chroma_qp_offset)
+    if i4x4:
+        core, args = i4_frame_core, (y, u, v, qp_t, int(lam))
+        kw["lv_cap"] = 0
+        keys = _I_SYNTAX + ("mb_class", "i4_modes")
+    else:
+        core, args = i_frame_core, (y, u, v, qp_t)
+        kw["res_slots"] = cavlc
+        keys = _I_SYNTAX + (("res_vals", "res_lens") if cavlc else ())
+    out = run_core(core, *args, **kw) if y.device.type == "cuda" \
+        else core(*args, **kw)
+    o = {k: out[k].cpu().numpy() for k in keys + ("mb_cost", "qp_mb")}
+
+    syn = empty_syntax(mbw, mbh)
+    if i4x4:
+        syn.mb_class[:] = np.where(o["mb_class"] == 1, MB_I4, MB_I16)
+        syn.i4_modes[:] = o["i4_modes"]
+    else:
+        syn.mb_class[:] = MB_I16
+        if cavlc:
+            syn.res_vals = o["res_vals"]
+            syn.res_lens = o["res_lens"]
+    for k in _I_SYNTAX:
+        getattr(syn, k)[:] = o[k]
+    syn.mb_cost = o["mb_cost"].astype(np.int64)
+    syn.qp[:] = o["qp_mb"]
+    return out["recon_y"], out["recon_u"], out["recon_v"], syn

@@ -250,3 +250,16 @@ def deblock_frame_b(y, u, v, luma_nnz, mv0, mv1, any0, any1, qp: int,
                             intra=intra, t8=t8)
     return deblock_filter(y, u, v, bs_v, bs_h, qp_mb, qpc_mb, off_a, off_b,
                           mbw, mbh)
+
+
+def deblock_core(y, u, v, mb_intra, luma_nnz, mv, ref, qp_mb, qpc_mb,
+                 off_a: int, off_b: int, mbw: int, mbh: int):
+    """The host-syntax path's deblock (port of x264_tpu/ops/device/
+    deblock.py ``deblock_core``): the strengths from a FrameSyntax's
+    intra MBs, luma nnz and 16x16 mvs and refs, and the filter, at the
+    decoder-visible QPs and chroma QPs the caller gives (N,) int32 tensors
+    all.  Returns new (y, u, v) uint8 planes."""
+    from x264_tpu_torch.kernels.deblock import deblock_filter
+    bs_v, bs_h = bs_grids(mb_intra, luma_nnz, mv, ref, mbw, mbh)
+    return deblock_filter(y, u, v, bs_v, bs_h, qp_mb, qpc_mb, off_a, off_b,
+                          mbw, mbh)

@@ -4,7 +4,9 @@ P frames on one or more references, with or without P partitions, and B
 frames),
 and the host coder itself:
 the C source ``native/cabac.c`` (a copy of x264_tpu/native/cabac.c),
-built with gcc at first use and called through ctypes.  The coder reads
+built with gcc at first use and called through ctypes, from the blob
+(``write_slice_cabac``) or, on the host-syntax path, from a
+``FrameSyntax`` (``write_slice_cabac_syn``).  The coder reads
 the blob, so it must come out as the same int32 words as the
 reference's.
 
@@ -69,7 +71,23 @@ def _lib() -> ctypes.CDLL:
             os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    # the FrameSyntax entry (the host-syntax path, ``write_slice_cabac_syn``)
+    lib.encode_slice_cabac.restype = ctypes.c_long
+    lib.encode_slice_cabac.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int,
+        i32p, i32p, i32p, i32p, i32p, i32p, i32p,
+        i16p, i16p, i16p, i16p,
+        i32p, i32p, ctypes.c_void_p,   # t8: NULL = 8x8 mode off
+        ctypes.c_void_p,               # i4m: NULL = no I4x4 MBs
+        ctypes.c_void_p, ctypes.c_int,  # ref (NULL=single), num_ref
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        # shape/mvdp/refp: NULL = 16x16-only frame
+        u8p, ctypes.c_long,
+        ctypes.c_void_p,                # state_out (1024) or NULL
+    ]
     lib.encode_slice_cabac_packed.restype = ctypes.c_long
     lib.encode_slice_cabac_packed.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -189,4 +207,53 @@ def write_slice_cabac(blob: np.ndarray, mbw: int, mbh: int, slice_kind: int,
         int(t8_mode), int(num_ref), int(parts), int(i4), out, cap, None)
     if sz < 0:
         raise OverflowError("CABAC level cap or buffer overflow")
+    return out[:sz].tobytes()
+
+
+def write_slice_cabac_syn(syn, slice_type: int, slice_qp: int,
+                          init_idc: int = 0, bmode=None, mvd1=None,
+                          t8=None) -> bytes:
+    """Encode slice_data() with CABAC from a FrameSyntax.  Returns the
+    byte-aligned payload (starts after cabac_alignment_one_bit, ends with
+    the rbsp stop bit).  For B slices pass bmode (N,) and mvd1 (N,2).
+    A copy of x264_tpu/bitstream/cabac_host.py ``write_slice_cabac``."""
+    from x264_tpu_torch.bitstream.slice_writer import SLICE_B, SLICE_P
+
+    n = syn.n_mbs
+    cap = 1024 + n * 512
+    out = np.zeros(cap, np.uint8)
+    c = np.ascontiguousarray
+    kind = (2 if slice_type == SLICE_B
+            else 1 if slice_type == SLICE_P else 0)
+    if bmode is None:
+        bmode = np.zeros(n, np.int32)
+    if mvd1 is None:
+        mvd1 = np.zeros((n, 2), np.int32)
+    t8_arr = (None if t8 is None
+              else np.ascontiguousarray(np.asarray(t8).astype(np.int32)))
+
+    sz = _lib().encode_slice_cabac(
+        syn.mb_width, syn.mb_height, kind,
+        int(slice_qp), init_idc,
+        c(syn.mb_class.astype(np.int32)),
+        c(syn.i16_mode.astype(np.int32)),
+        c(syn.chroma_mode.astype(np.int32)),
+        c(syn.mvd.astype(np.int32)),
+        c(syn.cbp_luma.astype(np.int32)),
+        c(syn.cbp_chroma.astype(np.int32)),
+        c(syn.qp.astype(np.int32)),
+        c(syn.luma_dc.astype(np.int16)),
+        c(syn.luma_ac.astype(np.int16)),
+        c(syn.chroma_dc.astype(np.int16)),
+        c(syn.chroma_ac.astype(np.int16)),
+        c(np.asarray(bmode).astype(np.int32)),
+        c(np.asarray(mvd1).astype(np.int32)),
+        None if t8_arr is None else t8_arr.ctypes.data_as(ctypes.c_void_p),
+        (None if syn.i4_modes is None else
+         np.ascontiguousarray(syn.i4_modes.astype(np.int32))
+         .ctypes.data_as(ctypes.c_void_p)),
+        None, 1, None, None, None,
+        out, cap, None)
+    if sz < 0:
+        raise RuntimeError("CABAC buffer overflow")
     return out[:sz].tobytes()

@@ -1,12 +1,15 @@
 """The 4:2:0 frame container and MB padding (copied from
-x264_tpu/utils/yuv.py: ``Frame420`` and ``pad_to_mb``; analog of
-reference common/frame.c plane expansion)."""
+x264_tpu/utils/yuv.py: ``Frame420``, ``pad_to_mb`` and, for the NumPy
+tier, ``expand_border``; analog of reference common/frame.c plane
+expansion)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+
+from x264_tpu_torch.state import PAD
 
 @dataclass
 class Frame420:
@@ -28,3 +31,8 @@ def pad_to_mb(plane: np.ndarray, mb_size: int = 16) -> np.ndarray:
     if ph == 0 and pw == 0:
         return plane
     return np.pad(plane, ((0, ph), (0, pw)), mode="edge")
+
+
+def expand_border(plane: np.ndarray, pad: int = PAD) -> np.ndarray:
+    """Edge-replicate padding on all sides (for unclipped ME windows)."""
+    return np.pad(plane, pad, mode="edge")
