@@ -33,9 +33,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      AQ mode 1's QP map of a 1080p frame, the NxN kernel against its
      twin on every knight step and inside the I4 core's graph, and the
      trellis kernel on a P frame's blockings; the
-     CAVLC block coder (cavlc_blocks) and bit packer (bitpack) on the
-     slot grids of a 1080p P8x8 frame and a B frame, the packer at both
-     word rungs, with the launch alone and the bound; the refresh-bar
+     CAVLC block coder (cavlc_blocks) and bit packer (bitpack: the
+     packing, then the payload's placement) on the slot grids of a 1080p
+     P8x8 frame and a B frame, the packer at both word rungs, with the
+     launches alone, together and apart, and the bound; the refresh-bar
      kernel (pir_column) on 3-column bars at columns 0, 59, 117 and 119
      of a 1080p frame under AQ's QP map, with the launch alone and the
      bound, and on bars of 5, 14 and 120 columns against twins that
@@ -1270,18 +1271,17 @@ def _i16_graph_phase(clip) -> None:
           + " ".join(f"{t:.2f}" for t in replay))
 
 
+_FIELD_KEYS = ("luma_dc", "luma_ac", "luma_nnz", "chroma_dc", "chroma_ac",
+               "chroma_nnz", "cbp_luma", "cbp_chroma")
+
+
 def _cavlc_inputs(out, b: bool):
     """A core's fields -> the CAVLC kernels' inputs as the main path makes
-    them: the block coder's (coefs, blen, nC, gate) and the header slots
-    (a P8x8 frame's 22 per MB or a B frame's 10)."""
-    from x264_tpu_torch.ops import cavlc as CV
+    them: residual_slots' fields (is_i16 last) and the header slots (a
+    P8x8 frame's 22 per MB or a B frame's 10)."""
     from x264_tpu_torch.ops import header as HD
-    mbw, mbh = (W + 15) // 16, (H + 15) // 16
     intra = out["mb_class"] == 0
-    blocks = CV.block_inputs(
-        out["luma_dc"], out["luma_ac"], out["luma_nnz"], out["chroma_dc"],
-        out["chroma_ac"], out["chroma_nnz"], out["cbp_luma"],
-        out["cbp_chroma"], intra, mbw, mbh)
+    fields = [out[k] for k in _FIELD_KEYS] + [intra]
     if b:
         hdr = HD.header_slots_b(out["bmode"], out["mb_class"] == 3,
                                 out["mvd0"], out["mvd1"], out["cbp_luma"],
@@ -1295,112 +1295,277 @@ def _cavlc_inputs(out, b: bool):
             out["chroma_mode"], out["mvd_part"], out["ref8"],
             out["cbp_luma"], out["cbp_chroma"], out["qp_mb"], num_ref=1,
             t8=out["t8"])
-    return blocks, hdr
+    return fields, hdr
 
 
-def _cavlc_alone(coefs, blen, nc, gate, vals, lens):
-    """(blocks, pack): the CAVLC kernels' launches alone (cavlc_blocks on
-    the block inputs, bitpack at 64 words on the slot grids), on outputs
-    and inputs made once."""
+def _cavlc_alone(fields, mbw: int, mbh: int, hv, hl, rv, rl, flds,
+                 n_words: int = 64):
+    """(blocks, pack, packing, placement): the CAVLC kernels' launches
+    alone, on inputs and outputs made once: cavlc_blocks on the frame's
+    fields, and bitpack's two entry points, together and apart: the
+    packing of the header and residual grids and the (N,) ``flds`` into
+    the blob, and the placement of its payload."""
     import torch
-    from x264_tpu_torch.kernels import build, cavlc as KC
+    from x264_tpu_torch.kernels import bitpack as KB, build, cavlc as KC
     from x264_tpu_torch.kernels.build import check
     lib = build.library()
-    stream = torch.cuda.current_stream().cuda_stream
-    dev = coefs.device
-    nb, (n, s) = coefs.shape[0], vals.shape
-    tab = KC.tables_on(str(dev))["block"]
-    g8 = gate.to(torch.uint8)
-    bv = torch.empty((nb, 36), dtype=torch.int32, device=dev)
-    bl = torch.empty_like(bv)
-    words = torch.empty((n, 64), dtype=torch.int32, device=dev)
-    nbits = torch.empty(n, dtype=torch.int32, device=dev)
+    dev = hv.device
+    tab = KC._device_ctx(str(dev))[1]
+    n = mbw * mbh
+    vals = torch.empty((n, KC.MB_SLOTS), dtype=torch.int32, device=dev)
+    lens = torch.empty_like(vals)
+    ptrs = [t.data_ptr() for t in fields]
+    nf = len(flds)
+    fp = [f.data_ptr() for f in flds] + [None] * (4 - nf)
+    blob = torch.empty((n, n_words + 1 + nf), dtype=torch.int32, device=dev)
+    pay = torch.empty(KB.payload_words(n, n_words), dtype=torch.int32,
+                      device=dev)
+    sums = torch.empty(KB.sum_words(n), dtype=torch.int32, device=dev)
 
     def blocks():
-        check(lib.cavlc_blocks_launch(
-            coefs.data_ptr(), blen.data_ptr(), nc.data_ptr(), g8.data_ptr(),
-            tab.data_ptr(), bv.data_ptr(), bl.data_ptr(), nb, stream),
-            "cavlc_blocks")
+        check(lib.cavlc_mb_launch(
+            *ptrs, tab.data_ptr(), vals.data_ptr(), lens.data_ptr(), mbw,
+            mbh, torch.cuda.current_stream().cuda_stream), "cavlc_blocks")
+
+    def packing():
+        check(lib.bitpack_launch(
+            hv.data_ptr(), hl.data_ptr(), hv.shape[1], rv.data_ptr(),
+            rl.data_ptr(), rv.shape[1], *fp, nf, blob.data_ptr(), n_words,
+            n, torch.cuda.current_stream().cuda_stream), "bitpack")
+
+    def placement():
+        check(lib.bitplace_launch(
+            blob.data_ptr(), blob.shape[1], n_words, n, sums.data_ptr(),
+            pay.data_ptr(), pay.numel(),
+            torch.cuda.current_stream().cuda_stream), "bitplace")
 
     def pack():
-        check(lib.bitpack_launch(vals.data_ptr(), lens.data_ptr(),
-                                 words.data_ptr(), nbits.data_ptr(), n, s,
-                                 64, stream), "bitpack")
-    return blocks, pack
+        packing()
+        placement()
+    return blocks, pack, packing, placement
 
 
-def _cavlc_phase(frames: dict, record, int_ops_per_s: float) -> None:
+def _v1_start():
+    """Start building the CAVLC pair's first design (tools/cavlc_v1.py),
+    which the CAVLC phases time beside the current kernels."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "cavlc_v1", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tools", "cavlc_v1.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, mod.build_start()
+
+
+def _graph_calls_ms(fn, calls: int = 20) -> float:
+    """ms a call of fn() on the card from a CUDA graph of ``calls`` calls
+    (``_graph_ms``), so that neither the host's enqueue nor the graph's
+    own launch, once per replay, is in the time."""
+    return _graph_ms(lambda: [fn() for _ in range(calls)], 5) / calls
+
+
+def _cavlc_compare(label: str, fields, hdr, mbw: int, mbh: int, v1,
+                   int_ops_per_s: float, n_fields: int) -> dict:
+    """The CAVLC pair on one shape: each kernel against its twin on the
+    card (residual_slots_plain; pack_blob_plain, then the payload's
+    placement place_blob_plain
+    included) at both word rungs, and the first design (``v1``) held
+    equal; then each one's ms through its wrapper and its launch alone,
+    v1 and the current kernels in turns (v1, current, current, v1), the
+    twin's ms and the bound.  Returns {name: (ms, plain_ms, bound,
+    err)}."""
+    import torch
+    from x264_tpu_torch.kernels import bitpack as KB, cavlc as KC
+    from x264_tpu_torch.ops import cavlc as CV
+    hv, hl = hdr
+    n = mbw * mbh
+    flds = [fields[6]] * n_fields          # any n_fields int32 columns
+    kv, kl = CV.residual_slots(*fields, mbw, mbh)
+    pv, pl = CV.residual_slots_plain(*fields, mbw, mbh)
+    v1v, v1l = v1.slots(fields, mbw, mbh)
+    err_b = max(_max_err(kv, pv), _max_err(kl, pl))
+    v1_equal = torch.equal(kv, v1v) and torch.equal(kl, v1l)
+    if err_b or not v1_equal:
+        raise AssertionError(f"cavlc_blocks on the {label}: twin error "
+                             f"{err_b}, v1 equal {v1_equal}")
+    err_p = 0
+    for n_words in (64, 416):
+        blob = CV.cavlc_blob(hv, hl, kv, kl, n_words, flds)
+        pay = KB.place(blob, n_words)
+        pblob = KB.pack_blob_plain(hv, hl, kv, kl, n_words, flds)
+        ppay = KB.place_blob_plain(pblob, n_words)
+        err_p = max(err_p, _max_err(blob, pblob), _max_err(pay, ppay))
+        if not torch.equal(v1.blob(hv, hl, kv, kl, n_words, flds), blob):
+            raise AssertionError(f"bitpack on the {label}: v1's blob != "
+                                 f"the current one at {n_words} words")
+    if err_p:
+        raise AssertionError(f"bitpack on the {label}: twin error {err_p}")
+    blob = CV.cavlc_blob(hv, hl, kv, kl, 64, flds)
+    nbits = blob[:, 64].long()
+    s = hv.shape[1] + kv.shape[1]
+    used = int(((nbits + 31) // 32).clamp(max=64).sum())
+    blocks_alone, pack_alone, packing, placement = _cavlc_alone(
+        fields, mbw, mbh, hv, hl, kv, kl, flds)
+    cat_v, cat_l = torch.cat([hv, kv], 1), torch.cat([hl, kl], 1)
+    v1_blocks, v1_pack = v1.alone(fields, mbw, mbh, cat_v, cat_l, 64)
+    nonzero = int(sum((f != 0).sum() for f in fields[:2])
+                  + sum((f != 0).sum() for f in fields[3:5]))
+    paths = {
+        "cavlc_blocks": (lambda: CV.residual_slots(*fields, mbw, mbh),
+                         blocks_alone, lambda: v1.slots(fields, mbw, mbh),
+                         v1_blocks,
+                         lambda: CV.residual_slots_plain(*fields, mbw, mbh),
+                         KC.work(n) / HBM_BYTES_PER_S * 1e3,
+                         # ~48 operations a block, ~24 a nonzero level
+                         (48 * 27 * n + 24 * nonzero) / int_ops_per_s * 1e3),
+        "bitpack": (lambda: KB.place(CV.cavlc_blob(hv, hl, kv, kl, 64,
+                                                   flds), 64),
+                    pack_alone, lambda: v1.blob(hv, hl, kv, kl, 64, flds),
+                    v1_pack,
+                    lambda: KB.place_blob_plain(
+                        KB.pack_blob_plain(hv, hl, kv, kl, 64, flds), 64),
+                    KB.work(n, s, 64, n_fields, used) / HBM_BYTES_PER_S
+                    * 1e3,
+                    # the scan and ~10 more a slot
+                    15 * n * s / int_ops_per_s * 1e3)}
+    from x264_tpu_torch.kernels import build
+    lib = build.library()
+    print(f"{label}: dynamic shared memory a CTA: cavlc_blocks "
+          f"{lib.cavlc_smem_bytes()} bytes (4 MBs), bitpack "
+          f"{lib.bitpack_smem_bytes(hv.shape[1], kv.shape[1], 64)} bytes at "
+          f"64 words, {lib.bitpack_smem_bytes(hv.shape[1], kv.shape[1], 416)}"
+          " at 416 (4 MBs)")
+    rec = {}
+    for name, (wrap, alone, v1_wrap, v1_alone, plain, by_bytes,
+               by_ops) in paths.items():
+        t_v1 = [_time_ms(v1_wrap, 20)]
+        t_v1a = [_time_ms(v1_alone, 50)]
+        t_v1g = [_graph_calls_ms(v1_alone)]
+        t_new = [_time_ms(wrap, 20), _time_ms(wrap, 20)]
+        t_newa = [_time_ms(alone, 50), _time_ms(alone, 50)]
+        t_newg = [_graph_calls_ms(alone), _graph_calls_ms(alone)]
+        t_v1.append(_time_ms(v1_wrap, 20))
+        t_v1a.append(_time_ms(v1_alone, 50))
+        t_v1g.append(_graph_calls_ms(v1_alone))
+        plain_ms = _time_ms(plain, 3)
+        bound = (max(by_bytes, by_ops),
+                 "bytes" if by_bytes >= by_ops else "operations")
+        what = (f"{n * 27} blocks" if name == "cavlc_blocks"
+                else f"{n} x {s} slots, 64 words, {used} payload words")
+        print(f"{name}, {label} ({what}): bit-exact against the twin, v1 "
+              f"equal; v1 -> current (v1, current, current, v1): through "
+              f"the wrapper {t_v1[0]:.4f}, {t_v1[1]:.4f} -> {t_new[0]:.4f},"
+              f" {t_new[1]:.4f} ms; launch alone {t_v1a[0]:.4f}, "
+              f"{t_v1a[1]:.4f} -> {t_newa[0]:.4f}, {t_newa[1]:.4f} ms, in a "
+              f"CUDA graph of 20 {t_v1g[0]:.4f}, {t_v1g[1]:.4f} -> "
+              f"{t_newg[0]:.4f}, {t_newg[1]:.4f} ms; twin "
+              f"{plain_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+              f"(bytes {by_bytes:.4f}, operations {by_ops:.4f})")
+        rec[name] = (min(t_new), plain_ms, bound,
+                     err_b if name == "cavlc_blocks" else err_p)
+    nov = int((nbits > 32 * 64).sum())
+    print(f"{label}: max MB {int(nbits.max())} bits, {nov} MBs past 64 "
+          "words; bitpack's entry points apart, in a CUDA graph of 20: "
+          f"packing {_graph_calls_ms(packing):.4f} ms, placement (its sums "
+          f"and zeroing, then its stores) {_graph_calls_ms(placement):.4f}"
+          " ms")
+    return rec
+
+
+def _cavlc_phase(frames: dict, record, int_ops_per_s: float, v1) -> None:
     """The CAVLC block coder and bit packer against their twins,
     bit-exact, at the 1080p shapes of a P8x8 frame and a B frame (the
     cores' fields, ``frames``: label -> (out, is_b)), the packer at both
-    rungs (64 and 416 words); ms through the wrapper and of the launch
-    alone, the twin's ms, the bound.  The P8x8 frame's numbers are
-    recorded."""
-    import torch
-    from x264_tpu_torch.kernels import bitpack as KB
-    from x264_tpu_torch.kernels import cavlc as KC
-    from x264_tpu_torch.ops import cavlc as CV
+    rungs (64 and 416 words) with its payload; the first design beside
+    them (``_cavlc_compare``).  The P8x8 frame's numbers are recorded."""
+    mbw, mbh = (W + 15) // 16, (H + 15) // 16
     rec = {}
     for label, (out, is_b) in frames.items():
-        (coefs, blen, nc, gate), (hv, hl) = _cavlc_inputs(out, is_b)
-        nb, n, dev = coefs.shape[0], hv.shape[0], coefs.device
-        kv, kl = KC.code_blocks_(coefs, blen, nc, gate)
-        pv, pl = CV.code_blocks_plain(coefs, blen, nc)
-        pl = torch.where(gate[:, None], pl, 0)
-        err_b = max(_max_err(kv, pv), _max_err(kl, pl))
-        if err_b:
-            raise AssertionError(f"cavlc_blocks disagrees with its twin on "
-                                 f"the 1080p {label} frame: {err_b}")
-        vals = torch.cat([hv, kv.reshape(n, -1)], 1).contiguous()
-        lens = torch.cat([hl, kl.reshape(n, -1)], 1).contiguous()
-        s = vals.shape[1]
-        err_p = 0
-        for n_words in (64, 416):
-            kw_, kn = KB.pack_tokens_(vals, lens, n_words)
-            pw, pn = KB.pack_tokens_plain(vals, lens, n_words)
-            err_p = max(err_p, _max_err(kw_, pw), _max_err(kn, pn))
-        if err_p:
-            raise AssertionError(f"bitpack disagrees with its twin on the "
-                                 f"1080p {label} frame: {err_p}")
-        blocks_alone, pack_alone = _cavlc_alone(coefs, blen, nc, gate,
-                                                vals, lens)
-        nonzero = int((coefs != 0).sum())
-        t = dict(
-            cavlc_blocks=(_time_ms(lambda: KC.code_blocks_(coefs, blen, nc,
-                                                           gate), 20),
-                          _time_ms(blocks_alone, 50),
-                          _time_ms(lambda: CV.code_blocks_plain(coefs, blen,
-                                                                nc), 3),
-                          # bytes; operations: ~48 a block and ~24 a
-                          # nonzero level (this frame's count)
-                          KC.work(nb) / HBM_BYTES_PER_S * 1e3,
-                          (48 * nb + 24 * nonzero) / int_ops_per_s * 1e3),
-            bitpack=(_time_ms(lambda: KB.pack_tokens_(vals, lens, 64), 20),
-                     _time_ms(pack_alone, 50),
-                     _time_ms(lambda: KB.pack_tokens_plain(vals, lens, 64),
-                              3),
-                     KB.work(n, s, 64) / HBM_BYTES_PER_S * 1e3,
-                     # operations: the 5-step scan and ~10 more a slot
-                     15 * n * s / int_ops_per_s * 1e3))
-        for name, (ms, alone, plain, by_bytes, by_ops) in t.items():
-            bound = (max(by_bytes, by_ops),
-                     "bytes" if by_bytes >= by_ops else "operations")
-            print(f"{name}, 1080p {label} frame ({nb} blocks, {n} x {s} "
-                  f"slots): bit-exact, {ms:.4f} ms through the wrapper "
-                  f"(launch alone {alone:.4f} ms), twin {plain:.3f} ms, "
-                  f"bound {bound[0]:.4f} ms by {bound[1]} (bytes "
-                  f"{by_bytes:.4f}, operations {by_ops:.4f})")
-            rec.setdefault(name, (ms, plain, bound, err_b if name ==
-                                  "cavlc_blocks" else err_p))
-        nov = int((kn > 32 * 64).sum())
-        print(f"1080p {label} frame: max MB {int(kn.max())} bits, {nov} MBs "
-              "past 64 words")
+        fields, hdr = _cavlc_inputs(out, is_b)
+        got = _cavlc_compare(f"1080p {label} frame", fields, hdr, mbw, mbh,
+                             v1, int_ops_per_s, 2 if is_b else 3)
+        for k, v in got.items():
+            rec.setdefault(k, v)
     record("cavlc_blocks", "x264_tpu_torch/csrc/cavlc_blocks.cu",
-           "x264_tpu/ops/device/cavlc.py:72", rec["cavlc_blocks"][3],
+           "x264_tpu/ops/device/cavlc.py:197", rec["cavlc_blocks"][3],
            *rec["cavlc_blocks"][:3])
     record("bitpack", "x264_tpu_torch/csrc/bitpack.cu",
            "x264_tpu/ops/device/bitpack.py:24", rec["bitpack"][3],
            *rec["bitpack"][:3])
+
+
+class _AppendSpy:
+    """Spies on the CAVLC host append: each ``api._append_mbs`` call's
+    host ms (the wait for the payload's copy, the words' put_many and
+    the skip run) grouped per frame, the part of it spent waiting for
+    the payload's copy (``api._HostCopy.numpy`` inside the call), and a
+    count of the host merge (``slice_assemble.merge_mb_strings``) calls,
+    which the card path no longer makes."""
+
+    def __init__(self):
+        from x264_tpu_torch import api
+        from x264_tpu_torch.bitstream import slice_assemble as SA
+        self.api, self.sa = api, SA
+        self.saved = (api._append_mbs, SA.merge_mb_strings,
+                      api._HostCopy.numpy)
+        self.calls, self.waits, self.merges = [], [], 0
+        spy = self
+
+        def append(*a, **k):
+            spy.waits.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return spy.saved[0](*a, **k)
+            finally:
+                spy.calls.append(1000 * (time.perf_counter() - t0))
+
+        def merge(*a, **k):
+            spy.merges += 1
+            return spy.saved[1](*a, **k)
+
+        def numpy(copy):
+            t0 = time.perf_counter()
+            try:
+                return spy.saved[2](copy)
+            finally:
+                if len(spy.waits) > len(spy.calls):   # inside an append
+                    spy.waits[-1] += 1000 * (time.perf_counter() - t0)
+        api._append_mbs, SA.merge_mb_strings = append, merge
+        api._HostCopy.numpy = numpy
+
+    def close(self):
+        (self.api._append_mbs, self.sa.merge_mb_strings,
+         self.api._HostCopy.numpy) = self.saved
+
+    def line(self, label: str, n_frames: int) -> str:
+        ms = np.array(self.calls)
+        per = ms.sum() / n_frames
+        wait = sum(self.waits) / n_frames
+        return (f"{label}: CAVLC host append {per:.3f} ms a frame over "
+                f"{n_frames} frames ({len(ms)} calls: p50 "
+                f"{np.percentile(ms, 50):.3f}, max {ms.max():.3f} ms), of "
+                f"which the wait for the payload's copy {wait:.3f} and "
+                f"put_many and the skip run {per - wait:.3f}; "
+                f"merge_mb_strings calls {self.merges}")
+
+
+def _graph_count() -> int:
+    """The CUDA graphs the process has captured (models/graph.py)."""
+    from x264_tpu_torch.models import graph
+    return len(graph._GRAPHS)
+
+
+def _cavlc_placed(launches, new_graphs: int, least: int) -> int:
+    """The CAVLC payloads a run placed, from its launch counts, or -1
+    when the counts disagree with the path: every core run codes its
+    blocks (cavlc_blocks) and packs its MBs (bitpack) once, and so does
+    an I graph's warm-up at its capture (``new_graphs`` of them); the
+    encoder places each core run's payload once (bitpack's second entry
+    point), at least ``least`` times in the run."""
+    runs = launches["cavlc_blocks"]
+    placed = launches["bitpack"] - runs
+    return placed if placed >= least and runs - placed == new_graphs \
+        else -1
 
 
 def _run_1080p_cavlc(clip, records):
@@ -1408,7 +1573,8 @@ def _run_1080p_cavlc(clip, records):
     bench.py's GOP (IDR + 3 x (B B P), P8x8 anchors, full_recon off, the
     8x8 transform, weightp=1) with cabac=False, so trellis and I4x4 off.
     Every core codes its blocks (cavlc_blocks) and packs its MBs
-    (bitpack) once, more when an MB overflows the first word rung.
+    (bitpack) once, and the encoder places its payload (bitpack's second
+    entry point) once, more when an MB overflows the first word rung.
     Prints each encode() call's ms, fps over display frames 1-9, bytes,
     Y-PSNR, the rung floor, and from a second run with the card
     synchronised around each stage the ms per I, P and B frame, submit
@@ -1423,35 +1589,46 @@ def _run_1080p_cavlc(clip, records):
     enc.recon_hook = recons.__setitem__
     weights = _weights_spy(enc)
     stream, times = b"", []
-    torch.cuda.synchronize()
-    x264_tpu_torch.reset_launch_counts()
-    for y, u, v in clip:
+    appends = _AppendSpy()
+    g0 = _graph_count()
+    try:
+        torch.cuda.synchronize()
+        x264_tpu_torch.reset_launch_counts()
+        for y, u, v in clip:
+            t0 = time.perf_counter()
+            stream += enc.encode(Frame420(y, u, v))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        stream += enc.encode(Frame420(y, u, v))
+        stream += enc.flush()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    stream += enc.flush()
-    torch.cuda.synchronize()
-    times.append(time.perf_counter() - t0)
+    finally:
+        appends.close()
     launches = x264_tpu_torch.launch_counts()
     print(f"launches in the 1080p CAVLC I/B/P8x8 run: {launches}")
+    print(appends.line("1080p CAVLC I/B/P8x8", len(clip)))
+    if appends.merges or len(appends.calls) != len(clip):
+        raise AssertionError(f"CAVLC I/B/P8x8: {len(appends.calls)} appends"
+                             f" for {len(clip)} frames, {appends.merges} "
+                             "host merges")
     for r in records:
         r["launches"] += launches[r["name"]]
     types = [s.frame_type for s in enc.stats]
     n_b = types.count("B")
     cv = launches["cavlc_blocks"]
+    placed = _cavlc_placed(launches, _graph_count() - g0, len(clip))
     if types != ["IDR"] + ["P", "B", "B"] * 3 or \
             dict(launches, cavlc_blocks=0, bitpack=0) != {
                 "esa16": 4 * n_b // 2, "esa_parts": 3, "deblock": 4,
                 "trellis": 0, "intra_nxn": 0, "cavlc_blocks": 0,
-                "bitpack": 0, "pir_column": 0} or cv != launches["bitpack"] \
-            or cv < len(clip):
+                "bitpack": 0, "pir_column": 0} or placed < 0:
         raise AssertionError(f"CAVLC I/B/P8x8: frame types {types}, "
                              f"launches {launches} (expected esa16 12, "
                              "esa_parts 3, deblock 4, no trellis or NxN, "
-                             f"cavlc_blocks == bitpack >= {len(clip)}: one "
-                             "per core run)")
+                             "cavlc_blocks once per core run, bitpack "
+                             "once more per placement, at least "
+                             f"{len(clip)} placements)")
     tail = times[1:]
     print("CAVLC I/B/P8x8 encode() ms (display 0-9, then flush): "
           + " ".join(f"{1000 * t:.1f}" for t in times))
@@ -1462,9 +1639,10 @@ def _run_1080p_cavlc(clip, records):
           f"IDR's, flush included), {len(stream)} bytes, "
           f"{len(stream) * 8 / len(clip) / 1000:.1f} kbit/frame, mean "
           f"Y-PSNR {psnr:.3f} dB,"
-          f" cavlc_blocks and bitpack {cv} launches each ({len(clip)} core"
-          f" runs; the rest the I16 graph's warm-up at its capture and "
-          f"re-runs past the first rung), rung floor "
+          f" cavlc_blocks {cv} and bitpack {launches['bitpack']} launches "
+          f"({placed} core runs, each packed and placed; the rest the I16 "
+          f"graph's warm-up at its capture, which packs and does not "
+          f"place), rung floor "
           f"{enc._rung_floor} words; {_weighted(weights)} of the "
           f"{len(weights)} P frames carried a non-neutral weight")
     stage = {}
@@ -1492,7 +1670,8 @@ def _check_small_cavlc() -> None:
     """352x288 CAVLC: I/P16 at QP 26 (BASELINE.json's first config's
     shape) and I/B/P8x8 with the 8x8 transform and weightp=1 on two
     references (fade_clip, full_recon on); the card stream equals the CPU
-    stream, and every core launched both CAVLC kernels."""
+    stream, and every core launched both CAVLC kernels (bitpack's
+    placement once per core run)."""
     import x264_tpu_torch
     from x264_tpu_torch.api import Encoder, Frame420
     for label, frames, p8x8, kw in (
@@ -1507,15 +1686,17 @@ def _check_small_cavlc() -> None:
         for d in ("cuda", "cpu"):
             e = Encoder(_params(CHECK_W, CHECK_H, p8x8, cabac=False, **kw),
                         device=d)
+            g0 = _graph_count()
             x264_tpu_torch.reset_launch_counts()
             streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
             if d == "cuda":
                 launches = x264_tpu_torch.launch_counts()
+                new_graphs = _graph_count() - g0
         if streams["cuda"] != streams["cpu"]:
             raise AssertionError(f"352x288 CAVLC {label}: card stream != "
                                  "CPU stream")
-        if not (launches["cavlc_blocks"] == launches["bitpack"]
-                >= len(small)) or launches["trellis"]:
+        if _cavlc_placed(launches, new_graphs, len(small)) < 0 or \
+                launches["trellis"]:
             raise AssertionError(f"352x288 CAVLC {label}: launches "
                                  f"{launches}")
         print(f"{CHECK_W}x{CHECK_H} CAVLC {label} x{len(small)}: card stream"
@@ -1876,10 +2057,12 @@ def _check_small_lookahead() -> None:
         streams = {}
         for d in ("cuda", "cpu"):
             e = Encoder(p, device=d)
+            g0 = _graph_count()
             x264_tpu_torch.reset_launch_counts()
             streams[d] = b"".join(e.encode(f) for f in small) + e.flush()
             if d == "cuda":
                 launches = x264_tpu_torch.launch_counts()
+                new_graphs = _graph_count() - g0
                 types = [s.frame_type for s in e.stats]
         if streams["cuda"] != streams["cpu"]:
             raise AssertionError(f"352x288 {label}: card stream != CPU "
@@ -1887,7 +2070,8 @@ def _check_small_lookahead() -> None:
         cavlc = not p.cabac
         if not launches["esa16"] or not launches["esa_parts"] or \
                 bool(launches["cavlc_blocks"]) != cavlc or \
-                (cavlc and launches["cavlc_blocks"] != launches["bitpack"]):
+                (cavlc and _cavlc_placed(launches, new_graphs,
+                                         len(small)) < 0):
             raise AssertionError(f"352x288 {label}: launches {launches}")
         print(f"{CHECK_W}x{CHECK_H} {label} x{len(small)}: card stream == "
               f"CPU stream ({len(streams['cuda'])} bytes), frame types "
@@ -2349,21 +2533,18 @@ def _esa_band_check(label, src, ref, lam, mbw, bh, esa_rate) -> None:
           f"twin {plain:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]}")
 
 
-def _band_kernel_phase(esa_rate: float, int_ops_per_s: float) -> None:
+def _band_kernel_phase(esa_rate: float, int_ops_per_s: float, v1) -> None:
     """The kernels of the multi-slice path at its band shapes, each
     against its plain twin on the same inputs: esa16 on a 4K band of 34
     and of 33 MB rows (3840x2160 in four slices, 240 MBs wide) and on a
     1080p band of 17 rows (four slices), r = 8; the deblock kernel on a
     4K frame put together from four P bands (superfast: subpel 1,
     CABAC); the CAVLC block coder and packer on a 1080p ultrafast P band
-    (fullpel, CAVLC)."""
+    (fullpel, CAVLC), beside their first design (``v1``)."""
     import torch
-    from x264_tpu_torch.kernels import bitpack as KB
-    from x264_tpu_torch.kernels import cavlc as KC
     from x264_tpu_torch.kernels import deblock as KD
     from x264_tpu_torch.models.inter import p_band_core
     from x264_tpu_torch.models.intra import i_frame_core
-    from x264_tpu_torch.ops import cavlc as CV
     from x264_tpu_torch.ops import header as HD
     from x264_tpu_torch.ops.deblock import deblock_prep
     from x264_tpu_torch.state import PAD, sad_lambda
@@ -2437,50 +2618,13 @@ def _band_kernel_phase(esa_rate: float, int_ops_per_s: float) -> None:
     out = p_band_core(*src, *refs, QP, lam, mbw=mbw, mbh=bh, me_range=8,
                       cqp_off=0, subpel=0, n_words=64)
     intra = out["mb_class"] == 0
-    coefs, blen, nc, gate = CV.block_inputs(
-        out["luma_dc"], out["luma_ac"], out["luma_nnz"], out["chroma_dc"],
-        out["chroma_ac"], out["chroma_nnz"], out["cbp_luma"],
-        out["cbp_chroma"], intra, mbw, bh)
-    hv, hl = HD.header_slots(out["mb_class"], out["i16_mode"],
-                             out["chroma_mode"], out["mvd"],
-                             out["cbp_luma"], out["cbp_chroma"],
-                             out["qp_mb"], is_p_slice=True,
-                             ref=out["ref_mb"], num_ref=1)
-    kv, kl = KC.code_blocks_(coefs, blen, nc, gate)
-    pv, pl = CV.code_blocks_plain(coefs, blen, nc)
-    pl = torch.where(gate[:, None], pl, 0)
-    nb, nmb = coefs.shape[0], hv.shape[0]
-    vals = torch.cat([hv, kv.reshape(nmb, -1)], 1).contiguous()
-    lens = torch.cat([hl, kl.reshape(nmb, -1)], 1).contiguous()
-    err = max(_max_err(kv, pv), _max_err(kl, pl))
-    for n_words in (64, 416):
-        kw_, kn = KB.pack_tokens_(vals, lens, n_words)
-        pw, pn = KB.pack_tokens_plain(vals, lens, n_words)
-        err = max(err, _max_err(kw_, pw), _max_err(kn, pn))
-    if err:
-        raise AssertionError(f"the CAVLC kernels disagree with their twins "
-                             f"on the 1080p ultrafast band: {err}")
-    s = vals.shape[1]
-    nonzero = int((coefs != 0).sum())
-    blocks_alone, pack_alone = _cavlc_alone(coefs, blen, nc, gate, vals,
-                                            lens)
-    for name, ms, alone, plain, by_bytes, by_ops in (
-            ("cavlc_blocks",
-             _time_ms(lambda: KC.code_blocks_(coefs, blen, nc, gate), 20),
-             _time_ms(blocks_alone, 50),
-             _time_ms(lambda: CV.code_blocks_plain(coefs, blen, nc), 3),
-             KC.work(nb) / HBM_BYTES_PER_S * 1e3,
-             (48 * nb + 24 * nonzero) / int_ops_per_s * 1e3),
-            ("bitpack", _time_ms(lambda: KB.pack_tokens_(vals, lens, 64), 20),
-             _time_ms(pack_alone, 50),
-             _time_ms(lambda: KB.pack_tokens_plain(vals, lens, 64), 3),
-             KB.work(nmb, s, 64) / HBM_BYTES_PER_S * 1e3,
-             15 * nmb * s / int_ops_per_s * 1e3)):
-        by = "bytes" if by_bytes >= by_ops else "operations"
-        print(f"{name} on the 1080p ultrafast {bh}-row P band ({nb} blocks, "
-              f"{nmb} x {s} slots): bit-exact, {ms:.4f} ms through the "
-              f"wrapper (launch alone {alone:.4f} ms), twin {plain:.3f} ms, "
-              f"bound {max(by_bytes, by_ops):.4f} ms by {by}")
+    hdr = HD.header_slots(out["mb_class"], out["i16_mode"],
+                          out["chroma_mode"], out["mvd"], out["cbp_luma"],
+                          out["cbp_chroma"], out["qp_mb"], is_p_slice=True,
+                          ref=out["ref_mb"], num_ref=1)
+    _cavlc_compare(f"1080p ultrafast {bh}-row P band",
+                   [out[k] for k in _FIELD_KEYS] + [intra], hdr, mbw, bh, v1,
+                   int_ops_per_s, 3)
 
 
 class _BandTimes:
@@ -2649,8 +2793,9 @@ def _run_1080p_ultrafast(records) -> None:
     (counts reset just before, read just after): x264's ultrafast preset
     (fullpel only, CAVLC, no deblock) with tune zerolatency on 4 slices
     at CRF 23, UF_FRAMES frames of make_clip at 1080p.  Fails unless
-    every P frame launched esa16, cavlc_blocks and bitpack 4 times each
-    (one a band; more only where a band re-ran) and deblock never.
+    every P frame launched esa16 and cavlc_blocks 4 times each and
+    bitpack 8 (one a band, and the band's placement; more only where a
+    band re-ran) and deblock never.
     Prints fps over the P frames, encode() ms p50/p95/max, kbit/frame,
     Y-PSNR and the launches per P frame, the ms per band and the I16
     graph keys."""
@@ -2666,7 +2811,9 @@ def _run_1080p_ultrafast(records) -> None:
     recons = {}
     enc.recon_hook = recons.__setitem__
     spy = _BandTimes()
+    appends = _AppendSpy()
     stream, times = b"", []
+    g0 = _graph_count()
     try:
         torch.cuda.synchronize()
         x264_tpu_torch.reset_launch_counts()
@@ -2681,8 +2828,14 @@ def _run_1080p_ultrafast(records) -> None:
         torch.cuda.synchronize()
     finally:
         band_ms = spy.close()
+        appends.close()
     launches = x264_tpu_torch.launch_counts()
     print(f"launches in the 1080p ultrafast run: {launches}")
+    print(appends.line("1080p ultrafast (4 slices)", len(clip)))
+    if appends.merges or len(appends.calls) != 4 * len(clip):
+        raise AssertionError(f"ultrafast: {len(appends.calls)} appends for "
+                             f"{len(clip)} frames of 4 slices, "
+                             f"{appends.merges} host merges")
     for r in records:
         r["launches"] += launches[r["name"]]
     n_p = len(clip) - 1
@@ -2693,7 +2846,8 @@ def _run_1080p_ultrafast(records) -> None:
             launches["esa16"] != 4 * n_p + reruns or launches["deblock"] or \
             not 4 * n_p <= launches["cavlc_blocks"] - after_idr[
                 "cavlc_blocks"] <= 4 * n_p + reruns or \
-            launches["cavlc_blocks"] != launches["bitpack"] or \
+            _cavlc_placed(launches, _graph_count() - g0,
+                          4 * len(clip)) < 0 or \
             _slice_counts(stream) != [4] * len(clip):
         raise AssertionError(f"ultrafast: types {types}, launches "
                              f"{launches}, after the IDR {after_idr}, "
@@ -2931,7 +3085,7 @@ def _run_1080p_fastdecode(records):
     frames on their own cores.  Checks the launches: no deblock, no
     trellis, intra_nxn a multiple of the knight steps, esa_parts only in
     MB-tree's lowres_stats8, cavlc_blocks once per P anchor and B core
-    run, bitpack once per B core run."""
+    run, bitpack twice per B core run (the packing and the placement)."""
     clip = cut_clip(LA_FRAMES, LA_CUT)
     launches, types, log, la = _run_1080p_syntax(
         "fastdecode", clip, _fastdecode_params(W, H), records)
@@ -2942,8 +3096,9 @@ def _run_1080p_fastdecode(records):
             launches["intra_nxn"] % steps or \
             launches["esa_parts"] != la.get("lowres_stats8", {}).get(
                 "esa_parts") or \
-            launches["cavlc_blocks"] - launches["bitpack"] != n_p or \
-            launches["bitpack"] < types.count("B"):
+            launches["bitpack"] % 2 or \
+            launches["cavlc_blocks"] - launches["bitpack"] // 2 != n_p or \
+            launches["bitpack"] // 2 < types.count("B"):
         raise AssertionError(f"fastdecode: frame types {types}, launches "
                              f"{launches}, lookahead launches {la}")
 
@@ -3034,6 +3189,13 @@ def main() -> int:
     from x264_tpu_torch.state import PAD, sad_lambda
 
     # ---- 1. the card ----
+    t_main = time.perf_counter()
+
+    def lap(what: str) -> None:
+        """The script's elapsed seconds, so that its phases' shares of the
+        time limit show."""
+        print(f"elapsed {time.perf_counter() - t_main:.1f} s after {what}")
+
     dev = torch.device("cuda")
     print(_smi("name,power.limit"))
     clk_mhz = float(_smi("clocks.max.sm").split()[0])
@@ -3046,13 +3208,19 @@ def main() -> int:
 
     # ---- 2. build, the host's twins of the wide bars beside it ----
     pir_twins = _pir_twins_start()
+    v1_mod, v1_build = _v1_start()
     build.library()
     print(f"kernel build: {build.build_info['seconds']:.3f} s "
           f"({build.build_info['path']})")
     print(build.build_info["log"], file=sys.stderr)
     _print_resources(build.build_info["log"],
                      ("search_kernel", "esa", "trellis", "intra_nxn",
-                      "cavlc", "bitpack", "pir_column"))
+                      "cavlc", "bitpack", "bitscan", "bitplace",
+                      "pir_column"))
+    v1 = v1_mod.build_wait(v1_build)
+    print("the CAVLC pair's first design (tools/cavlc_v1), for the "
+          "comparisons:")
+    _print_resources(v1.log, ("cavlc", "bitpack"))
     t0 = time.perf_counter()
     pir_twins = _pir_twins_wait(pir_twins)
     print(f"host twins of the {', '.join(map(str, PIR_WIDE))}-column bars: "
@@ -3144,6 +3312,7 @@ def main() -> int:
            _time_ms(lambda: KP.full_search_parts_plain(
                src_d, ref_pad, lam, 16, mbw, mbh), 3), bounds["esa_parts"])
     _lowres_esa_phase(clip, esa_rate)
+    lap("_lowres_esa_phase")
 
     planes = [torch.from_numpy(_pad_to_mb(p, s)).to(dev)
               for p, s in zip(clip[0], (16, 8, 8))]
@@ -3204,11 +3373,17 @@ def main() -> int:
     print(f"deblock kernel alone (without the wrapper's clones and counter "
           f"zeroing): {alone:.4f} ms")
     _trellis_phase(clip, record)
+    lap("_trellis_phase")
     _nxn_phase(clip, record, int_ops_per_s)
+    lap("_nxn_phase")
     _aq_kernel_phase(clip)
-    _cavlc_phase(cavlc_frames, record, int_ops_per_s)
+    lap("_aq_kernel_phase")
+    _cavlc_phase(cavlc_frames, record, int_ops_per_s, v1)
+    lap("_cavlc_phase")
     bar_ms = _pir_phase(clip, record, int_ops_per_s, pir_twins)
-    _band_kernel_phase(esa_rate, int_ops_per_s)
+    lap("_pir_phase")
+    _band_kernel_phase(esa_rate, int_ops_per_s, v1)
+    lap("_band_kernel_phase")
     for r in records:
         print(f"kernel {r['name']}: bit-exact, {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
@@ -3222,6 +3397,7 @@ def main() -> int:
         raise AssertionError(f"I/P16 kernel launches {launches} do not "
                              f"match {N_FRAMES} frames ({n_p} P)")
     _i16_graph_phase(clip)
+    lap("_i16_graph_phase")
     launches, shapes = _run_1080p("I/P8x8", clip, True, records, TOOLS)
     least = _trellis_launches(n_i=1, n_p=n_p, n_b=0)
     if not (launches["esa_parts"] == n_p and launches["esa16"] == 0
@@ -3238,14 +3414,23 @@ def main() -> int:
         raise AssertionError(f"partition shapes of {len(shapes)} frames")
     bclip = make_clip(B_FRAMES)
     _run_1080p_b(bclip, records)
+    lap("_run_1080p_b")
     _run_1080p_multiref(clip[:MULTIREF_FRAMES], records)
+    lap("_run_1080p_multiref")
     _run_1080p_cavlc(bclip, records)
+    lap("_run_1080p_cavlc")
     _run_1080p_medium(records)
+    lap("_run_1080p_medium")
     _run_1080p_live(records, bar_ms)
+    lap("_run_1080p_live")
     _run_4k_cli(records)
+    lap("_run_4k_cli")
     _run_1080p_ultrafast(records)
+    lap("_run_1080p_ultrafast")
     _run_1080p_fastdecode(records)
+    lap("_run_1080p_fastdecode")
     _run_1080p_host_entropy(bclip, records)
+    lap("_run_1080p_host_entropy")
 
     # ---- 5. card streams == CPU (plain twins) streams at 352x288 ----
     small = [Frame420(*f) for f in split_motion_clip(CHECK_W, CHECK_H,
@@ -3277,6 +3462,7 @@ def main() -> int:
     _check_small_live()
     _check_small_slices()
     _check_small_syntax()
+    lap("_check_small_syntax")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

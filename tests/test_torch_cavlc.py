@@ -139,6 +139,74 @@ def test_pack_tokens_plain_matches_reference(n_words):
                                            else over == 0), over
 
 
+@pytest.mark.parametrize("n_words", [1, 64, 416])
+def test_cavlc_blob_matches_reference_pack_and_merge(n_words):
+    """``cavlc_blob`` and ``bitpack.place`` on the CPU (the twins of
+    csrc/bitpack.cu): the blob equals the reference's pack_tokens over the
+    header and residual grids side by side, then nbits and the fields (the
+    reference cores' blob layout); the payload equals the reference's host
+    merge
+    (x264_tpu/bitstream/slice_assemble.merge_mb_strings) of those words
+    over the whole merged length, zeros after it, on frames of 1, 7 and
+    24 MBs with an empty row; MBs past the budget keep
+    their first words and true nbits in the blob."""
+    from x264_tpu.bitstream.slice_assemble import merge_mb_strings
+    rng = np.random.default_rng(40 + n_words)
+    for trial, (n, h) in enumerate(((1, 9), (24, 22), (7, 10), (24, 9))):
+        lens = rng.integers(1, 31, (n, h + 972))
+        lens = np.where(rng.random(lens.shape) < rng.random((n, 1)) * 0.3,
+                        lens, 0)
+        if trial % 2:     # fit the budget, so the merge is the payload
+            lens = np.where(np.cumsum(lens, 1) <= 32 * n_words, lens, 0)
+        lens[n // 2] = 0                              # an empty row
+        vals = rng.integers(0, 1 << 30, lens.shape) & ((1 << lens) - 1)
+        vals, lens = vals.astype(np.int32), lens.astype(np.int32)
+        fields = [rng.integers(-5, 9, n).astype(np.int32) for _ in range(3)]
+        blob = cavlc.cavlc_blob(T(vals[:, :h]), T(lens[:, :h]),
+                                T(vals[:, h:]), T(lens[:, h:]), n_words,
+                                [T(f) for f in fields])
+        pay = bitpack.place(blob, n_words)
+        rw, rn = r_bitpack.pack_tokens(jnp.asarray(vals), jnp.asarray(lens),
+                                       n_words)
+        rw = np.asarray(rw).view(np.int32)
+        _eq(blob, np.concatenate([rw, np.asarray(rn)[:, None]]
+                                 + [f[:, None] for f in fields], 1), "blob")
+        assert pay.shape == (n * n_words + 1,)
+        if trial % 2:
+            ref, total = merge_mb_strings(rw.view(np.uint32), np.asarray(rn))
+            got = pay.numpy().view(np.uint32)
+            m = min(len(ref), len(got))
+            _eq(got[:m], ref[:m], "payload")
+            assert not got[m:].any() and not ref[m:].any()
+            assert total == int(lens.sum())
+
+
+def test_residual_slots_random_fields_match_reference():
+    """``residual_slots`` on the CPU (the twin of csrc/cavlc_blocks.cu) on
+    random fields against the reference's: frames of 1x1, 5x2 and 6x4 MBs,
+    I16 and other MBs, every cbp, counts 0-16 across MB borders, levels
+    past both escapes."""
+    rng = np.random.default_rng(77)
+    for trial, (mbw, mbh) in enumerate(((1, 1), (6, 4), (5, 2), (6, 4))):
+        n = mbw * mbh
+
+        def lv(shape):
+            mag = rng.integers(1, (2, 4, 60, 9000)[trial % 4], shape)
+            live = rng.random(shape) < rng.random(shape[:-1] + (1,))
+            return np.where(live, rng.choice([-1, 1], shape) * mag, 0
+                            ).astype(np.int32)
+        args = [lv((n, 16)), lv((n, 16, 16)),
+                rng.integers(0, 17, (n, 16)).astype(np.int32),
+                lv((n, 2, 4)), lv((n, 2, 4, 16)),
+                rng.integers(0, 16, (n, 2, 4)).astype(np.int32),
+                rng.integers(0, 16, n).astype(np.int32),
+                rng.integers(0, 3, n).astype(np.int32), rng.random(n) < 0.5]
+        rv, rl = r_cavlc.residual_slots(*map(jnp.asarray, args), mbw, mbh)
+        pv, pl = cavlc.residual_slots(*map(T, args), mbw, mbh)
+        _eq(pv, rv, f"vals {trial}")
+        _eq(pl, rl, f"lens {trial}")
+
+
 # ---- the slots and the cores on a 64x48 frame ----
 
 def _frames():

@@ -342,7 +342,7 @@ _CUDA_SHIM = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -356,6 +356,21 @@ inline unsigned __dp4a(unsigned a, unsigned b, unsigned c) {
 struct Dim3Emu { int x; };
 extern thread_local Dim3Emu threadIdx;
 extern Dim3Emu blockDim;
+// the CTAs of a grid run one after another, in blockIdx order
+extern Dim3Emu blockIdx, gridDim;
+template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_RELAXED);
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
 // per warp: a barrier of its 32 threads and the lanes' exchange words
 struct WarpEmu { std::barrier<>* bar; int word[32]; };
 extern std::barrier<>* g_bar;
@@ -378,6 +393,11 @@ inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
 }
 inline int __shfl_xor_sync(unsigned m, int v, int x, int width = 32) {
   return __shfl_sync(m, v, (threadIdx.x & 31) ^ x, width);
+}
+inline int __shfl_up_sync(unsigned m, int v, int d, int width = 32) {
+  const int lane = threadIdx.x & 31;
+  const int got = __shfl_sync(m, v, lane - d < 0 ? lane : lane - d, width);
+  return (lane & (width - 1)) >= d ? got : v;
 }
 inline unsigned __ballot_sync(unsigned, int p) {
   WarpEmu& w = warp_emu();
@@ -402,7 +422,7 @@ _PIR_THREADS = r"""
 #include <thread>
 #include <vector>
 thread_local Dim3Emu threadIdx;
-Dim3Emu blockDim;
+Dim3Emu blockDim, blockIdx;
 std::barrier<>* g_bar;
 WarpEmu* g_warps;
 unsigned char* g_smem;
@@ -533,3 +553,328 @@ def test_pir_column_source_runs_as_its_twin(pir_threads, seed):
                 assert torch.equal(a, b), (trial, groups, name)
             for k in KR.FIELDS:
                 assert torch.equal(got[3][k], twin[3][k]), (trial, groups, k)
+
+
+# ---- csrc/cavlc_blocks.cu and csrc/bitpack.cu run on the CPU ----
+# The same shim, with a grid of CTAs run one after another in blockIdx
+# order (the kernels' CTAs never wait on one another, so any order
+# would do), each CTA's shared memory filled with garbage first (so a
+# word the kernel forgets to zero shows).  Both sources are held to their
+# plain twins at tolerance 0.
+
+_GRID_THREADS = r"""
+#include <cstdlib>
+#include <cstring>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <vector>
+thread_local Dim3Emu threadIdx;
+Dim3Emu blockDim, blockIdx, gridDim;
+std::barrier<>* g_bar;
+WarpEmu* g_warps;
+unsigned char* g_smem;
+static void run_grid(int grid, int nt, size_t smem,
+                     const std::function<void()>& body) {
+  const size_t bytes = (smem + 15) / 16 * 16 + 16;
+  blockDim.x = nt;
+  gridDim.x = grid;
+  for (int b = 0; b < grid; ++b) {
+    blockIdx.x = b;
+    g_smem = (unsigned char*)std::aligned_alloc(16, bytes);
+    std::memset(g_smem, 0xA5, bytes);
+    std::barrier<> bar(nt);
+    g_bar = &bar;
+    std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+    std::vector<WarpEmu> warps(nt / 32);
+    for (auto& w : warps) {
+      warp_bars.emplace_back(new std::barrier<>(32));
+      w.bar = warp_bars.back().get();
+    }
+    g_warps = warps.data();
+    std::vector<std::thread> th;
+    for (int i = 0; i < nt; ++i)
+      th.emplace_back([&, i] {
+        threadIdx.x = i;
+        body();
+      });
+    for (auto& t : th) t.join();
+    std::free(g_smem);
+  }
+}
+"""
+
+_CAVLC_THREADS = _GRID_THREADS + r"""
+extern "C" void cavlc_threads(void** p, const void* tab, void* vals,
+                              void* lens, int mbw, int mbh) {
+  Fields f{(const int*)p[0], (const int*)p[1], (const int*)p[2],
+           (const int*)p[3], (const int*)p[4], (const int*)p[5],
+           (const int*)p[6], (const int*)p[7], (const uint8_t*)p[8]};
+  const int n = mbw * mbh;
+  run_grid((n + kMbsPerCta - 1) / kMbsPerCta, kThreads, kSmemBytes, [&] {
+    cavlc_mb_kernel(f, (const int*)tab, (int*)vals, (int*)lens, mbw, n);
+  });
+}
+"""
+
+_BITPACK_THREADS = _GRID_THREADS + r"""
+extern "C" void bitpack_threads(void** p, int h, int r, int nf, int n_words,
+                                int n) {
+  Grid g{(const int*)p[0], (const int*)p[1], h, (const int*)p[2],
+         (const int*)p[3], r};
+  Fields fl{{(const int*)p[4], (const int*)p[5], (const int*)p[6],
+             (const int*)p[7]}, nf};
+  run_grid((n + kMbs - 1) / kMbs, kThreads, smem_bytes(h, r, n_words),
+           [&] { bitpack_kernel(g, fl, (int*)p[8], n_words, n); });
+}
+
+extern "C" int sum_mbs() { return kSumMbs; }
+
+// the placement's two launches, with zero_ctas CTAs zeroing the payload
+extern "C" void bitplace_threads(const void* blob, int stride, int n_words,
+                                 int n, void* sums, void* payload,
+                                 long long pay_words, int zero_ctas) {
+  const int blocks = (n + kSumMbs - 1) / kSumMbs;
+  run_grid(blocks + zero_ctas, kSumMbs, kSumMbs / 32 * 4, [&] {
+    bitsum_kernel((const int*)blob, stride, n_words, n, (unsigned*)sums,
+                  (unsigned*)payload, pay_words);
+  });
+  run_grid((n + kPlaceMbs - 1) / kPlaceMbs, kPlaceThreads, kPlaceMbs * 12,
+           [&] {
+    bitplace_kernel((const int*)blob, stride, n_words, n,
+                    (const unsigned*)sums, (unsigned*)payload, pay_words);
+  });
+}
+"""
+
+
+def _build_threads(tmp_path_factory, name: str, runner: str):
+    """csrc/<name>.cu's kernel built with g++ and ``runner`` (a thread
+    per CUDA thread, the CTAs in order)."""
+    import ctypes
+    import shutil
+    import subprocess
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernel's source for the CPU")
+    d = tmp_path_factory.mktemp(name)
+    (d / "cuda_runtime.h").write_text(_CUDA_SHIM)
+    src = _source(f"{name}.cu")
+    (d / "k.cpp").write_text(src[:src.index('extern "C"')] + runner)
+    so = d / f"lib{name}.so"
+    r = subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared",
+                        "-pthread", f"-I{d}", str(d / "k.cpp"), "-o",
+                        str(so)], capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def cavlc_threads(tmp_path_factory):
+    import ctypes
+    lib = _build_threads(tmp_path_factory, "cavlc_blocks", _CAVLC_THREADS)
+    lib.cavlc_threads.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    return lib
+
+
+@pytest.fixture(scope="module")
+def bitpack_threads(tmp_path_factory):
+    import ctypes
+    lib = _build_threads(tmp_path_factory, "bitpack", _BITPACK_THREADS)
+    lib.bitpack_threads.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5
+    lib.sum_mbs.argtypes = []
+    lib.bitplace_threads.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        + [ctypes.c_longlong, ctypes.c_int])
+    return lib
+
+
+def _levels(rng, shape, kind: str):
+    """Random zigzag levels: a density per row, magnitudes all +-1,
+    small, large or past both level escapes."""
+    mag = {"ones": np.ones(shape, np.int64),
+           "small": rng.integers(1, 4, shape),
+           "large": rng.integers(1, 60, shape),
+           "escape": rng.integers(1, 9000, shape)}[kind]
+    dens = rng.random(shape[:-1] + (1,))
+    live = rng.random(shape) < dens
+    return np.where(live, rng.choice([-1, 1], shape) * mag, 0
+                    ).astype(np.int32)
+
+
+def _mb_fields(rng, n: int, kind: str) -> list:
+    """A frame's random CAVLC fields in residual_slots' argument order:
+    levels, counts 0-16, every cbp, I16 and other MBs."""
+    return [_levels(rng, (n, 16), kind), _levels(rng, (n, 16, 16), kind),
+            rng.integers(0, 17, (n, 16)).astype(np.int32),
+            _levels(rng, (n, 2, 4), kind),
+            _levels(rng, (n, 2, 4, 16), kind),
+            rng.integers(0, 16, (n, 2, 4)).astype(np.int32),
+            rng.integers(0, 16, n).astype(np.int32),
+            rng.integers(0, 3, n).astype(np.int32),
+            rng.random(n) < 0.5]
+
+
+@pytest.mark.parametrize("kind", ["ones", "small", "large", "escape"])
+def test_cavlc_blocks_source_runs_as_its_twin(cavlc_threads, kind):
+    """Frames of 1-6 x 1-4 MBs (a CTA's 4 MBs split across rows, and a
+    last CTA part empty), random levels with I16 and other MBs, every
+    cbp_luma and cbp_chroma, counts 0-16 across MB borders: the kernel's
+    vals and lens equal the twin's (block_inputs + code_blocks_plain),
+    every slot."""
+    import ctypes
+    from x264_tpu_torch.kernels import cavlc as KC
+    from x264_tpu_torch.ops import cavlc as CV
+    rng = np.random.default_rng(60 + len(kind))
+    for trial in range(6):
+        mbw, mbh = int(rng.integers(1, 7)), int(rng.integers(1, 5))
+        n = mbw * mbh
+        fields = [torch.from_numpy(a) for a in _mb_fields(rng, n, kind)]
+        if trial == 0:
+            fields[8][:] = True                  # an all-I16 frame
+        want = CV.residual_slots(*fields, mbw, mbh)
+        vals = torch.full((n, KC.MB_SLOTS), -7, dtype=torch.int32)
+        lens = torch.full_like(vals, -7)
+        ptrs = [t.data_ptr() for t in fields]
+        cavlc_threads.cavlc_threads(
+            (ctypes.c_void_p * 9)(*ptrs),
+            KC.tables_on("cpu")["block"].data_ptr(), vals.data_ptr(),
+            lens.data_ptr(), mbw, mbh)
+        assert torch.equal(vals, want[0]), (trial, mbw, mbh)
+        assert torch.equal(lens, want[1]), (trial, mbw, mbh)
+
+
+def _token_rows(rng, n: int, s: int, n_words: int):
+    """(N, S) tokens of 1-30 bits whose values fit them, densities per MB
+    from sparse to dense; then, where S allows, an all-empty row, rows of
+    exactly 32 * n_words bits and one bit more, and rows of a whole
+    number of words (so the next MB starts on a word boundary)."""
+    lens = rng.integers(1, 31, (n, s))
+    lens = np.where(rng.random((n, s)) < rng.random((n, 1)), lens, 0)
+
+    def row(bits):
+        """Tokens of 30 bits and one of the rest, at random slots."""
+        k = -(-bits // 30)
+        if k > s:
+            return None
+        r = np.zeros(s, np.int64)
+        at = np.sort(rng.choice(s, k, replace=False))
+        r[at] = 30
+        r[at[-1]] = bits - 30 * (k - 1)
+        return r
+
+    specials = [np.zeros(s, np.int64), row(32 * n_words),
+                row(32 * n_words + 1), row(32 * int(rng.integers(1, 4)))]
+    for i, r in enumerate(specials):
+        if r is not None and i < n:
+            lens[(i * 3) % n] = r
+    vals = rng.integers(0, 1 << 30, (n, s)) & ((1 << lens) - 1)
+    return vals.astype(np.int32), lens.astype(np.int32)
+
+
+@pytest.mark.parametrize("n_words", [1, 4, 64, 416])
+def test_bitpack_source_runs_as_its_twin(bitpack_threads, n_words):
+    """Frames of 1-24 MBs (the last packer's 4 MBs full or part empty);
+    header grids of 0-22 slots (the residual row's 16-byte place shifts
+    the header's), residual grids of 0, 8 and 972 slots, 0-4 fields; MBs
+    past the word budget, at exactly 32 * n_words bits and one more,
+    all-empty rows and word-aligned offsets: the packing's blob (every
+    word, nbits, the fields) equals the twin's (pack_tokens_plain), and
+    the placement's whole payload (which it zeroes itself, with 1 or 2
+    zeroing CTAs: it starts as garbage here) equals the plain
+    placement's (place_plain), its blocks' sums the sums of nbits."""
+    import ctypes
+    from x264_tpu_torch.kernels import bitpack as KB
+    rng = np.random.default_rng(70 + n_words)
+    for trial in range(8):
+        mbw, mbh = int(rng.integers(1, 7)), int(rng.integers(1, 5))
+        n = mbw * mbh
+        h = int(rng.choice([0, 3, 9, 10, 22]))
+        r = int(rng.choice([0, 8, 972]))
+        if h + r == 0:
+            r = 8
+        nf = int(rng.integers(0, 5))
+        vals, lens = _token_rows(rng, n, h + r, n_words)
+        hv, hl = (torch.from_numpy(a[:, :h].copy()) for a in (vals, lens))
+        rv, rl = (torch.from_numpy(a[:, h:].copy()) for a in (vals, lens))
+        fields = [torch.from_numpy(rng.integers(-9, 99, n).astype(np.int32))
+                  for _ in range(nf)]
+        blob_p = KB.pack_blob_plain(hv, hl, rv, rl, n_words, fields)
+        blob = torch.full((n, n_words + 1 + nf), -7, dtype=torch.int32)
+        fp = [f.data_ptr() for f in fields] + [None] * (4 - nf)
+        ptrs = [t.data_ptr() for t in (hv, hl, rv, rl)] + fp + [
+            blob.data_ptr()]
+        bitpack_threads.bitpack_threads((ctypes.c_void_p * 9)(*ptrs), h, r,
+                                        nf, n_words, n)
+        where = (trial, n, h, r, nf)
+        assert torch.equal(blob, blob_p), where
+        payload, sums = _place_threads(bitpack_threads, blob, n_words,
+                                       1 + trial % 2)
+        assert torch.equal(payload, KB.place_blob_plain(blob_p, n_words)), \
+            where
+        assert torch.equal(sums, _block_sums(bitpack_threads, blob_p,
+                                             n_words)), where
+
+
+def _place_threads(lib, blob, n_words: int, zero_ctas: int):
+    """The placement's two launches on a CPU blob -> (payload, the
+    blocks' sums), both started as garbage."""
+    from x264_tpu_torch.kernels import bitpack as KB
+    n = blob.shape[0]
+    payload = torch.full((KB.payload_words(n, n_words),), -7,
+                         dtype=torch.int32)
+    sums = torch.full((-(-n // lib.sum_mbs()),), -7, dtype=torch.int32)
+    lib.bitplace_threads(blob.data_ptr(), blob.shape[1], n_words, n,
+                         sums.data_ptr(), payload.data_ptr(),
+                         payload.numel(), zero_ctas)
+    return payload, sums
+
+
+def _block_sums(lib, blob, n_words: int):
+    """The nbits of each block of the placement's MBs, summed."""
+    nb = blob[:, n_words].to(torch.int64)
+    k = lib.sum_mbs()
+    nb = torch.nn.functional.pad(nb, (0, -len(nb) % k))
+    return nb.view(-1, k).sum(1).to(torch.int32)
+
+
+@pytest.mark.parametrize("n,n_words", [(1030, 2), (2600, 5)])
+def test_bitplace_source_past_one_block(bitpack_threads, n, n_words):
+    """Past 256 MBs the placement's first launch sums several blocks and
+    each CTA of the second adds the sums of the blocks before it and the
+    nbits of its own block's earlier MBs: on a blob made by the twin,
+    with MBs past the budget, empty rows and word-aligned ends, the sums
+    and the whole payload equal the plain placement's."""
+    from x264_tpu_torch.kernels import bitpack as KB
+    rng = np.random.default_rng(n)
+    vals, lens = _token_rows(rng, n, 40, n_words)
+    blob = KB.pack_blob_plain(*(torch.from_numpy(a.copy()) for a in (
+        vals[:, :7], lens[:, :7], vals[:, 7:], lens[:, 7:])), n_words)
+    payload, sums = _place_threads(bitpack_threads, blob, n_words, 2)
+    assert torch.equal(sums, _block_sums(bitpack_threads, blob, n_words))
+    assert torch.equal(payload, KB.place_blob_plain(blob, n_words))
+
+
+def test_place_plain_is_merge_mb_strings():
+    """The plain placement equals the host merge it replaces
+    (bitstream/slice_assemble.merge_mb_strings) over its whole length,
+    zeros after the last bit, on MBs of 0 bits to a full budget and on
+    word-aligned offsets."""
+    from x264_tpu_torch.bitstream.slice_assemble import merge_mb_strings
+    from x264_tpu_torch.kernels import bitpack as KB
+    rng = np.random.default_rng(9)
+    for n_words in (1, 3, 64):
+        for n in (1, 5, 37):
+            vals, lens = _token_rows(rng, n, 300, n_words)
+            lens[:, :] = np.where(np.cumsum(lens, 1) <= 32 * n_words, lens, 0)
+            words, nbits = KB.pack_tokens_plain(torch.from_numpy(vals),
+                                                torch.from_numpy(lens),
+                                                n_words)
+            pay = KB.place_plain(words, nbits, KB.payload_words(n, n_words))
+            ref, total = merge_mb_strings(
+                words.numpy().view(np.uint32), nbits.numpy())
+            got = pay.numpy().view(np.uint32)
+            m = min(len(ref), len(got))
+            assert np.array_equal(got[:m], ref[:m]), (n_words, n)
+            assert not got[m:].any() and not ref[m:].any()
+            assert total == int(nbits.sum())

@@ -13,6 +13,7 @@ import torch
 
 import x264_tpu_torch
 from x264_tpu_torch.api import Encoder
+from x264_tpu_torch.kernels import bitpack
 from x264_tpu_torch.kernels import deblock as k_db
 from x264_tpu_torch.kernels import esa16, esa_parts, intra_nxn
 from x264_tpu_torch.kernels import trellis as k_tr
@@ -796,51 +797,65 @@ def test_i4_encoder_on_card_matches_cpu(cuda):
 
 # ---- CAVLC: the block coder and the bit packer ----
 
-def _cavlc_blocks(levels: str, b: int, seed: int):
-    """Random zigzag blocks (lengths 4/15/16, nC -1/-2 on length 4 else
-    0-16, magnitudes by ``levels``) and a gate."""
+def _cavlc_fields(mbw: int, mbh: int, seed: int, kind: str = "large"):
+    """A frame's random CAVLC fields in residual_slots' argument order
+    (CPU tensors): levels with a density per row (magnitudes all +-1,
+    small, large or past both level escapes), counts 0-16, every cbp, I16
+    and other MBs."""
     rng = np.random.default_rng(seed)
-    blen = rng.choice([4, 15, 16], b).astype(np.int32)
-    nc = rng.integers(0, 17, b).astype(np.int32)
-    dc = blen == 4
-    nc[dc] = rng.choice([-1, -2], int(dc.sum()))
-    mag = {"ones": np.ones((b, 16), np.int64),
-           "small": rng.integers(1, 4, (b, 16)),
-           "large": rng.integers(1, 60, (b, 16)),
-           "escape": rng.integers(1, 9000, (b, 16))}[levels]
-    live = rng.random((b, 16)) < rng.random((b, 1))
-    coefs = np.where(live, rng.choice([-1, 1], (b, 16)) * mag, 0)
-    coefs[np.arange(16)[None, :] >= blen[:, None]] = 0
-    gate = rng.random(b) < 0.8
-    return [torch.from_numpy(a) for a in (coefs.astype(np.int32), blen, nc,
-                                          gate)]
+    n = mbw * mbh
+
+    def levels(shape):
+        mag = {"ones": np.ones(shape, np.int64),
+               "small": rng.integers(1, 4, shape),
+               "large": rng.integers(1, 60, shape),
+               "escape": rng.integers(1, 9000, shape)}[kind]
+        live = rng.random(shape) < rng.random(shape[:-1] + (1,))
+        return np.where(live, rng.choice([-1, 1], shape) * mag, 0)
+
+    arrs = [levels((n, 16)), levels((n, 16, 16)),
+            rng.integers(0, 17, (n, 16)), levels((n, 2, 4)),
+            levels((n, 2, 4, 16)), rng.integers(0, 16, (n, 2, 4)),
+            rng.integers(0, 16, n), rng.integers(0, 3, n)]
+    return [torch.from_numpy(a.astype(np.int32)) for a in arrs] + [
+        torch.from_numpy(rng.random(n) < 0.5)]
 
 
 @pytest.mark.parametrize("levels", ["ones", "small", "large", "escape"])
-@pytest.mark.parametrize("nblocks", [1, 63, 64, 65, 1000, 220320])
-def test_cavlc_blocks_kernel_matches_plain(cuda, levels, nblocks):
-    """Bit-exact against the twin, with and without the gate; 220320 is
-    a 1080p frame's 8160 MBs x 27 blocks."""
+@pytest.mark.parametrize("mbw,mbh", [(1, 1), (7, 1), (8, 1), (9, 2),
+                                     (37, 3), (120, 68)])
+def test_cavlc_blocks_kernel_matches_plain(cuda, levels, mbw, mbh):
+    """The kernel on a frame's fields, bit-exact against the twin
+    (block_inputs + code_blocks_plain + the gate); 120 x 68 is a 1080p
+    frame's 8160 MBs, 4 MBs a CTA with the last CTA full or part empty
+    at the others."""
     from x264_tpu_torch.kernels import cavlc as k_cv
     from x264_tpu_torch.ops import cavlc as cv
-    coefs, blen, nc, gate = _cavlc_blocks(levels, nblocks, nblocks)
-    for g in (gate, None):
-        pv, pl = cv.code_blocks(coefs, blen, nc, g)
-        kv, kl = k_cv.code_blocks_(*(t.to(cuda) for t in (coefs, blen, nc)),
-                                   None if g is None else g.to(cuda))
-        torch.cuda.synchronize()
-        assert torch.equal(kv.cpu(), pv) and torch.equal(kl.cpu(), pl)
+    fields = _cavlc_fields(mbw, mbh, mbw * 100 + mbh, levels)
+    pv, pl = cv.residual_slots(*fields, mbw, mbh)
+    kv, kl = k_cv.residual_slots_(*(t.to(cuda) for t in fields), mbw, mbh)
+    torch.cuda.synchronize()
+    assert torch.equal(kv.cpu(), pv) and torch.equal(kl.cpu(), pl)
 
 
 def test_cavlc_blocks_wrapper_launches_and_counts(cuda):
+    """One launch a call, counted; a dtype, shape, stride or alignment
+    the kernel does not take raises."""
     from x264_tpu_torch.ops import cavlc as cv
-    coefs, blen, nc, gate = (t.to(cuda) for t in
-                             _cavlc_blocks("small", 100, 3))
+    fields = [t.to(cuda) for t in _cavlc_fields(5, 4, 3, "small")]
     before = x264_tpu_torch.launch_counts()["cavlc_blocks"]
-    cv.code_blocks(coefs, blen, nc, gate)
+    cv.residual_slots(*fields, 5, 4)
     assert x264_tpu_torch.launch_counts()["cavlc_blocks"] == before + 1
-    with pytest.raises(ValueError):
-        cv.code_blocks(coefs[:, :15], blen, nc, gate)
+    bad = [fields[:1] + [fields[1].to(torch.int64)] + fields[2:],
+           fields[:2] + [fields[2][:, :15]] + fields[3:],
+           [fields[0].t().contiguous().t()] + fields[1:],
+           [torch.empty(20 * 16 + 1, dtype=torch.int32,
+                        device=cuda)[1:].view(20, 16)] + fields[1:],
+           fields[:8] + [fields[8].to(torch.uint8)]]
+    for args in bad:
+        with pytest.raises(ValueError):
+            cv.residual_slots(*args, 5, 4)
+    assert x264_tpu_torch.launch_counts()["cavlc_blocks"] == before + 1
 
 
 def _tokens(n: int, s: int, seed: int):
@@ -855,29 +870,110 @@ def _tokens(n: int, s: int, seed: int):
             torch.from_numpy(lens.astype(np.int32)))
 
 
+def _blob_case(cuda, n, h, n_words, seed, nf=3, r=972):
+    """The packing and the placement on the card against their twins:
+    (N, h) header and (N, r) residual grids and nf fields -> the card's
+    blob and payload beside the plain ones."""
+    from x264_tpu_torch.kernels import bitpack
+    vals, lens = _tokens(n, h + r, seed)
+    rng = np.random.default_rng(seed)
+    fields = [torch.from_numpy(rng.integers(0, 9, n).astype(np.int32))
+              for _ in range(nf)]
+    parts = (vals[:, :h].contiguous(), lens[:, :h].contiguous(),
+             vals[:, h:].contiguous(), lens[:, h:].contiguous())
+    want = bitpack.pack_blob_plain(*parts, n_words, fields)
+    blob = bitpack.pack_blob(*(t.to(cuda) for t in parts), n_words,
+                             [f.to(cuda) for f in fields])
+    pay = bitpack.place(blob, n_words)
+    torch.cuda.synchronize()
+    return ([blob.cpu(), pay.cpu()],
+            [want, bitpack.place_blob_plain(want, n_words)])
+
+
 @pytest.mark.parametrize("n,s", [(1, 981), (5, 7), (37, 994), (8160, 982)])
 @pytest.mark.parametrize("n_words", [1, 4, 64, 416])
 def test_bitpack_kernel_matches_plain(cuda, n, s, n_words):
-    """Bit-exact against the twin, MBs past the budget included (their
+    """Bit-exact against the twins, MBs past the budget included (their
     first words and whole nbits); 8160 x 982 is a 1080p B frame's slot
-    grid."""
-    from x264_tpu_torch.kernels import bitpack
-    vals, lens = _tokens(n, s, n * 7 + n_words)
-    pw, pn = bitpack.pack_tokens(vals, lens, n_words)
-    kw, kn = bitpack.pack_tokens(vals.to(cuda), lens.to(cuda), n_words)
-    torch.cuda.synchronize()
-    assert torch.equal(kw.cpu(), pw) and torch.equal(kn.cpu(), pn)
+    grid: first the whole grid as the header part (no residual part, no
+    fields), then a header and a residual grid with fields; blob and
+    payload."""
+    got, want = _blob_case(cuda, n, s, n_words, n * 7 + n_words, nf=0,
+                           r=0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got, want = _blob_case(cuda, n, s % 23, n_words, n + n_words)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_bitpack_wrapper_launches_and_counts(cuda):
+    """One launch of the packing and one of the placement a call, each
+    counted; a budget, dtype, width, alignment or blob the kernels do not
+    take raises, and so does pack_tokens (the CPU twin) on the card."""
     from x264_tpu_torch.kernels import bitpack
     vals, lens = (t.to(cuda) for t in _tokens(4, 981, 1))
     before = x264_tpu_torch.launch_counts()["bitpack"]
-    bitpack.pack_tokens(vals, lens, 64)
+    with pytest.raises(ValueError):
+        bitpack.pack_tokens(vals, lens, 64)
+    hv, hl = vals[:, :9].contiguous(), lens[:, :9].contiguous()
+    rv, rl = vals[:, 9:].contiguous(), lens[:, 9:].contiguous()
+    f = [torch.zeros(4, dtype=torch.int32, device=cuda)] * 2
+    blob = bitpack.pack_blob(hv, hl, rv, rl, 64, f)
     assert x264_tpu_torch.launch_counts()["bitpack"] == before + 1
-    for bad in (0, bitpack.max_words() + 1):
+    bitpack.place(blob, 64)
+    assert x264_tpu_torch.launch_counts()["bitpack"] == before + 2
+    off = torch.empty(4 * 972 + 1, dtype=torch.int32, device=cuda)[1:]
+    for args in ((hv, hl, rv, rl, 0, f),
+                 (hv, hl, rv, rl, bitpack.max_words() + 1, f),
+                 (hv, hl, rv.to(torch.int64), rl, 64, f),
+                 (hv, hl, rv[:, :970].contiguous(),
+                  rl[:, :970].contiguous(), 64, f),
+                 (hv, hl, off.view(4, 972), rl, 64, f),
+                 (hv, hl, rv, rl, 64, [hv[:, 0]]),
+                 (hv, hl, rv, rl, 64, f * 3)):
         with pytest.raises(ValueError):
-            bitpack.pack_tokens(vals, lens, bad)
+            bitpack.pack_blob(*args)
+    for b, n_words in ((blob, 0), (blob, 67), (blob.to(torch.int64), 64),
+                       (blob[:, :40], 64), (blob.t(), 64)):
+        with pytest.raises(ValueError):
+            bitpack.place(b, n_words)
+    assert x264_tpu_torch.launch_counts()["bitpack"] == before + 2
+
+
+@pytest.mark.parametrize("n_words", [64, 416])
+def test_bitpack_payload_matches_plain_placement(cuda, n_words):
+    """The payload the kernel places, every word of its fixed size,
+    equals the plain placement (cumsum of nbits and scatter_add_) at the
+    1080p frame's 8160 MBs, MBs past the budget included, on two calls
+    and captured in a CUDA graph replayed twice; and, on MBs cut to the
+    budget, the host merge it replaced (merge_mb_strings)."""
+    from x264_tpu_torch.bitstream.slice_assemble import merge_mb_strings
+    from x264_tpu_torch.kernels import bitpack
+    got, want = _blob_case(cuda, 8160, 22, n_words, 5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    blob = got[0].to(cuda)
+    assert torch.equal(bitpack.place(blob, n_words).cpu(), want[1])
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        pay = bitpack.place(blob, n_words)
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(pay.cpu(), want[1])
+    vals, lens = _tokens(8160, 994, 6)
+    lens = torch.where(torch.cumsum(lens, 1) <= 32 * n_words, lens, 0)
+    vals = torch.where(lens > 0, vals, 0)
+    blob = bitpack.pack_blob(vals[:, :22].contiguous().to(cuda),
+                             lens[:, :22].contiguous().to(cuda),
+                             vals[:, 22:].contiguous().to(cuda),
+                             lens[:, 22:].contiguous().to(cuda), n_words)
+    pay = bitpack.place(blob, n_words).cpu().numpy().view(np.uint32)
+    blob = blob.cpu().numpy()
+    ref, total = merge_mb_strings(
+        np.ascontiguousarray(blob[:, :n_words]).view(np.uint32),
+        blob[:, n_words])
+    assert total == int(lens.sum()) and (total + 31) // 32 <= len(pay)
+    m = min(len(ref), len(pay))
+    assert np.array_equal(pay[:m], ref[:m]) and not pay[m:].any()
 
 
 @pytest.mark.parametrize("kw", [
@@ -887,8 +983,9 @@ def test_bitpack_wrapper_launches_and_counts(cuda):
     ids=["p16", "p16_qp0", "p8x8_tools_ref2", "bframes"])
 def test_cavlc_encoder_on_card_matches_cpu(cuda, kw):
     """CAVLC streams: card == CPU, every frame's core launching the block
-    coder and the packer once (more when an MB overflows its words and
-    the core re-runs at the next rung), the I frames' inside the graph."""
+    coder and the packer once and the encoder the placement once (more
+    when an MB overflows its words and the core re-runs at the next
+    rung), the I frames' cores inside the graph."""
     from chip_smoke import split_motion_clip
     w, h, n = 96, 64, 7
     frames = [Frame420(*f) for f in split_motion_clip(w, h, n)]
@@ -898,22 +995,29 @@ def test_cavlc_encoder_on_card_matches_cpu(cuda, kw):
     streams = []
     for d in (cuda, "cpu"):
         enc = Encoder(p, device=d)
+        g0 = len(graph._GRAPHS)
         x264_tpu_torch.reset_launch_counts()
         streams.append(b"".join(enc.encode(f) for f in frames) + enc.flush())
         if d is cuda:
             c = x264_tpu_torch.launch_counts()
+            captured = len(graph._GRAPHS) - g0
     assert streams[0] == streams[1]
-    assert c["cavlc_blocks"] == c["bitpack"] >= n, c
+    # a core run codes its blocks and packs once (an I16 graph's warm-up
+    # at its capture too, one a rung that this run captured:
+    # models/graph.py counts the warm-up's launches), and the encoder
+    # places each run's payload once (bitpack's second entry point)
+    placed = c["bitpack"] - c["cavlc_blocks"]
+    assert placed >= n and c["cavlc_blocks"] - placed == captured, c
     if kw.get("qp") != 0:
-        # one per core run, and the I16 graph's warm-up when this run
-        # captured it (models/graph.py counts the warm-up's launches)
-        assert n <= c["bitpack"] <= n + 1, c
+        assert placed == n, c
     assert c["trellis"] == c["intra_nxn"] == 0, c
 
 
 def test_cavlc_i16_graph_matches_eager_core(cuda):
     """The CAVLC I16 core replayed as a CUDA graph equals the eager core
-    (host_blob included), at two word budgets, each its own graph."""
+    (host_blob included), at two word budgets, each its own graph, on two
+    replays; the placement captured in a graph after it, replayed twice,
+    equals the eager placement and the plain placement of the blob."""
     w, h = 96, 64
     planes = _intra_planes(cuda, w, h, 4)
     qp_t = torch.full((1,), 26, dtype=torch.int32, device=cuda)
@@ -921,14 +1025,27 @@ def test_cavlc_i16_graph_matches_eager_core(cuda):
         kw = dict(mbw=w // 16, mbh=h // 16, cqp_off=0, n_words=n_words)
         eager = intra.i_frame_core(*planes, qp_t, **kw)
         g = graph.graph_for(intra.i_frame_core, planes, qp_t, **kw)
-        got = graph.run_core(intra.i_frame_core, *planes, qp_t, **kw)
+        got = [graph.run_core(intra.i_frame_core, *planes, qp_t, **kw)
+               for _ in range(2)]
         torch.cuda.synchronize()
         assert g.launches["cavlc_blocks"] == g.launches["bitpack"] == 1
-        assert set(got) == set(eager)
-        for k in eager:
-            assert torch.equal(got[k], eager[k]), (n_words, k)
-        assert got["host_blob"].shape == (kw["mbw"] * kw["mbh"],
-                                          n_words + 3)
+        for run in got:
+            assert set(run) == set(eager)
+            for k in eager:
+                assert torch.equal(run[k], eager[k]), (n_words, k)
+        n = kw["mbw"] * kw["mbh"]
+        blob = got[1]["host_blob"]
+        assert blob.shape == (n, n_words + 3)
+        want = bitpack.place(blob, n_words)
+        pg = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(pg):
+            pay = bitpack.place(blob, n_words)
+        for _ in range(2):
+            pg.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(pay, want), n_words
+        assert torch.equal(pay.cpu(), bitpack.place_blob_plain(
+            blob.cpu(), n_words))
 
 
 # ---- the refresh bar (csrc/pir_column.cu) ----
@@ -1067,25 +1184,21 @@ def test_esa16_kernel_at_4k_band_shape(cuda, bh):
     assert int((mv_k[:, 1] == 20).sum()) > mbw * bh // 2
 
 
-def test_cavlc_kernels_at_4k_band_shape(cuda):
-    """The CAVLC block coder on a 4K band's slot count (8160 MBs x 27
-    blocks) and the packer on its MBs at both word rungs, against their
-    twins."""
-    from x264_tpu_torch.kernels import bitpack
+@pytest.mark.parametrize("mbw,mbh", [(240, 34), (120, 17)])
+def test_cavlc_kernels_at_4k_band_shape(cuda, mbw, mbh):
+    """The CAVLC block coder on a 4K band's fields (240 x 34 MBs) and a
+    1080p band's (120 x 17), and the packer on their MBs at both word
+    rungs, blob and payload, against their twins."""
     from x264_tpu_torch.kernels import cavlc as k_cv
     from x264_tpu_torch.ops import cavlc as cv
-    coefs, blen, nc, gate = _cavlc_blocks("large", 34 * 240 * 27, 34)
-    pv, pl = cv.code_blocks(coefs, blen, nc, gate)
-    kv, kl = k_cv.code_blocks_(*(t.to(cuda) for t in (coefs, blen, nc,
-                                                      gate)))
+    fields = _cavlc_fields(mbw, mbh, 34, "large")
+    pv, pl = cv.residual_slots(*fields, mbw, mbh)
+    kv, kl = k_cv.residual_slots_(*(t.to(cuda) for t in fields), mbw, mbh)
     torch.cuda.synchronize()
     assert torch.equal(kv.cpu(), pv) and torch.equal(kl.cpu(), pl)
-    vals, lens = _tokens(34 * 240, 750, 34)
     for n_words in (64, 416):
-        pw, pn = bitpack.pack_tokens(vals, lens, n_words)
-        kw, kn = bitpack.pack_tokens(vals.to(cuda), lens.to(cuda), n_words)
-        torch.cuda.synchronize()
-        assert torch.equal(kw.cpu(), pw) and torch.equal(kn.cpu(), pn)
+        got, want = _blob_case(cuda, mbw * mbh, 9, n_words, 34)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("kw", [

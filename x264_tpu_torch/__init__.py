@@ -7,14 +7,15 @@ what ran on the TPU runs on PyTorch tensors:
   params.py, utils/, bitstream/, rc/
             — host layer copied from x264_tpu: parameters, the frame
               container, SPS/PPS/SEI/slice-header writers, CAVLC's
-              tables and the merge of its packed MB strings, the
+              tables and the host merge of packed MB strings (the
+              tests' oracle: the card places the strings), the
               host-syntax path's CAVLC writers (cavlc, cavlc_vec,
               slice_writer, slice_writer_vec), rate control
   native/   — the C CABAC coder (a copy of x264_tpu/native), built with
               gcc at first use (ops/entropy_pack.py)
   ops/      — primitive ops on tensors (pixel, transform, predict, mc,
               me, me_parts, header, entropy_pack, deblock), CAVLC's
-              block inputs and the block coder's plain twin (cavlc),
+              residual slots and blob with their plain twins (cavlc),
               and the trellis's host tables and plain twin (trellis)
   models/   — frame cores: the I16 wavefront (intra), the P pipeline
               (inter, P16x16 or P8x8 partitions, one or more

@@ -13,13 +13,14 @@ the frame cores, the deblock and the upload.  The decoded picture buffer
 
 The port runs the single-slice path with either entropy coder: CABAC
 (the C coder on the host) or CAVLC (the library's default; every MB's
-codes packed into words on the device, the host only merges them,
-``bitstream/slice_assemble.py``).  I frames (I16x16, or with ``i4x4``
-and CABAC the I16x16 / I4x4 / I8x8 choice), P frames on ``ref_frames``
-references with explicit weighted prediction when asked (``weightp``),
-with or without P8x8 partitions, and B frames in mini-GOPs (``bframes``
-> 0, temporal direct, one reference per list), with the adaptive 8x8
-transform and, with CABAC, trellis quantisation when asked; and the
+codes packed into words and placed in the slice payload on the device,
+the host only appends the payload's words, ``_append_mbs``).  I frames
+(I16x16, or with ``i4x4`` and CABAC the I16x16 / I4x4 / I8x8 choice), P
+frames on ``ref_frames`` references with explicit weighted prediction
+when asked (``weightp``), with or without P8x8 partitions, and B frames
+in mini-GOPs (``bframes`` > 0, temporal direct, one reference per list),
+with the adaptive 8x8 transform and, with CABAC, trellis quantisation
+when asked; and the
 lookahead: adaptive quantisation (``aq_mode`` 1-3, a per-MB QP map on I
 and P frames), the lowres scenecut with B frames, adaptive B placement
 (``b_adapt=1``) and MB-tree under CRF or ABR (``models/lookahead.py``,
@@ -61,10 +62,10 @@ from x264_tpu_torch.bitstream.headers import (SLICE_B, SLICE_I, SLICE_P,
 from x264_tpu_torch.bitstream.sei import (buffering_period_sei,
                                           pic_timing_sei,
                                           recovery_point_sei, version_sei)
-from x264_tpu_torch.bitstream.slice_assemble import (append_payload,
-                                                     merge_mb_strings)
+from x264_tpu_torch.bitstream.slice_assemble import append_payload
 from x264_tpu_torch.bitstream.slice_writer_vec import \
     write_slice_data_vec as write_slice_data
+from x264_tpu_torch.kernels.bitpack import place
 from x264_tpu_torch.models.b_frame import b_frame_core, b_pair_core
 from x264_tpu_torch.models.graph import run_core
 from x264_tpu_torch.models import mbtree as MT
@@ -131,17 +132,23 @@ def _check_params(p: EncoderParams) -> None:
             f"x264_tpu_torch does not run these settings yet: {bad}")
 
 
-def _append_mbs(bs: BitWriter, blob: np.ndarray, n_words: int,
+# the CAVLC blob's columns after its words, as the host gets them
+# (``Encoder._host_copies``): nbits, then the cores' fields
+_NBITS, _CLASS, _COST, _ICOST = 0, 1, 2, 3
+
+
+def _append_mbs(bs: BitWriter, rows: np.ndarray, payload: "_HostCopy",
                 skip_class) -> None:
-    """Append a CAVLC blob's per-MB strings to ``bs`` (one merge of the
-    packed words) and, when ``skip_class`` is given (P and B slices), the
-    ue(mb_skip_run) of the skipped MBs after the last coded one."""
-    nbits = blob[:, n_words]
-    words = np.ascontiguousarray(blob[:, :n_words]).view(np.uint32)
-    payload, total = merge_mb_strings(words, nbits)
-    append_payload(bs, payload, total)
+    """Append a CAVLC slice's MB strings to ``bs``: the used words of the
+    payload placed on the device (``kernels/bitpack.place``; its length
+    the sum of the rows' nbits), once its copy has landed, and, when
+    ``skip_class`` is given (P and B slices), the ue(mb_skip_run) of the
+    skipped MBs after the last coded one.  ``rows``: the blob's columns
+    after its words."""
+    total = int(rows[:, _NBITS].astype(np.int64).sum())
+    append_payload(bs, payload.numpy().view(np.uint32), total)
     if skip_class is not None:
-        coded = blob[:, n_words + 1] != skip_class
+        coded = rows[:, _CLASS] != skip_class
         last = np.nonzero(coded)[0][-1] if coded.any() else -1
         trailing = int(len(coded) - 1 - last)
         if trailing:
@@ -194,7 +201,7 @@ class FrameStats:
 class Encoder:
     """x264_encoder_open + x264_encoder_encode for the port's path: every
     frame is one job — upload, frame core, deblock on ``device`` — then
-    the host CABAC coder or the merge of the CAVLC words packed on the
+    the host CABAC coder or the append of the CAVLC payload placed on the
     device, and the Annex-B bytes.  ``device`` is where the
     frames are encoded: a CUDA device runs the hand-written kernels, the
     CPU their plain twins."""
@@ -382,6 +389,19 @@ class Encoder:
         or the CAVLC word budget per MB."""
         return dict(lv_cap=budget) if self.p.cabac else dict(n_words=budget)
 
+    def _host_copies(self, out: dict, n_words: int) -> dict:
+        """A core's ``host_blob`` replaced by its ``_HostCopy``, in place.
+        With CAVLC the MBs' strings are first placed in the slice payload
+        on the device (``kernels/bitpack.place``), which comes back as
+        ``host_payload``, and the host gets only the blob's columns after
+        its words (``_NBITS``, ``_CLASS``, ...)."""
+        blob = out["host_blob"]
+        if not self.p.cabac:
+            out["host_payload"] = _HostCopy(place(blob, n_words))
+            blob = blob[:, n_words:].contiguous()
+        out["host_blob"] = _HostCopy(blob)
+        return out
+
     def _cab_rows(self, blob, n: int, is_b: bool = False,
                   parts: bool = False, i4: bool = False):
         """Per-MB field rows of a flat CABAC blob (entropy_pack layout)."""
@@ -449,8 +469,7 @@ class Encoder:
                                trellis_tbl=self._trellis_tbl(base_qp, "P"),
                                wts=wts, **pkw, **self._entropy_kw(n_words))
             slice_type = SLICE_P
-        out["host_blob"] = _HostCopy(out["host_blob"])
-        return out, slice_type
+        return self._host_copies(out, n_words), slice_type
 
     def _trellis_tbl(self, qp: int, slice_type: str):
         """The frame's trellis cost bundle (``frame_trellis`` at the RD
@@ -579,8 +598,8 @@ class Encoder:
                 p_cost = float(rows[:, 14 + 9].astype(np.int64).sum())
                 i_cost = float(rows[:, 14 + 10].astype(np.int64).sum())
             else:
-                p_cost = float(blob[:, n_words + 2].astype(np.int64).sum())
-                i_cost = float(blob[:, n_words + 3].astype(np.int64).sum())
+                p_cost = float(blob[:, _COST].astype(np.int64).sum())
+                i_cost = float(blob[:, _ICOST].astype(np.int64).sum())
             if p_cost >= (1.0 - self.p.scenecut_threshold / 100.0) * i_cost:
                 idr = True
                 ftype = "IDR"
@@ -649,8 +668,7 @@ class Encoder:
                 sad_lambda(qp), mbw=mbw, mbh=bh,
                 me_range=self.p.me_range, cqp_off=self.p.chroma_qp_offset,
                 subpel=self.p.subpel, **ekw)
-        out["host_blob"] = _HostCopy(out["host_blob"])
-        return out
+        return self._host_copies(out, n_words)
 
     def _submit_device_sliced(self, y, u, v, ftype: str, qp: int) -> dict:
         """A multi-slice frame (the reference's ``_submit_device_sliced``,
@@ -717,8 +735,8 @@ class Encoder:
         """A multi-slice frame's bytes: per band, the re-run at the next
         rung of the fixed ladder while its blob overflows (past the last
         rung the reference raises, and so does the port), the slice header
-        with the band's first MB and QP, and its CABAC payload or merged
-        CAVLC strings with the trailing mb_skip_run; then the frame's
+        with the band's first MB and QP, and its CABAC payload or CAVLC
+        payload with the trailing mb_skip_run; then the frame's
         stats.  There is no VBV re-encode: a sliced frame has only rate
         control's soft clip, as in the reference."""
         mbw = job["mbw"]
@@ -737,12 +755,12 @@ class Encoder:
                     rows = self._cab_rows(blob, nmb)
                     return int(rows[:, 14 + 8].astype(np.int64).sum()) \
                         > nmb * n_words
-                return int(blob[:, n_words].max(initial=0)) > 32 * n_words
+                return int(blob[:, _NBITS].max(initial=0)) > 32 * n_words
 
             if over(blob, n_words):
                 for n_words in job["ladder"][1:]:
-                    blob = self._rerun_band(job, b, n_words)[
-                        "host_blob"].numpy()
+                    ob = self._rerun_band(job, b, n_words)
+                    blob = ob["host_blob"].numpy()
                     if not over(blob, n_words):
                         break
                 else:
@@ -754,9 +772,8 @@ class Encoder:
                 mb_class = rows[:, 14]
                 total_cost += int(rows[:, 14 + 9].astype(np.int64).sum())
             else:
-                mb_class = blob[:, n_words + 1]
-                total_cost += int(blob[:, n_words + 2].astype(np.int64)
-                                  .sum())
+                mb_class = blob[:, _CLASS]
+                total_cost += int(blob[:, _COST].astype(np.int64).sum())
             classes.append(mb_class)
             bs = BitWriter()
             write_slice_header(bs, self.p, self.sps, init_qp=self._init_qp,
@@ -774,7 +791,7 @@ class Encoder:
                 out_bytes += wrap_slice_nal(bs.to_bytes_aligned() + payload,
                                             job["idr"])
             else:
-                _append_mbs(bs, blob, n_words,
+                _append_mbs(bs, blob, ob["host_payload"],
                             skip_class=MB_PSKIP if job["slice_type"]
                             == SLICE_P else None)
                 out_bytes += wrap_slice_nal(bs.to_rbsp(), job["idr"])
@@ -920,11 +937,13 @@ class Encoder:
     def _finalize_cavlc(self, job: dict) -> bytes:
         """The frame's bytes (the reference's ``_finalize_device`` on its
         CAVLC branch): re-run the core at the next word budget when an
-        MB's packed string overflowed, then the slice header, the merged
-        per-MB strings and, in a P slice, the trailing ue(mb_skip_run)."""
+        MB's packed string overflowed, then the slice header, the payload
+        of the MBs' strings and, in a P slice, the trailing
+        ue(mb_skip_run)."""
         blob = job["blob"].numpy()
+        out = job["out"]
         n_words = job["n_words"]
-        nbits = blob[:, n_words]
+        nbits = blob[:, _NBITS]
         if int(nbits.max(initial=0)) > 32 * n_words:
             # an MB past its word budget: re-run the entropy at a bigger
             # one (reference encoder/encoder.c:2893 re-encode pattern)
@@ -935,15 +954,15 @@ class Encoder:
                                         job["mbw"], job["mbh"],
                                         wts=job["wts"], pir=job["pir"])
                 blob = out["host_blob"].numpy()
-                nbits = blob[:, n_words]
+                nbits = blob[:, _NBITS]
                 if int(nbits.max(initial=0)) <= 32 * n_words:
                     break
         self._note_budget(False, -(-int(nbits.max(initial=0)) // 32))
-        mb_class = blob[:, n_words + 1]
+        mb_class = blob[:, _CLASS]
 
         out_bytes = self._frame_prefix(job)
         bs = self._slice_writer(job)
-        _append_mbs(bs, blob, n_words,
+        _append_mbs(bs, blob, out["host_payload"],
                     skip_class=MB_PSKIP if job["slice_type"] == SLICE_P
                     else None)
         out_bytes += wrap_slice_nal(bs.to_rbsp(), job["idr"])
@@ -951,8 +970,7 @@ class Encoder:
         if nq is not None:
             return self._finalize_cavlc(self._vbv_reencode(job, nq))
         self._account(job, len(out_bytes),
-                      int(blob[:, n_words + 2].astype(np.int64).sum()),
-                      mb_class)
+                      int(blob[:, _COST].astype(np.int64).sum()), mb_class)
         return out_bytes
 
     # ---- B-frame mini-GOPs (I/P anchors, B frames between them, temporal
@@ -1226,7 +1244,8 @@ class Encoder:
     def _b_job(self, out: dict, disp: int, qp: int, poc_cur: int, ladder,
                n_words: int, args: tuple) -> dict:
         h, w = args[0].shape
-        return dict(out=out, blob=_HostCopy(out["host_blob"]), mbw=w // 16,
+        self._host_copies(out, n_words)
+        return dict(out=out, blob=out["host_blob"], mbw=w // 16,
                     mbh=h // 16, qp=qp, ladder=ladder, n_words=n_words,
                     poc_cur=poc_cur, disp=disp, frame_num=self.frame_num,
                     args=args)
@@ -1275,7 +1294,7 @@ class Encoder:
         """A B frame's bytes: the overflow ladder re-runs ``b_frame_core``
         at the frame's own lambda; then the non-reference slice (the
         current frame_num, not advanced) through the CABAC coder or the
-        merged CAVLC strings, the deblocked recon when ``full_recon`` is
+        CAVLC payload, the deblocked recon when ``full_recon`` is
         on, and the stats."""
         out = job["out"]
         mbw, mbh, qp = job["mbw"], job["mbh"], job["qp"]
@@ -1290,13 +1309,15 @@ class Encoder:
             if cab:
                 rows = self._cab_rows(blob, n, is_b=True)
                 return -(-int(rows[:, 14 + 8].astype(np.int64).sum()) // n)
-            return -(-int(blob[:, n_words].max(initial=0)) // 32)
+            return -(-int(blob[:, _NBITS].max(initial=0)) // 32)
 
         if used(blob, n_words) > n_words:
             y, u, v, prev, nxt, dsf = job["args"]
             for n_words in job["ladder"][1:]:
-                out = self._b_core(y, u, v, prev, nxt, dsf, qp, n_words)
-                blob = out["host_blob"].cpu().numpy()
+                out = self._host_copies(
+                    self._b_core(y, u, v, prev, nxt, dsf, qp, n_words),
+                    n_words)
+                blob = out["host_blob"].numpy()
                 if used(blob, n_words) <= n_words:
                     break
         self._note_budget(cab, used(blob, n_words))
@@ -1320,9 +1341,10 @@ class Encoder:
             data = hrd + wrap_slice_nal(bs.to_bytes_aligned() + payload,
                                         False, is_ref=False)
         else:
-            mb_class = blob[:, n_words + 1]
-            cost_total = int(blob[:, n_words + 2].astype(np.int64).sum())
-            _append_mbs(bs, blob, n_words, skip_class=MB_PSKIP)
+            mb_class = blob[:, _CLASS]
+            cost_total = int(blob[:, _COST].astype(np.int64).sum())
+            _append_mbs(bs, blob, out["host_payload"],
+                        skip_class=MB_PSKIP)
             data = hrd + wrap_slice_nal(bs.to_rbsp(), False, is_ref=False)
 
         # the deblocked recon for output (a B frame is no reference; the

@@ -43,10 +43,18 @@ SIGNATURES = {
     "trellis_auto_layout": [_I, _I],
     "trellis_params_len": [_I],
     "intra_nxn_launch": [_P] * 7 + [_I] * 6 + [_P],
-    "cavlc_blocks_launch": [_P] * 7 + [_I, _P],
+    "cavlc_mb_launch": [_P] * 12 + [_I, _I, _P],
     "cavlc_table_len": [],
-    "bitpack_launch": [_P] * 4 + [_I] * 3 + [_P],
+    "cavlc_smem_bytes": [],
+    "bitpack_launch": [_P, _P, _I, _P, _P, _I] + [_P] * 4
+                      + [_I, _P, _I, _I, _P],
+    "bitplace_launch": [_P, _I, _I, _I, _P, _P, ctypes.c_longlong, _P],
+    "bitplace_max_mbs": [],
+    "bitplace_sum_mbs": [],
     "bitpack_max_words": [],
+    "bitpack_max_slots": [],
+    "bitpack_max_fields": [],
+    "bitpack_smem_bytes": [_I, _I, _I],
     "pir_column_launch": [_P] * 23 + [_I] * 4 + [_P],
     "pir_column_geom": [_I] * 4 + [_P],
 }
@@ -156,3 +164,30 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().x264tpu_cuda_error(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def check_tensors(kernel: str, device, specs) -> None:
+    """Raise ValueError unless every (name, tensor, shape, dtype, aligned)
+    of ``specs`` is a contiguous tensor of that shape and dtype on
+    ``device``, 16-byte aligned where asked: the kernels convert nothing.
+    One test a tensor on the path that passes (the wrappers run once per
+    core), the reasons only when one fails."""
+    for name, t, shape, dtype, aligned in specs:
+        try:
+            ok = (t.dtype is dtype and t.shape == shape
+                  and t.device == device and t.is_contiguous()
+                  and not (aligned and t.data_ptr() & 15))
+        except AttributeError:
+            raise ValueError(f"{kernel}: {name} is not a tensor") from None
+        if not ok:
+            bad = [f"shape {tuple(t.shape)} != {tuple(shape)}"
+                   if t.shape != shape else "",
+                   f"dtype {t.dtype} != {dtype}" if t.dtype is not dtype
+                   else "",
+                   f"device {t.device} != {device}" if t.device != device
+                   else "",
+                   "" if t.is_contiguous() else "not contiguous",
+                   "not 16-byte aligned" if aligned and t.data_ptr() & 15
+                   else ""]
+            raise ValueError(f"{kernel}: {name}: "
+                             + ", ".join(b for b in bad if b))

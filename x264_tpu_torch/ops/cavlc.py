@@ -1,13 +1,15 @@
 """CAVLC residual coding on the device: per-block (value, length) slot
-grids, so the host only merges packed bitstrings (port of
+grids, so the host only appends packed bitstrings (port of
 x264_tpu/ops/device/cavlc.py; parity: reference encoder/cavlc.c
 block_residual_write_cavlc).
 
 Slot layout per block (36 slots): [0] coeff_token, [1:4] trailing-one
 signs, [4:20] level codes (prefix and suffix in one token), [20]
-total_zeros, [21:36] run_before.  ``code_blocks`` runs the CUDA kernel
-``csrc/cavlc_blocks.cu`` on CUDA tensors (``kernels/cavlc.py``) and the
-plain twin ``code_blocks_plain`` on CPU tensors."""
+total_zeros, [21:36] run_before.  ``residual_slots`` runs the CUDA
+kernel ``csrc/cavlc_blocks.cu`` on the cores' CUDA fields in place
+(``kernels/cavlc.py``) and, on CPU tensors, its plain twin:
+``block_inputs`` then ``code_blocks_plain``.  ``cavlc_blob`` packs the
+slots per MB (``csrc/bitpack.cu``, ``kernels/bitpack.py``)."""
 
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from x264_tpu_torch.kernels import cavlc as KC
-from x264_tpu_torch.kernels.bitpack import pack_tokens
+from x264_tpu_torch.kernels.bitpack import pack_blob
 
 _I32 = torch.int32
 BLOCK_SLOTS = KC.BLOCK_SLOTS
@@ -152,16 +154,13 @@ def code_blocks_plain(coefs, blen, nC):
 
 def code_blocks(coefs, blen, nC, gate=None):
     """(vals, lens) (B,36) of (B,16) blocks, the lengths of a block whose
-    gate is False zeroed: the kernel on CUDA tensors, the plain twin on
-    CPU tensors."""
-    if coefs.device.type == "cpu":
-        vals, lens = code_blocks_plain(coefs, blen, nC)
-        if gate is not None:
-            lens = torch.where(gate[:, None], lens, 0)
-        return vals, lens
-    if coefs.device.type != "cuda":
-        raise ValueError(f"code_blocks: no kernel for {coefs.device}")
-    return KC.code_blocks_(coefs, blen, nC, gate)
+    gate is False zeroed: ``code_blocks_plain`` and the gate, the second
+    half of ``residual_slots_plain`` (the kernel codes whole MBs from the
+    cores' fields, through ``residual_slots``)."""
+    vals, lens = code_blocks_plain(coefs, blen, nC)
+    if gate is not None:
+        lens = torch.where(gate[:, None], lens, 0)
+    return vals, lens
 
 
 @functools.lru_cache(maxsize=8)
@@ -248,26 +247,43 @@ def block_inputs(luma_dc, luma_ac, luma_nnz, chroma_dc, chroma_ac,
             nC.reshape(-1), gate.reshape(-1))
 
 
-def residual_slots(luma_dc, luma_ac, luma_nnz, chroma_dc, chroma_ac,
-                   chroma_nnz, cbp_luma, cbp_chroma, is_i16, mbw: int,
-                   mbh: int):
-    """The full residual slot grids of a frame (arguments as
-    ``block_inputs``): one ``code_blocks`` over all 27 blocks per MB ->
-    (vals, lens) (N, 27*36) int32 in emission order."""
+def residual_slots_plain(luma_dc, luma_ac, luma_nnz, chroma_dc, chroma_ac,
+                         chroma_nnz, cbp_luma, cbp_chroma, is_i16, mbw: int,
+                         mbh: int):
+    """The plain twin of the kernel's residual slots, on any device:
+    ``block_inputs`` and ``code_blocks_plain`` over all 27 blocks per MB,
+    the lengths of an uncoded block zeroed -> (vals, lens) (N, 27*36)."""
     n = mbw * mbh
-    vals, lens = code_blocks(*block_inputs(
+    coefs, blen, nC, gate = block_inputs(
         luma_dc, luma_ac, luma_nnz, chroma_dc, chroma_ac, chroma_nnz,
-        cbp_luma, cbp_chroma, is_i16, mbw, mbh))
+        cbp_luma, cbp_chroma, is_i16, mbw, mbh)
+    vals, lens = code_blocks(coefs, blen, nC, gate)
     return (vals.reshape(n, BLOCKS_PER_MB * BLOCK_SLOTS),
             lens.reshape(n, BLOCKS_PER_MB * BLOCK_SLOTS))
 
 
+def residual_slots(luma_dc, luma_ac, luma_nnz, chroma_dc, chroma_ac,
+                   chroma_nnz, cbp_luma, cbp_chroma, is_i16, mbw: int,
+                   mbh: int):
+    """The full residual slot grids of a frame (arguments as
+    ``block_inputs``) -> (vals, lens) (N, 27*36) int32 in emission order:
+    on CUDA tensors one launch of the kernel on the fields as they are,
+    on CPU tensors the plain twin ``residual_slots_plain``."""
+    args = (luma_dc, luma_ac, luma_nnz, chroma_dc, chroma_ac, chroma_nnz,
+            cbp_luma, cbp_chroma, is_i16, mbw, mbh)
+    if luma_dc.device.type == "cuda":
+        return KC.residual_slots_(*args)
+    if luma_dc.device.type != "cpu":
+        raise ValueError(f"residual_slots: no kernel for {luma_dc.device}")
+    return residual_slots_plain(*args)
+
+
 def cavlc_blob(hv, hl, res_vals, res_lens, n_words: int, fields):
     """The CAVLC host blob: each MB's header and residual tokens packed
-    into n_words words (kernel ``csrc/bitpack.cu``), then nbits and the
-    per-MB ``fields`` (mb_class, mb_cost, ...) -> (N, n_words + 1 +
-    len(fields)) int32, the reference's layout."""
-    words, nbits = pack_tokens(torch.cat([hv, res_vals], dim=1),
-                               torch.cat([hl, res_lens], dim=1), n_words)
-    return torch.cat([words, nbits[:, None]]
-                     + [f.to(_I32)[:, None] for f in fields], dim=1)
+    into n_words words (kernel ``csrc/bitpack.cu``, the two grids read
+    where they lie), then nbits and the per-MB ``fields`` (mb_class,
+    mb_cost, ...) -> (N, n_words + 1 + len(fields)) int32, the
+    reference's layout.  ``kernels/bitpack.place`` places its MBs'
+    strings in the slice payload."""
+    return pack_blob(hv, hl, res_vals, res_lens, n_words,
+                     [f.to(_I32) for f in fields])
