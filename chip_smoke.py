@@ -79,7 +79,13 @@ Phases, each of which raises (exit code != 0) when it fails:
      esa16 and deblock launches per frame), then 30 frames of ultrafast
      with tune zerolatency on 4 slices at CRF 23 through the API (fps,
      encode() ms p50/p95/max, esa16, cavlc_blocks and bitpack launches
-     per P frame); fps, bytes,
+     per P frame), then the band mesh (threads > 1,
+     x264_tpu_torch/parallel/sliced.py): the step over card 0 four times
+     against the band loop on 3 P frames of ultrafast on 4 slices, a
+     band re-run at 416 words, ms per P frame and the synchronising CUDA
+     calls in a step, and on a host of two or more cards the threads=n
+     stream against the one-card stream (on one card a line says that
+     part did not run); fps, bytes,
      Y-PSNR, the partition shapes chosen, the share
      of 8x8-transform MBs, the P frames with a non-neutral weight, the
      esa_parts launches of each P frame (one per active reference) and
@@ -2932,6 +2938,282 @@ def _check_small_slices() -> None:
               f"{launches}")
 
 
+# ---- the band mesh (ROADMAP A15, parallel/sliced.py): threads > 1 ----
+
+MESH_FRAMES = 4              # IDR + 3 P frames of ultrafast on 4 slices
+
+
+def _mesh_params(**kw):
+    """x264's ultrafast preset (fullpel, CAVLC, no deblock) on 4 slices at
+    CQP 26 at 1080p: 4 bands of 17 MB rows."""
+    from x264_tpu_torch.params import param_default_preset
+    base = dict(width=W, height=H, qp=QP, slices=4, fps_num=30, fps_den=1)
+    base.update(kw)
+    return param_default_preset("ultrafast").clone(**base)
+
+
+def _mesh_fields(out: dict) -> dict:
+    """A band's outputs as host arrays: the fields, the blob's columns
+    after its words and the placed payload (``_host_copies``' copies)."""
+    return {k: (v.numpy() if k in ("host_blob", "host_payload")
+                else v.cpu().numpy()) for k, v in out.items()}
+
+
+def _mesh_equal(label: str, got: dict, want: dict) -> None:
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: fields {sorted(got)} != "
+                             f"{sorted(want)}")
+    for k in want:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{label}: field {k} differs")
+
+
+def _mesh_syncs(fn) -> list:
+    """The synchronising CUDA calls (torch.cuda.set_sync_debug_mode) that
+    fn() makes, each at its innermost frame in x264_tpu_torch."""
+    import traceback
+    import warnings
+    import torch
+    sites = []
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        # the mode's own notice that it is a prototype is no sync
+        if "called a synchronizing" not in str(message):
+            return
+        st = [f"{os.path.relpath(f.filename, here)}:{f.lineno} {f.name}"
+              for f in traceback.extract_stack()[:-1]
+              if f.filename.startswith(here)]
+        sites.append(st[-1] if st else f"{filename}:{lineno}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sites
+
+
+def _run_1080p_mesh(records) -> None:
+    """The band mesh (``threads`` > 1; parallel/sliced.py).  (a) On every
+    host: the 1080p ultrafast clip (IDR + 3 P, 4 slices of 17 MB rows,
+    fullpel, CAVLC at 64 words) through the encoder's band loop
+    (threads=1), each P band's outputs kept (``_host_copies``' input and
+    output); then, counts reset just before and read just after, the step
+    over card 0 four times (``build_sliced_p_step``) on each P frame's
+    planes and padded references, with each band's blob placed as the
+    encoder places it: every field, the blob and the payload equal the
+    loop's at tolerance 0, and esa16, cavlc_blocks and bitpack launched 4,
+    4 and 8 times a P frame.  A noise frame at QP 12 over the first P
+    frame's references: a band overflows 64 words, and the loop's re-run
+    at 416 (``_rerun_band``) equals the step's band at 416 and the
+    encoder's mesh re-run on the band's card.  The synchronising CUDA
+    calls inside one warm step (torch.cuda.set_sync_debug_mode).  ms per
+    P frame of the step and of the loop's four bands (host clock, card
+    synchronised).  (b) With two or more cards: the clip encoded with
+    slices = threads = n (4, or 2 on a host of 2 or 3 cards) and with
+    threads=1, counts reset and read around the mesh encode: equal
+    streams, the mesh taken on every P frame, its cards, and encode() ms
+    per P frame of each, after an untimed encode that makes each card's
+    first use.  Fails on any difference; (b) is said not to
+    run on a host of one card."""
+    import torch
+    import x264_tpu_torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    from x264_tpu_torch.kernels.bitpack import place
+    from x264_tpu_torch.parallel import sliced
+    from x264_tpu_torch.state import sad_lambda
+    smi = _smi("name,power.limit")
+    clip = make_clip(MESH_FRAMES)
+    p = _mesh_params()
+    enc = Encoder(p, device="cuda")
+    kept, jobs = [], []
+    host_copies = enc._host_copies
+
+    def keep(out, n_words):
+        fields = dict(out)
+        res = host_copies(out, n_words)
+        kept.append((fields, res))
+        return res
+
+    enc._host_copies = keep
+    submit = enc._submit_device_sliced
+
+    def keep_job(*a):
+        job = submit(*a)
+        jobs.append(job)
+        return job
+
+    enc._submit_device_sliced = keep_job
+    loop_ms = []
+    for i, f in enumerate(clip):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode(Frame420(*f))
+        torch.cuda.synchronize()
+        if i:
+            loop_ms.append(1000 * (time.perf_counter() - t0))
+    enc.flush()
+    del enc._host_copies, enc._submit_device_sliced
+    p_jobs = [j for j in jobs if not j["idr"]]
+    if len(p_jobs) != MESH_FRAMES - 1 or len(kept) != 4 * MESH_FRAMES or \
+            any(j["heights"] != [17] * 4 for j in p_jobs):
+        raise AssertionError(f"mesh (a): {len(p_jobs)} P jobs, {len(kept)} "
+                             "bands")
+    loop = [[_mesh_fields(res) for _, res in kept[4 * i:4 * i + 4]]
+            for i in range(1, MESH_FRAMES)]
+    dev0 = torch.device("cuda", 0)
+    kw = dict(mbw=W // 16, mbh_per_band=17, me_range=p.me_range,
+              cqp_off=p.chroma_qp_offset, subpel=p.subpel)
+    step, _ = sliced.build_sliced_p_step([dev0] * 4, n_words=64, **kw)
+
+    def mesh_frame(job, stp=step, n_words=64):
+        outs = stp.bands(*job["planes"], *job["refpads"], job["qp"],
+                         sad_lambda(job["qp"]))
+        for d, o in zip(stp.devices, outs):
+            with sliced.on_card(d):
+                enc._host_copies(o, n_words)
+        return outs
+
+    torch.cuda.synchronize()
+    x264_tpu_torch.reset_launch_counts()
+    mesh = [[_mesh_fields(o) for o in mesh_frame(j)] for j in p_jobs]
+    torch.cuda.synchronize()
+    launches = x264_tpu_torch.launch_counts()
+    for r in records:
+        r["launches"] += launches[r["name"]]
+    n_p = len(p_jobs)
+    want = {"esa16": 4 * n_p, "cavlc_blocks": 4 * n_p, "bitpack": 8 * n_p}
+    if {k: launches[k] for k in want} != want or any(
+            v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"mesh (a): launches {launches}, want {want}")
+    for i, (m, lp) in enumerate(zip(mesh, loop)):
+        for b in range(4):
+            _mesh_equal(f"mesh (a) P frame {i + 1} band {b}", m[b], lp[b])
+    # ms per P frame: the step (bands, placement, the deblock fields
+    # gathered) against the loop's four bands, on one card
+    keys = ("recon_y", "recon_u", "recon_v", "mb_class", "luma_nnz",
+            "cbp_luma", "cbp_chroma", "qp_mb", "mv")
+    step_ms, bands_ms = [], []
+    for job in p_jobs:
+        for dst, fn in ((step_ms, lambda: sliced.gather(
+                mesh_frame(job), keys, dev0)),
+                        (bands_ms, lambda: sliced.gather(
+                            [enc._band_core(job, b, 64) for b in range(4)],
+                            keys, dev0))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            dst.append(1000 * (time.perf_counter() - t0))
+    syncs = _mesh_syncs(lambda: sliced.gather(mesh_frame(p_jobs[-1]),
+                                              keys, dev0))
+    # the check's control: a tensor made from host data on the card
+    control = _mesh_syncs(lambda: torch.tensor([1, 2], device=dev0))
+    if len(control) != 1:
+        raise AssertionError(f"mesh (a): the sync check saw {control} in "
+                             "a copy from pageable memory")
+    print(f"band mesh (a): the step over {[str(d) for d in step.devices]} "
+          f"== the band loop, every field, blob and payload, on {n_p} "
+          f"1080p ultrafast P frames of 4 bands of 17 MB rows; launches "
+          f"{launches}")
+    print(f"band mesh (a) ms per P frame on one card ({smi}): step "
+          + " ".join(f"{t:.2f}" for t in step_ms) + "; loop's four bands "
+          + " ".join(f"{t:.2f}" for t in bands_ms) + "; encode() with the "
+          "loop " + " ".join(f"{t:.2f}" for t in loop_ms))
+    print(f"band mesh (a) synchronising CUDA calls in one warm step, its "
+          f"placement and gather (torch.cuda.set_sync_debug_mode; its "
+          f"control, a tensor from host data, shows {len(control)}): "
+          f"{len(syncs)}: {', '.join(syncs) or 'none'}")
+    # a band re-run at the second rung inside a mesh frame
+    rng = np.random.default_rng(14)
+    noise = [torch.from_numpy(_pad_to_mb(rng.integers(0, 256, (H // q, W // q))
+                                         .astype(np.uint8), 16 // q)).to(dev0)
+             for q in (1, 2, 2)]
+    job = dict(p_jobs[0], planes=noise, qp=12, devices=None)
+    first = [_mesh_fields(o) for o in mesh_frame(job)]
+    over = [b for b, f in enumerate(first)
+            if f["host_blob"][:, 0].max() > 32 * 64]
+    if not over:
+        raise AssertionError("mesh (a): no band of the noise frame "
+                             "overflows 64 words")
+    b = over[0]
+    step416, _ = sliced.build_sliced_p_step([dev0] * 4, n_words=416, **kw)
+    m416 = _mesh_fields(mesh_frame(job, step416, 416)[b])
+    l416 = _mesh_fields(enc._rerun_band(job, b, 416))
+    e416 = _mesh_fields(enc._rerun_band(dict(job, devices=[dev0] * 4), b,
+                                        416))
+    _mesh_equal(f"mesh (a) re-run of band {b} at 416", m416, l416)
+    _mesh_equal(f"mesh (a) encoder's mesh re-run of band {b}", e416, l416)
+    print(f"band mesh (a): noise at QP 12, bands {over} overflow 64 words; "
+          f"band {b} re-run at 416: the step's == the loop's == the "
+          f"encoder's mesh re-run (max nbits "
+          f"{int(l416['host_blob'][:, 0].max())})")
+    # (b) the encoder across cards
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        print(f"band mesh (b): not run: the host has {n_dev} card; the mesh "
+              "across cards needs 2 or more (on one card the encoder runs "
+              "the band loop, as the reference does with fewer devices "
+              "than bands)")
+        return
+    n = 4 if n_dev >= 4 else 2
+    # each card's first use (its context, tables and caches) before the
+    # timed encodes
+    warm = Encoder(_mesh_params(slices=n, threads=n), device="cuda")
+    for f in clip[:2]:
+        warm.encode(Frame420(*f))
+    warm.flush()
+    streams, ms, calls = {}, {}, []
+    bands = sliced.SlicedPStep.bands
+
+    def spy(self, *a):
+        calls.append([str(d) for d in self.devices])
+        return bands(self, *a)
+
+    for threads in (n, 1):
+        e = Encoder(_mesh_params(slices=n, threads=threads), device="cuda")
+        sliced.SlicedPStep.bands = spy if threads > 1 else bands
+        t, out = [], b""
+        try:
+            torch.cuda.synchronize()
+            if threads > 1:
+                x264_tpu_torch.reset_launch_counts()
+            for i, f in enumerate(clip):
+                t0 = time.perf_counter()
+                out += e.encode(Frame420(*f))
+                for d in range(n):
+                    torch.cuda.synchronize(d)
+                if i:
+                    t.append(1000 * (time.perf_counter() - t0))
+            out += e.flush()
+            for d in range(n):
+                torch.cuda.synchronize(d)
+            if threads > 1:
+                launches = x264_tpu_torch.launch_counts()
+        finally:
+            sliced.SlicedPStep.bands = bands
+        streams[threads], ms[threads] = out, t
+    for r in records:
+        r["launches"] += launches[r["name"]]
+    if streams[n] != streams[1] or len(calls) != MESH_FRAMES - 1 or \
+            launches["esa16"] < n * (MESH_FRAMES - 1):
+        raise AssertionError(f"mesh (b): streams equal "
+                             f"{streams[n] == streams[1]}, mesh calls "
+                             f"{calls}, launches {launches}")
+    print(f"band mesh (b): {n} slices on {calls[0]}: stream == the one-"
+          f"card loop's ({len(streams[n])} bytes), the mesh on every P "
+          f"frame; launches {launches}")
+    print(f"band mesh (b) encode() ms per P frame ({smi}, {n_dev} cards): "
+          f"threads={n} " + " ".join(f"{x:.2f}" for x in ms[n])
+          + "; threads=1 " + " ".join(f"{x:.2f}" for x in ms[1]))
+
 
 # ---- the host-syntax path (ROADMAP A16): I4x4 with CAVLC, the
 # device_host_entropy and reference backends ----
@@ -3427,6 +3709,8 @@ def main() -> int:
     lap("_run_4k_cli")
     _run_1080p_ultrafast(records)
     lap("_run_1080p_ultrafast")
+    _run_1080p_mesh(records)
+    lap("_run_1080p_mesh")
     _run_1080p_fastdecode(records)
     lap("_run_1080p_fastdecode")
     _run_1080p_host_entropy(bclip, records)

@@ -1282,3 +1282,194 @@ def test_syntax_path_encoder_on_card_matches_cpu(cuda, kw):
         assert c["intra_nxn"], c
     if cut is not None:
         assert types[cut] == "IDR", types
+
+
+# ---- another card than the current one, and the band mesh ----
+
+@pytest.fixture
+def last_card(cuda):
+    """The host's last card, while card 0 stays the current device: a
+    wrapper must launch on its tensors' card, not on the current one."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards, the host has {n}: on one "
+                    "card the current device is the tensors' card")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", n - 1)
+
+
+def _on_last_card(case, dev):
+    """One kernel wrapper on ``dev``'s tensors against its plain twin, one
+    launch counted."""
+    if case in ("esa16", "esa_parts"):
+        s, r = _esa_inputs(dev, 7, 5, 16, 14)
+        fn = (esa16.full_search_16x16 if case == "esa16"
+              else esa_parts.full_search_parts)
+        twin = (esa16.full_search_16x16_plain if case == "esa16"
+                else esa_parts.full_search_parts_plain)
+        got, want = fn(s, r, 14, 16, 7, 5), twin(s, r, 14, 16, 7, 5)
+        if case == "esa_parts":
+            got, want = [got[k] for k in want], list(want.values())
+        return got, want
+    if case == "deblock":
+        planes, bs_v, bs_h, qp, qpc = _deblock_inputs(dev, 6, 4)
+        args = (*planes, bs_v, bs_h, qp, qpc, 2, -2, 6, 4)
+        return k_db.deblock_filter(*args), k_db.deblock_filter_plain(*args)
+    if case == "trellis":
+        c, dq = _trellis_inputs(dev, 1000, 16, 26, 255, 7)
+        tbl = tr.tables_tuple(26, "P", 2)
+        lam2f = tr.frame_trellis(26, "P", me_lambda(26), True)[2]
+        return ([k_tr.trellis_quant(c, dq, lam2f, tbl, 16)],
+                [tr.trellis_quant_plain(c, dq, lam2f, tbl, 16)])
+    if case == "intra_nxn":
+        state = _nxn_state(dev, 6, 4, 3)
+        lam_t = torch.tensor([sad_lambda(26)], dtype=torch.int32,
+                             device=dev)
+        ry, grid = state[0], state[1]
+        got = intra_nxn.nxn_candidates(ry.clone(), grid.clone(), state[2],
+                                       state[3], lam_t, 4, 6, 4, True)
+        want = intra_nxn.nxn_candidates_plain(ry.clone(), grid.clone(),
+                                              state[2], state[3],
+                                              sad_lambda(26), 4, 6, 4, True)
+        return [got[k] for k in want], list(want.values())
+    if case == "cavlc_blocks":
+        from x264_tpu_torch.kernels import cavlc as k_cv
+        from x264_tpu_torch.ops import cavlc as cv
+        fields = [t.to(dev) for t in _cavlc_fields(9, 2, 5)]
+        return (k_cv.residual_slots_(*fields, 9, 2),
+                cv.residual_slots(*(t.cpu() for t in fields), 9, 2))
+    if case == "bitpack":
+        vals, lens = _tokens(37, 9 + 972, 11)
+        parts = [t.contiguous() for t in (vals[:, :9], lens[:, :9],
+                                          vals[:, 9:], lens[:, 9:])]
+        want = bitpack.pack_blob_plain(*parts, 64)
+        blob = bitpack.pack_blob(*(t.to(dev) for t in parts), 64)
+        return ([blob, bitpack.place(blob, 64)],
+                [want, bitpack.place_blob_plain(want, 64)])
+    if case == "pir_column":
+        from x264_tpu_torch.kernels import pir_column as k_pir
+        inputs = _bar_case(dev, 6, 4, 5)
+        t, f = inputs(dev)
+        got = k_pir.pir_column_pass(*t[:6], f, t[6], t[7], 2, 6, 4, 3)
+        t, f = inputs("cpu")
+        want = k_pir.pir_column_pass_plain(*t[:6], f, t[6], t[7], 2, 6, 4,
+                                           3)
+        return ([*got[:3], *(got[3][k] for k in k_pir.FIELDS)],
+                [*want[:3], *(want[3][k] for k in k_pir.FIELDS)])
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["esa16", "esa_parts", "deblock",
+                                  "trellis", "intra_nxn", "cavlc_blocks",
+                                  "bitpack", "pir_column"])
+def test_kernel_wrappers_launch_on_their_tensors_card(last_card, case):
+    """Each wrapper on the last card's tensors, card 0 current: its
+    outputs on the last card, equal to the plain twin's, its launches
+    counted (the bitpack case: the packing and the placement), and card
+    0 still current."""
+    before = x264_tpu_torch.launch_counts()[case]
+    got, want = _on_last_card(case, last_card)
+    torch.cuda.synchronize(last_card)
+    assert x264_tpu_torch.launch_counts()[case] == before + (
+        2 if case == "bitpack" else 1)
+    assert torch.cuda.current_device() == 0
+    for a, b in zip(got, want, strict=True):
+        assert a.device == last_card
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_graph_and_host_copy_on_the_last_card(last_card):
+    """The I16 core captured as a graph and replayed on the last card
+    (card 0 current) equals the eager core there; a ``_HostCopy`` of a
+    tensor that the last card is still computing waits for that card's
+    stream."""
+    from x264_tpu_torch.api import _HostCopy
+    planes = _intra_planes(last_card, 96, 64, 4)
+    kw = dict(mbw=6, mbh=4, cqp_off=0, lv_cap=96)
+    qp_t = torch.full((1,), 30, dtype=torch.int32, device=last_card)
+    eager = intra.i_frame_core(*planes, qp_t, **kw)
+    got = graph.run_core(intra.i_frame_core, *planes, qp_t, **kw)
+    assert torch.cuda.current_device() == 0
+    for k in eager:
+        assert got[k].device == last_card and torch.equal(got[k], eager[k])
+    x = torch.randn((4096, 4096), device=last_card)
+    for _ in range(30):
+        x = torch.tanh(x @ x)
+    t = (x[:512] > 0).to(torch.int32)
+    host = _HostCopy(t).numpy()
+    np.testing.assert_array_equal(host, t.cpu().numpy())
+
+
+def _mesh_inputs(dev, mbw=120, mbh=68, seed=8):
+    """A 1080p P frame of make_clip's formula and the previous frame's
+    planes padded as references (the frames' own pixels as the recon)."""
+    from chip_smoke import _pad_to_mb, make_clip_at
+    from x264_tpu_torch.ops.mc import pad_edge
+    frames = make_clip_at(16 * mbw, 16 * mbh, 2)
+    cur = [torch.from_numpy(_pad_to_mb(p, s)).to(dev)
+           for p, s in zip(frames[1], (16, 8, 8))]
+    ref = [pad_edge(torch.from_numpy(_pad_to_mb(p, s)).to(dev), q)
+           for p, s, q in zip(frames[0], (16, 8, 8), (PAD, PAD // 2,
+                                                        PAD // 2))]
+    return cur, ref
+
+
+def test_mesh_step_on_one_card_equals_the_band_loop(cuda):
+    """The step over card 0 four times on a 1080p ultrafast P frame (four
+    bands of 17 rows, fullpel, CAVLC at 64 words) equals
+    ``p_band_core`` on each band's rows and halo window, field for
+    field."""
+    from x264_tpu_torch.models.inter import p_band_core
+    from x264_tpu_torch.parallel import sliced
+    cur, ref = _mesh_inputs(cuda)
+    kw = dict(me_range=16, cqp_off=0, subpel=0, n_words=64)
+    step, _ = sliced.build_sliced_p_step([cuda] * 4, mbw=120,
+                                         mbh_per_band=17, **kw)
+    got = step(*cur, *ref, 26, sad_lambda(26))
+    loop = []
+    for b in range(4):
+        y0 = 17 * b
+        loop.append(p_band_core(
+            cur[0][16 * y0:16 * (y0 + 17)], cur[1][8 * y0:8 * (y0 + 17)],
+            cur[2][8 * y0:8 * (y0 + 17)],
+            ref[0][16 * y0:16 * (y0 + 17) + 2 * PAD],
+            ref[1][8 * y0:8 * (y0 + 17) + PAD],
+            ref[2][8 * y0:8 * (y0 + 17) + PAD], 26, sad_lambda(26), mbw=120,
+            mbh=17, me_range=16, cqp_off=0, subpel=0, n_words=64))
+    assert set(got) == set(loop[0])
+    for k in got:
+        assert torch.equal(got[k], torch.cat([o[k] for o in loop])), k
+
+
+def test_mesh_across_cards_equals_one_card(last_card):
+    """The step over the host's cards (up to four; a band a card) equals
+    the step over card 0 four times, field for field, on card 0; an
+    encoder with ``threads`` on its cards and one whose card is the last
+    one (``device="cuda:N"``, card 0 current) write the one-card
+    stream."""
+    from chip_smoke import split_motion_clip
+    from x264_tpu_torch.parallel import sliced
+    from x264_tpu_torch.params import param_default_preset
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    cur, ref = _mesh_inputs(torch.device("cuda", 0), mbh=4 * 17)
+    kw = dict(mbw=120, mbh_per_band=68 // n, me_range=16, cqp_off=0,
+              subpel=0, n_words=64)
+    one, _ = sliced.build_sliced_p_step([torch.device("cuda", 0)] * n, **kw)
+    mesh, _ = sliced.build_sliced_p_step(
+        sliced.make_band_mesh(n, "cuda:0"), **kw)
+    want = one(*cur, *ref, 26, sad_lambda(26))
+    got = mesh(*cur, *ref, 26, sad_lambda(26))
+    for k in want:
+        assert got[k].device == want[k].device and \
+            torch.equal(got[k], want[k]), k
+    w, h = 96, 16 * n
+    frames = [Frame420(*f) for f in split_motion_clip(w, h, 4)]
+    p = param_default_preset("ultrafast").clone(width=w, height=h, qp=26,
+                                                slices=n)
+    streams = []
+    for kwp, d in ((dict(threads=n), "cuda:0"), (dict(), "cuda:0"),
+                   (dict(), str(last_card))):
+        enc = Encoder(p.clone(**kwp), device=d)
+        streams.append(b"".join(enc.encode(f) for f in frames) + enc.flush())
+        assert torch.cuda.current_device() == 0
+    assert streams[0] == streams[1] == streams[2]

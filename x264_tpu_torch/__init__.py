@@ -31,6 +31,8 @@ what ran on the TPU runs on PyTorch tensors:
               hand-written CUDA kernels in csrc/
   state.py  — constant tables (copied from x264_tpu) on a device,
               reference-output conversion
+  parallel/ — the band mesh (sliced): with ``threads`` > 1 a CAVLC P
+              frame's bands run one a card
   api.py    — ``Encoder(params, device)``: one slice, or bands of MB
               rows each coded as a slice (``slices`` > 1)
   cli.py, output/, utils/y4m.py, utils/filters.py, utils/metrics.py

@@ -70,8 +70,7 @@ from x264_tpu_torch.models.b_frame import b_frame_core, b_pair_core
 from x264_tpu_torch.models.graph import run_core
 from x264_tpu_torch.models import mbtree as MT
 from x264_tpu_torch.models import inter_frame, intra_frame
-from x264_tpu_torch.models.inter import (encode_pframe_device, p_band_core,
-                                         p_frame_core)
+from x264_tpu_torch.models.inter import encode_pframe_device, p_frame_core
 from x264_tpu_torch.models.intra import (encode_iframe_device,
                                          i4_frame_core, i_frame_core)
 from x264_tpu_torch.models.lookahead import (Lookahead,
@@ -88,6 +87,9 @@ from x264_tpu_torch.ops.entropy_pack import (blob_stride, write_slice_cabac,
 from x264_tpu_torch.ops.reference import deblock as ref_deblock
 from x264_tpu_torch.ops.mc import pad_edge
 from x264_tpu_torch.ops.trellis import frame_trellis
+from x264_tpu_torch.parallel.sliced import (build_sliced_p_step, gather,
+                                            make_band_mesh, on_card,
+                                            run_band)
 from x264_tpu_torch.params import RC_CQP, EncoderParams
 from x264_tpu_torch.rc import RateControl, aq_offsets
 from x264_tpu_torch.state import CHROMA_QP_TABLE, PAD, me_lambda, sad_lambda
@@ -241,6 +243,8 @@ class Encoder:
         # frame's reconstruction is final: an anchor at its submit, a B
         # frame at its finalize, so not in display order with B frames
         self.recon_hook = None
+        # the band mesh's steps (``_sliced_mesh_step``)
+        self._mesh_cache: dict = {}
         self._zones = []
         if self.p.zones:
             from x264_tpu_torch.params import parse_zones
@@ -642,33 +646,57 @@ class Encoder:
     def _band_core(self, job: dict, b: int, n_words: int) -> dict:
         """Band ``b`` of a sliced job through the I16 core (on the card a
         graph replay, one key per band height and rung) or ``p_band_core``
-        on the band's rows of the padded references; ``host_blob`` comes
-        back as a ``_HostCopy``.  The band is coded as a frame of its own:
-        nothing above or below it is available to its MBs."""
-        yd, ud, vd = job["planes"]
+        on the band's rows of the padded references, on the band's card
+        in a mesh job (``job["devices"]``), else on the encoder's;
+        ``host_blob`` comes back as a ``_HostCopy``.  The band is coded as
+        a frame of its own: nothing above or below it is available to its
+        MBs."""
         y0, bh = int(job["starts"][b]), job["heights"][b]
-        mbw = job["mbw"]
-        yb = yd[16 * y0:16 * (y0 + bh)]
-        ub = ud[8 * y0:8 * (y0 + bh)]
-        vb = vd[8 * y0:8 * (y0 + bh)]
-        qp = job["qp"]
+        mbw, qp = job["mbw"], job["qp"]
         ekw = self._entropy_kw(n_words)
         if job["refpads"] is None:
+            yd, ud, vd = job["planes"]
+            yb, ub, vb = (yd[16 * y0:16 * (y0 + bh)],
+                          ud[8 * y0:8 * (y0 + bh)], vd[8 * y0:8 * (y0 + bh)])
             kw = dict(mbw=mbw, mbh=bh, cqp_off=self.p.chroma_qp_offset,
                       **ekw)
             out = (run_core(i_frame_core, yb, ub, vb, qp, **kw)
                    if self.device.type == "cuda"
                    else i_frame_core(yb, ub, vb, qp, **kw))
-        else:
-            ry_pad, ru_pad, rv_pad = job["refpads"]
-            out = p_band_core(
-                yb, ub, vb, ry_pad[16 * y0:16 * (y0 + bh) + 2 * PAD],
-                ru_pad[8 * y0:8 * (y0 + bh) + PAD],
-                rv_pad[8 * y0:8 * (y0 + bh) + PAD], qp,
-                sad_lambda(qp), mbw=mbw, mbh=bh,
-                me_range=self.p.me_range, cqp_off=self.p.chroma_qp_offset,
-                subpel=self.p.subpel, **ekw)
-        return self._host_copies(out, n_words)
+            return self._host_copies(out, n_words)
+        dev = job["devices"][b] if job["devices"] else self.device
+        out = run_band(dev, job["planes"], job["refpads"], y0, bh, qp,
+                       sad_lambda(qp), mbw, me_range=self.p.me_range,
+                       cqp_off=self.p.chroma_qp_offset,
+                       subpel=self.p.subpel, **ekw)
+        with on_card(dev):
+            return self._host_copies(out, n_words)
+
+    def _mesh_on(self, idr: bool, nsl: int, rem: int) -> bool:
+        """A sliced frame's bands run on the band mesh, one a device, under
+        the reference's condition (x264_tpu/api.py:545-547): ``threads``
+        > 1, a P frame on bands of equal height, CAVLC, and at least
+        ``nsl`` devices (on the CPU the bands run in turn, the reference's
+        virtual CPU devices); otherwise the band loop runs, as the
+        reference's does with fewer devices."""
+        return (self.p.threads > 1 and not idr and rem == 0 and nsl > 1
+                and not self.p.cabac
+                and (self.device.type != "cuda"
+                     or torch.cuda.device_count() >= nsl))
+
+    def _sliced_mesh_step(self, nsl: int, mbw: int, mbh_per_band: int,
+                          n_words: int):
+        """The band step over an ``nsl``-device mesh, cached per key."""
+        key = (nsl, mbw, mbh_per_band, n_words, self.p.subpel,
+               self.p.me_range)
+        if key not in self._mesh_cache:
+            step, _ = build_sliced_p_step(
+                make_band_mesh(nsl, self.device), mbw=mbw,
+                mbh_per_band=mbh_per_band, me_range=self.p.me_range,
+                cqp_off=self.p.chroma_qp_offset, n_words=n_words,
+                subpel=self.p.subpel)
+            self._mesh_cache[key] = step
+        return self._mesh_cache[key]
 
     def _submit_device_sliced(self, y, u, v, ftype: str, qp: int) -> dict:
         """A multi-slice frame (the reference's ``_submit_device_sliced``,
@@ -680,8 +708,11 @@ class Encoder:
         as x264's sliced threads do.  An IDR or a P frame on the newest
         reference only, every MB at the frame QP (AQ is refused with
         slices: ROADMAP C, fault 4; MB-tree is off); no scenecut
-        promotion.  The reference's device mesh over the bands
-        (``threads`` > 1) codes the same bytes; one card runs the loop."""
+        promotion.  Under ``_mesh_on`` (``threads`` > 1, a P frame, CAVLC,
+        enough cards) the bands run on the band mesh, one a card
+        (``parallel/sliced.py``): each band's blob is placed in its slice
+        payload on its own card, and the deblock runs on the encoder's
+        card from the fields gathered there, as after the loop."""
         h, w = y.shape
         mbw, mbh = w // 16, h // 16
         idr = ftype == "IDR" or not self.dpb
@@ -702,17 +733,27 @@ class Encoder:
         job = dict(sliced=True, starts=starts, heights=heights,
                    slice_type=SLICE_I if idr else SLICE_P, idr=idr, qp=qp,
                    mbw=mbw, mbh=mbh, n_words=ladder[0], ladder=ladder,
-                   planes=(yd, ud, vd), refpads=refpads,
+                   planes=(yd, ud, vd), refpads=refpads, devices=None,
                    frame_num=self.frame_num, idr_pic_id=self.idr_pic_id,
                    ftype=ftype)
-        outs = [self._band_core(job, b, ladder[0]) for b in range(nsl)]
-        # the whole frame's recon and deblock from the bands' outputs
-        full = {k: torch.cat([o[k] for o in outs])
-                for k in ("recon_y", "recon_u", "recon_v", "mb_class",
-                          "luma_nnz", "cbp_luma", "cbp_chroma", "qp_mb")}
-        full["mv"] = (torch.zeros((mbw * mbh, 2), dtype=torch.int32,
-                                  device=self.device) if idr
-                      else torch.cat([o["mv"] for o in outs]))
+        if self._mesh_on(idr, nsl, rem):
+            step = self._sliced_mesh_step(nsl, mbw, base, ladder[0])
+            job["devices"] = step.devices
+            # every band enqueued on its card before any is placed
+            outs = step.bands(yd, ud, vd, *refpads, qp, sad_lambda(qp))
+            for dev, o in zip(step.devices, outs):
+                with on_card(dev):
+                    self._host_copies(o, ladder[0])
+        else:
+            outs = [self._band_core(job, b, ladder[0]) for b in range(nsl)]
+        # the whole frame's recon and deblock from the bands' outputs, on
+        # the encoder's card
+        keys = ("recon_y", "recon_u", "recon_v", "mb_class", "luma_nnz",
+                "cbp_luma", "cbp_chroma", "qp_mb") + (() if idr else ("mv",))
+        full = gather(outs, keys, self.device)
+        if idr:
+            full["mv"] = torch.zeros((mbw * mbh, 2), dtype=torch.int32,
+                                     device=self.device)
         recon = self._deblock_device(full, qp, mbw, mbh)
         job["outs"] = outs
         new = ReconFrame(*recon, frame_num=self.frame_num)
@@ -728,7 +769,8 @@ class Encoder:
 
     def _rerun_band(self, job: dict, b: int, n_words: int) -> dict:
         """Re-run one band at a larger entropy budget (its recon does not
-        depend on the budget; only the blob changes)."""
+        depend on the budget; only the blob changes), on its own card in a
+        mesh job."""
         return self._band_core(job, b, n_words)
 
     def _finalize_device_sliced(self, job: dict) -> bytes:

@@ -168,10 +168,12 @@ def pack_blob_(hv, hl, rv, rl, n_words: int, fields=()):
     nf = len(fields)
     fp = [f.data_ptr() for f in fields] + [None] * (max_f - nf)
     blob = torch.empty((n, n_words + 1 + nf), dtype=_I32, device=dev)
-    check(library().bitpack_launch(
-        hv.data_ptr(), hl.data_ptr(), h, rv.data_ptr(), rl.data_ptr(), r,
-        *fp, nf, blob.data_ptr(), n_words, n,
-        torch.cuda.current_stream(dev).cuda_stream), "bitpack")
+    with torch.cuda.device(dev):
+        err = library().bitpack_launch(
+            hv.data_ptr(), hl.data_ptr(), h, rv.data_ptr(), rl.data_ptr(),
+            r, *fp, nf, blob.data_ptr(), n_words, n,
+            torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "bitpack")
     LAUNCHES["bitpack"] += 1
     return blob
 
@@ -197,10 +199,12 @@ def place_(blob, n_words: int):
     # view keeps alive
     buf = torch.empty(pay + sum_words(n), dtype=_I32, device=dev)
     payload = buf[:pay]
-    check(library().bitplace_launch(
-        blob.data_ptr(), stride, n_words, n, buf[pay:].data_ptr(),
-        payload.data_ptr(), pay,
-        torch.cuda.current_stream(dev).cuda_stream), "bitplace")
+    with torch.cuda.device(dev):
+        err = library().bitplace_launch(
+            blob.data_ptr(), stride, n_words, n, buf[pay:].data_ptr(),
+            payload.data_ptr(), pay,
+            torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "bitplace")
     LAUNCHES["bitpack"] += 1
     return payload
 

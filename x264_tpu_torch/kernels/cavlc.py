@@ -110,9 +110,11 @@ def residual_slots_(luma_dc, luma_ac, luma_nnz, chroma_dc, chroma_ac,
                    for t, (name, shape, dtype, al) in zip(args, _FIELDS)])
     lib, tab = _device_ctx(str(dev))
     vals, lens = torch.empty((2, n, MB_SLOTS), dtype=_I32, device=dev)
-    check(lib.cavlc_mb_launch(
-        *(t.data_ptr() for t in args), tab.data_ptr(), vals.data_ptr(),
-        lens.data_ptr(), mbw, mbh,
-        torch.cuda.current_stream(dev).cuda_stream), "cavlc_blocks")
+    with torch.cuda.device(dev):
+        err = lib.cavlc_mb_launch(
+            *(t.data_ptr() for t in args), tab.data_ptr(), vals.data_ptr(),
+            lens.data_ptr(), mbw, mbh,
+            torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "cavlc_blocks")
     LAUNCHES["cavlc_blocks"] += 1
     return vals, lens

@@ -264,11 +264,13 @@ def nxn_candidates_(ry, grid, ysrc, qp, lam, d: int, mbw: int, mbh: int,
         raise ValueError(f"intra_nxn: step {d} outside the frame")
     jmin, count = knight_lanes(d, mbw, mbh)
     out = torch.empty((count, OUT_WORDS), dtype=_I32, device=dev)
-    err = library().intra_nxn_launch(
-        ry.data_ptr(), grid.data_ptr(), ysrc.data_ptr(), qp.data_ptr(),
-        lam.data_ptr(), _tables(str(dev)).data_ptr(), out.data_ptr(), d,
-        jmin, count, mbw, mbh, int(t8_mode),
-        torch.cuda.current_stream(dev).cuda_stream)
+    tab = _tables(str(dev))
+    with torch.cuda.device(dev):
+        err = library().intra_nxn_launch(
+            ry.data_ptr(), grid.data_ptr(), ysrc.data_ptr(), qp.data_ptr(),
+            lam.data_ptr(), tab.data_ptr(), out.data_ptr(), d, jmin, count,
+            mbw, mbh, int(t8_mode),
+            torch.cuda.current_stream(dev).cuda_stream)
     check(err, "intra_nxn")
     LAUNCHES["intra_nxn"] += 1
     res, o = {}, 0

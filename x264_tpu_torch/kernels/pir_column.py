@@ -149,9 +149,10 @@ def pir_column_pass_(y, u, v, ry, ru, rv, acc: dict, qp, qpc, pir_col: int,
                          f"wide, outside a frame {mbw} MBs wide")
     ptrs = [t.data_ptr() for _, t, _, _ in want]
     ptrs.append(_tables(str(dev)).data_ptr())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = library().pir_column_launch(*ptrs, pir_col, ncols, mbw, mbh,
-                                      stream)
+    with torch.cuda.device(dev):
+        err = library().pir_column_launch(
+            *ptrs, pir_col, ncols, mbw, mbh,
+            torch.cuda.current_stream(dev).cuda_stream)
     check(err, "pir_column")
     LAUNCHES["pir_column"] += 1
     return ry, ru, rv, acc

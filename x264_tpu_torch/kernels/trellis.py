@@ -98,10 +98,11 @@ def _launch(coefs_zz, dq_zz, lam2f, tbl, nc: int, layout):
     out = torch.empty_like(c)
     args = (c.data_ptr(), dq.data_ptr(), params.data_ptr(), out.data_ptr(),
             c.shape[0], nc)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = library()
-    err = lib.trellis_launch(*args, stream) if layout is None else \
-        lib.trellis_launch_layout(*args, layout, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.trellis_launch(*args, stream) if layout is None else \
+            lib.trellis_launch_layout(*args, layout, stream)
     check(err, "trellis")
     LAUNCHES["trellis"] += 1
     return out

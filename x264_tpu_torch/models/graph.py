@@ -14,7 +14,8 @@ failed capture raises.
   caches one per QP; the graph holds its own copy).
 - The first call warms the core up on a side stream (the per-device
   table caches fill there, so nothing uploads from host memory during
-  capture), captures it and replays it.
+  capture), captures it on that stream and replays it, all under the
+  planes' card.
 - Outputs are owned by the graph and overwritten by the next replay, so
   every call returns clones.
 - ``kernels.LAUNCHES`` counts in Python, that is at capture; each replay
@@ -45,6 +46,10 @@ class CoreGraph:
     call's warm-up and capture time (the card synchronised)."""
 
     def __init__(self, core, planes, qp, lam, trellis_tbl, static: dict):
+        with torch.cuda.device(planes[0].device):
+            self._capture(core, planes, qp, lam, trellis_tbl, static)
+
+    def _capture(self, core, planes, qp, lam, trellis_tbl, static: dict):
         dev = planes[0].device
         t0 = time.perf_counter()
         self.planes = [p.clone() for p in planes]
@@ -73,7 +78,11 @@ class CoreGraph:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = dict(LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # captured on the side stream: torch.cuda.graph's default capture
+        # stream is one stream for the process, on the device current when
+        # it was first made, and a capture on another card's stream
+        # records nothing of this card's launches
+        with torch.cuda.graph(self.graph, stream=side):
             self.out = run()
         self.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         LAUNCHES.update(before)
@@ -94,7 +103,8 @@ class CoreGraph:
 
     def __call__(self, planes, qp, lam, trellis_tbl) -> dict:
         self._load(planes, qp, lam, trellis_tbl)
-        self.graph.replay()
+        with torch.cuda.device(self.qp.device):
+            self.graph.replay()
         for k, c in self.launches.items():
             LAUNCHES[k] += c
         return {k: v.clone() for k, v in self.out.items()}

@@ -35,7 +35,11 @@ _BIG = 1 << 30
 
 
 def qp_per_mb(qp, n: int, device):
-    """A scalar or per-MB QP as an (n,) int32 tensor."""
+    """A scalar or per-MB QP as an (n,) int32 tensor.  A scalar is filled
+    on the device: a tensor made from host data is a copy from pageable
+    memory, which holds the host until the device's stream has drained."""
+    if not torch.is_tensor(qp) and np.ndim(qp) == 0:
+        return torch.full((n,), int(qp), dtype=_I32, device=device)
     return torch.as_tensor(qp, dtype=_I32, device=device).reshape(-1) \
         .expand(n).contiguous()
 

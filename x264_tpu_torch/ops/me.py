@@ -9,6 +9,8 @@ it.  The reference's P core takes the one-hot window gather
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from x264_tpu_torch.kernels.esa16 import full_search_16x16  # noqa: F401
@@ -29,6 +31,16 @@ def subpel_candidates(steps: int):
                        for dy in range(-r, r + 1, s)
                        for dx in range(-r, r + 1, s)
                        if not (dy == 0 and dx == 0)]
+
+
+@functools.lru_cache(maxsize=None)
+def _candidate_deltas(device: torch.device, steps: int) -> torch.Tensor:
+    """The (dx, dy) of ``subpel_candidates(steps)`` as (C, 2) int32 on
+    ``device``, made once: a tensor made from host data per candidate is a
+    copy from pageable memory, which holds the host until the card's
+    stream has drained."""
+    return torch.tensor([[dx, dy] for dy, dx in subpel_candidates(steps)],
+                        dtype=_I32, device=device)
 
 
 def hpel_windows(g):
@@ -85,12 +97,13 @@ def subpel_refine(src_mbs, ref_pad, mv0, lam: int, me_range: int,
     # reference: argmin takes the first min within a chunk, strict <
     # keeps the earlier chunk, so ties go to the earlier candidate
     cands = subpel_candidates(steps)
+    deltas = _candidate_deltas(dev, steps)
     chunk_len = 7
     best = best_mv = best_pred = None
     for ci in range(0, len(cands), chunk_len):
         chunk = cands[ci:ci + chunk_len]
         preds, mvs = [], []
-        for (dy, dx) in chunk:
+        for j, (dy, dx) in enumerate(chunk):
             fy, fx = dy & 3, dx & 3
             iy, ix = dy >> 2, dx >> 2
             p1, dy1, dx1, p2, dy2, dx2 = (int(t) for t in
@@ -100,7 +113,7 @@ def subpel_refine(src_mbs, ref_pad, mv0, lam: int, me_range: int,
             s2 = win[p2, :, 1 + iy + dy2:17 + iy + dy2,
                      1 + ix + dx2:17 + ix + dx2]
             preds.append((s1 + s2 + 1) >> 1)
-            mvs.append(mv0 + torch.tensor([dx, dy], dtype=_I32, device=dev))
+            mvs.append(mv0 + deltas[ci + j])
         m = len(chunk)
         predm = torch.stack(preds)                          # (m, N, 16, 16)
         mvm = torch.stack(mvs)                              # (m, N, 2)
