@@ -6,7 +6,14 @@
 Phases, each of which raises (exit code != 0) when it fails:
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from x264_tpu_torch/csrc (nvcc, sm_90a,
-     one process per source);
+     one process per source); then Encoder.warm() at 1080p before any
+     other phase captures a graph, on bench.py's GOP (CABAC) and its
+     CAVLC twin: warm()'s ms and the graphs it captured, the first IDR's
+     encode() ms after it beside the steady IDR's, a noise IDR that
+     overflows the first entropy rung and a mini-GOP, with the kernel
+     library loaded and no graph captured after warm() returned True (or
+     the run fails), a second warm() at once, and a cold encoder's bytes
+     equal to the warm one's; the graphs are dropped after the phase;
   3. each kernel against its plain PyTorch twin at 1080p on the card,
      bit-exact, with both times (CUDA events over several runs after a
      warm-up) and the kernel's bound: the ESA kernels (16x16 and
@@ -921,6 +928,117 @@ def _timed_stages(enc, times: dict) -> None:
     wrap("_submit_b_pair", lambda a: "B")
     wrap("_submit_b", lambda a: "B")
     wrap("_finalize_b", lambda a: "B")
+
+
+WARM_STEADY_IDRS = 3
+
+
+def _warm_phase(clip) -> None:
+    """Encoder.warm() at 1080p, before any other phase captures a graph:
+    bench.py's GOP (CABAC, I4x4, the tools; bench.py calls warm(3600,
+    full=True) before its clock) and its CAVLC twin (no I4x4 or trellis,
+    so off the host-syntax path).  For each: warm()'s ms and the graphs
+    it captured; then encode() ms, the card synchronised, of an IDR, of
+    WARM_STEADY_IDRS more IDRs (the steady IDR), of a noise IDR whose
+    levels overflow the first entropy rung (its core re-runs at the
+    second) and of a mini-GOP (B B P, then flush); warm() must leave
+    the kernel library loaded, no graph may be captured in those calls,
+    and a second warm() returns True at once.  A cold encoder then
+    writes the same bytes.  The graphs are dropped at the end, so that
+    the later phases capture theirs as they did before this phase
+    existed."""
+    import torch
+    from x264_tpu_torch.api import Encoder, Frame420
+    from x264_tpu_torch.kernels import build
+    from x264_tpu_torch.models import graph
+    from x264_tpu_torch.params import TYPE_IDR
+    card = _smi("name,power.limit")
+    rng = np.random.default_rng(3)
+    noise = Frame420(rng.integers(0, 256, (H, W), dtype=np.uint8),
+                     rng.integers(0, 256, (H // 2, W // 2), dtype=np.uint8),
+                     rng.integers(0, 256, (H // 2, W // 2), dtype=np.uint8))
+    frames = [Frame420(*f) for f in clip]
+    n_idr = 1 + WARM_STEADY_IDRS
+    # (frame, forced type): the IDRs, the noise IDR, then B B P
+    plan = [(frames[i], TYPE_IDR if i else 0) for i in range(n_idr)] \
+        + [(noise, TYPE_IDR)] + [(f, 0) for f in frames[n_idr:n_idr + 3]]
+
+    def encode_all(enc, times=None) -> bytes:
+        out = b""
+        for fr, ftype in plan + [(None, None)]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out += enc.flush() if fr is None else enc.encode(fr, ftype)
+            torch.cuda.synchronize()
+            if times is not None:
+                times.append(1000 * (time.perf_counter() - t0))
+        return out
+
+    for label, kw in (
+            ("bench.py's GOP, CABAC",
+             dict(bframes=2, full_recon=False, i4x4=True, weightp=1,
+                  **TOOLS)),
+            ("its CAVLC twin",
+             dict(bframes=2, full_recon=False, weightp=1,
+                  transform_8x8=True, cabac=False))):
+        params = _params(W, H, True, **kw)
+        enc = Encoder(params, device="cuda")
+        g0 = len(graph._GRAPHS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = enc.warm(3600, full=True)
+        torch.cuda.synchronize()
+        warm_ms = 1000 * (time.perf_counter() - t0)
+        keys = list(graph._GRAPHS)[g0:]
+        rungs = sorted(dict(k[-1]).get("lv_cap", dict(k[-1]).get("n_words"))
+                       for k in keys)
+        capture = " ".join(f"{graph._GRAPHS[k].capture_ms:.1f}" for k in keys)
+        print(f"warm phase, {label}, {card}: warm() -> {ok} in "
+              f"{warm_ms:.1f} ms, {len(keys)} graphs captured (rungs "
+              f"{rungs}: ms {capture}), kernel library loaded "
+              f"{build._lib is not None}, rung floor after it "
+              f"{enc._rung_floor}")
+        if not ok or len(keys) < 2 or build._lib is None:
+            raise AssertionError(f"warm phase, {label}: warm() -> {ok}, "
+                                 f"{len(keys)} graphs (both rungs expected),"
+                                 f" library loaded {build._lib is not None}")
+        g1 = len(graph._GRAPHS)
+        times = []
+        stream = encode_all(enc, times)
+        new_graphs = len(graph._GRAPHS) - g1
+        types = [s.frame_type for s in enc.stats]
+        steady = times[1:n_idr]
+        print(f"warm phase, {label}, {card}: encode() ms after warm(): the "
+              f"first IDR {times[0]:.1f}, the steady IDR "
+              f"{np.median(steady):.1f} (median of "
+              f"{' '.join(f'{t:.1f}' for t in steady)}), the noise IDR "
+              f"{times[n_idr]:.1f} (rung floor after it "
+              f"{enc._rung_floor}), B B P and flush "
+              f"{' '.join(f'{t:.1f}' for t in times[n_idr + 1:])}; graph "
+              f"captures {new_graphs} (0 expected); frame types {types}")
+        if new_graphs:
+            raise AssertionError(
+                f"warm phase, {label}: {new_graphs} graph captures after "
+                "warm() returned True")
+        if types != ["IDR"] * (n_idr + 1) + ["P", "B", "B"] or \
+                enc._rung_floor != enc._RUNGS[params.cabac][-1]:
+            raise AssertionError(f"warm phase, {label}: frame types {types},"
+                                 f" rung floor {enc._rung_floor} (the noise "
+                                 "IDR should overflow the first rung)")
+        t0 = time.perf_counter()
+        again = enc.warm(3600, full=True)
+        again_ms = 1000 * (time.perf_counter() - t0)
+        if not again or again_ms > 10:
+            raise AssertionError(f"warm phase, {label}: a second warm() -> "
+                                 f"{again} in {again_ms:.3f} ms")
+        cold = encode_all(Encoder(params, device="cuda"))
+        if cold != stream:
+            raise AssertionError(f"warm phase, {label}: the warm encoder's "
+                                 "stream != a cold encoder's")
+        print(f"warm phase, {label}: a second warm() -> True in "
+              f"{again_ms:.4f} ms; a cold encoder wrote the same "
+              f"{len(stream)} bytes")
+    graph._GRAPHS.clear()
 
 
 def _run_1080p_b(clip, records):
@@ -3514,6 +3632,11 @@ def main() -> int:
           "takes the lower rate")
     esa_rate = min(int_ops_per_s, probe_rate)
 
+    # ---- 2b. Encoder.warm(), before any other phase captures a graph ----
+    bclip = make_clip(B_FRAMES)
+    _warm_phase(bclip)
+    lap("_warm_phase")
+
     # ---- 3. kernels against their plain twins at 1080p ----
     t0 = time.perf_counter()
     clip = make_clip(N_FRAMES)
@@ -3694,7 +3817,6 @@ def main() -> int:
           + " ".join(str(int(c)) for c in hist))
     if len(shapes) != n_p or hist.sum() != n_p * n_mb:
         raise AssertionError(f"partition shapes of {len(shapes)} frames")
-    bclip = make_clip(B_FRAMES)
     _run_1080p_b(bclip, records)
     lap("_run_1080p_b")
     _run_1080p_multiref(clip[:MULTIREF_FRAMES], records)

@@ -11,6 +11,7 @@ jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _test_clock import per_test_clock  # noqa: E402,F401
 from x264_tpu.models import inter_device, intra_device  # noqa: E402
 from x264_tpu.models.inter_frame import sad_lambda  # noqa: E402
 from x264_tpu_torch.models import inter, intra  # noqa: E402

@@ -13,6 +13,8 @@ import re
 import numpy as np
 import pytest
 
+from _test_clock import per_test_clock  # noqa: F401
+
 from x264_tpu_torch.kernels import build
 from x264_tpu_torch.kernels.esa16 import (KEY_CAND_BITS, KEY_COST_BITS,
                                           SAD_MAX, check_key_range, pack_key,

@@ -24,6 +24,7 @@ pytest.importorskip("jax")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _test_clock import per_test_clock  # noqa: E402,F401
 import x264_tpu.params as r_params  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 import x264_tpu.bitstream.bits as r_bits  # noqa: E402

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from _test_clock import per_test_clock  # noqa: F401
+
 from x264_tpu_torch.kernels import build
 from x264_tpu_torch.kernels.intra_nxn import _SUBSTEPS
 from x264_tpu_torch.ops import pixel as P

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from _test_clock import per_test_clock  # noqa: F401
+
 import x264_tpu_torch
 from x264_tpu_torch.api import Encoder
 from x264_tpu_torch.kernels import bitpack
@@ -1473,3 +1475,46 @@ def test_mesh_across_cards_equals_one_card(last_card):
         streams.append(b"".join(enc.encode(f) for f in frames) + enc.flush())
         assert torch.cuda.current_device() == 0
     assert streams[0] == streams[1] == streams[2]
+
+
+@pytest.mark.parametrize("coder", ["cabac", "cavlc"])
+def test_warm_captures_every_graph_the_stream_reaches(cuda, coder):
+    """bench.py's params (bench.py:67-72) at 1080p, and its CAVLC twin
+    (no I4x4 or trellis): warm() returns True with the kernel library
+    loaded; an IDR, a noise IDR whose levels overflow the first entropy
+    rung and a mini-GOP after it add no graph; a second warm() returns
+    True at once."""
+    import time
+
+    from chip_smoke import make_clip
+    from x264_tpu_torch.kernels import build
+    from x264_tpu_torch.params import TYPE_IDR
+    w, h = 1920, 1080
+    kw = dict(width=w, height=h, qp=26, me_range=16, backend="device",
+              deblock=True, keyint_max=250, bframes=2, full_recon=False,
+              cabac=True, transform_8x8=True, weightp=1, trellis=1,
+              i4x4=True, p8x8=True, scenecut_threshold=0)
+    if coder == "cavlc":
+        kw.update(cabac=False, trellis=0, i4x4=False)
+    enc = Encoder(EncoderParams(**kw), device=cuda)
+    assert enc.warm(3600, full=True) is True
+    assert build._lib is not None
+    g0 = len(graph._GRAPHS)
+    rng = np.random.default_rng(3)
+    noise = Frame420(rng.integers(0, 256, (h, w), dtype=np.uint8),
+                     rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
+                     rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+    clip = [Frame420(*f) for f in make_clip(4)]
+    enc.encode(clip[0])
+    enc.encode(noise, TYPE_IDR)
+    for f in clip[1:]:
+        enc.encode(f)
+    enc.flush()
+    torch.cuda.synchronize()
+    assert [s.frame_type for s in enc.stats] == ["IDR", "IDR", "P", "B",
+                                                 "B"]
+    assert enc._rung_floor == enc._RUNGS[kw["cabac"]][-1]
+    assert len(graph._GRAPHS) == g0
+    t0 = time.perf_counter()
+    assert enc.warm() is True
+    assert time.perf_counter() - t0 < 0.01

@@ -26,6 +26,7 @@ jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _test_clock import per_test_clock  # noqa: E402,F401
 from x264_tpu import params as r_params  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.models import inter_frame as r_inter  # noqa: E402
@@ -57,6 +58,104 @@ def _scene(rng, t, phase=0, w=W, h=H, speed=4):
                            / (13.0 + 7 * phase))
          * np.cos((yy - 2 * t) / 19.0)).astype(np.uint8)
     return y + rng.integers(0, 4, (h, w)).astype(np.uint8)
+
+
+# ---- streams ----
+
+def _clip(n, w, h, cut=None, seed=3):
+    """A moving sine field with noise, 45-degree stripes at 4-px grain in
+    the top-left (I4x4 wins there), flat and busy areas (AQ's energies
+    spread), moving chroma; from frame ``cut`` on, a still noise scene
+    (tests/test_lookahead.py's scenecut content)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    other = rng.integers(100, 255, (h, w))
+    frames = []
+    for t in range(n):
+        y = _scene(rng, t, 0, w, h)
+        if cut is not None and t >= cut:
+            y = other
+        y[:16, :32] = np.where(((xx[:16, :32] + yy[:16, :32] + t) // 3) % 2,
+                               200, 40)
+        y[h - 16:, w - 32:] = 90
+        u = (128 + 40 * np.sin((xx[::2, ::2] + t) / 23.0)).astype(np.uint8)
+        v = (128 + 40 * np.cos((yy[::2, ::2] - t) / 29.0)).astype(np.uint8)
+        frames.append((y.astype(np.uint8), u, v))
+    return frames
+
+
+_BASE = dict(width=96, height=64, qp=26, me_range=8, subpel=2, cabac=True,
+             deblock=True, bframes=0, ref_frames=1, keyint_max=250,
+             scenecut_threshold=0)
+_CRF = dict(rc_method=r_params.RC_CRF, crf=30.0)
+
+# name -> (settings, frames, scene cut, base: None for _BASE, else a
+# preset's name); B frames decode to their recon (full_recon is on)
+STREAMS = {
+    # the two presets take the longest: the first and the last, so that
+    # xdist hands them out early and, likely, to two workers
+    "medium": (dict(width=160, height=96, keyint_min=4), 14, 9, "medium"),
+    "aq1_cqp": (dict(aq_mode=1), 4, None, None),
+    "aq2_cqp": (dict(aq_mode=2), 4, None, None),
+    "aq3_cqp": (dict(aq_mode=3, aq_strength=1.4), 4, None, None),
+    "aq_i4": (dict(aq_mode=1, i4x4=True, transform_8x8=True, trellis=1),
+              2, None, None),
+    "aq_p8x8_t8_trellis": (dict(aq_mode=1, p8x8=True, transform_8x8=True,
+                                trellis=1), 3, None, None),
+    "aq_b_pair": (dict(aq_mode=1, bframes=2), 4, None, None),
+    "aq_b_single": (dict(aq_mode=1, bframes=1, p8x8=True), 3, None, None),
+    "aq_cavlc": (dict(aq_mode=1, cabac=False, p8x8=True, bframes=2), 5,
+                 None, None),
+    "scenecut_b": (dict(bframes=2, scenecut_threshold=40, keyint_min=1), 9,
+                   5, None),
+    "b_adapt_2": (dict(bframes=2, b_adapt=1), 9, 5, None),
+    "b_adapt_3": (dict(bframes=3, b_adapt=1), 9, 5, None),
+    "mbtree_b0": (dict(mbtree=True, rc_lookahead=4, **_CRF), 8, None, None),
+    "mbtree_b2": (dict(mbtree=True, rc_lookahead=3, bframes=2, **_CRF), 9,
+                  None, None),
+    "slower": (dict(width=160, height=96, keyint_min=4), 12, 8, "slower"),
+}
+
+
+def _params(P, kw, preset):
+    if preset is None:
+        return P.EncoderParams(**dict(_BASE, **kw))
+    # the preset at CRF 23 with AQ, MB-tree and adaptive B placement
+    return P.param_default_preset(preset).clone(
+        rc_method=P.RC_CRF, crf=23.0, aq_mode=1, mbtree=True, b_adapt=1,
+        **kw)
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_lookahead_streams_match_reference_and_decode(name):
+    """The port's stream equals the reference's, with the same frame
+    types and QPs, and avdec decodes it to the port's recon of every
+    frame (keyed by display index)."""
+    kw, n, cut, preset = STREAMS[name]
+    tp, rp = _params(t_params, kw, preset), _params(r_params, kw, preset)
+    frames = _clip(n, tp.width, tp.height, cut)
+    port = Encoder(tp, device="cpu")
+    recons = {}
+    port.recon_hook = recons.__setitem__
+    stream = b"".join(port.encode(Frame420(*f)) for f in frames) \
+        + port.flush()
+    ref = RefEncoder(rp)
+    ref_stream = b"".join(ref.encode(RefFrame(*f)) for f in frames) \
+        + ref.flush()
+    types = [s.frame_type for s in port.stats]
+    assert stream == ref_stream, types
+    assert [(s.frame_type, s.qp) for s in port.stats] == \
+        [(s.frame_type, s.qp) for s in ref.stats]
+    dec = decode_annexb(stream, tp.width, tp.height)
+    assert len(dec) == n == len(recons)
+    for d, planes in enumerate(dec):
+        for p_rec, p_dec in zip((recons[d].y, recons[d].u, recons[d].v),
+                                planes):
+            hh, ww = p_dec.shape
+            np.testing.assert_array_equal(p_rec[:hh, :ww].numpy(), p_dec,
+                                          err_msg=f"{name}: display {d}")
+    if cut is not None and (kw.get("scenecut_threshold") or preset):
+        assert "IDR" in types[1:], types
 
 
 # ---- the lowres functions ----
@@ -171,99 +270,3 @@ def test_lowres_scenecut_decision_matches_reference(rng, cut):
                           for d, y in enumerate(seq)])
     assert decisions[0] == decisions[1]
     assert decisions[0] == [cut and d == 5 for d in range(10)]
-
-
-# ---- streams ----
-
-def _clip(n, w, h, cut=None, seed=3):
-    """A moving sine field with noise, 45-degree stripes at 4-px grain in
-    the top-left (I4x4 wins there), flat and busy areas (AQ's energies
-    spread), moving chroma; from frame ``cut`` on, a still noise scene
-    (tests/test_lookahead.py's scenecut content)."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    other = rng.integers(100, 255, (h, w))
-    frames = []
-    for t in range(n):
-        y = _scene(rng, t, 0, w, h)
-        if cut is not None and t >= cut:
-            y = other
-        y[:16, :32] = np.where(((xx[:16, :32] + yy[:16, :32] + t) // 3) % 2,
-                               200, 40)
-        y[h - 16:, w - 32:] = 90
-        u = (128 + 40 * np.sin((xx[::2, ::2] + t) / 23.0)).astype(np.uint8)
-        v = (128 + 40 * np.cos((yy[::2, ::2] - t) / 29.0)).astype(np.uint8)
-        frames.append((y.astype(np.uint8), u, v))
-    return frames
-
-
-_BASE = dict(width=96, height=64, qp=26, me_range=8, subpel=2, cabac=True,
-             deblock=True, bframes=0, ref_frames=1, keyint_max=250,
-             scenecut_threshold=0)
-_CRF = dict(rc_method=r_params.RC_CRF, crf=30.0)
-
-# name -> (settings, frames, scene cut, base: None for _BASE, else a
-# preset's name); B frames decode to their recon (full_recon is on)
-STREAMS = {
-    "aq1_cqp": (dict(aq_mode=1), 4, None, None),
-    "aq2_cqp": (dict(aq_mode=2), 4, None, None),
-    "aq3_cqp": (dict(aq_mode=3, aq_strength=1.4), 4, None, None),
-    "aq_i4": (dict(aq_mode=1, i4x4=True, transform_8x8=True, trellis=1),
-              2, None, None),
-    "aq_p8x8_t8_trellis": (dict(aq_mode=1, p8x8=True, transform_8x8=True,
-                                trellis=1), 3, None, None),
-    "aq_b_pair": (dict(aq_mode=1, bframes=2), 4, None, None),
-    "aq_b_single": (dict(aq_mode=1, bframes=1, p8x8=True), 3, None, None),
-    "aq_cavlc": (dict(aq_mode=1, cabac=False, p8x8=True, bframes=2), 5,
-                 None, None),
-    "scenecut_b": (dict(bframes=2, scenecut_threshold=40, keyint_min=1), 9,
-                   5, None),
-    "b_adapt_2": (dict(bframes=2, b_adapt=1), 9, 5, None),
-    "b_adapt_3": (dict(bframes=3, b_adapt=1), 9, 5, None),
-    "mbtree_b0": (dict(mbtree=True, rc_lookahead=4, **_CRF), 8, None, None),
-    "mbtree_b2": (dict(mbtree=True, rc_lookahead=3, bframes=2, **_CRF), 9,
-                  None, None),
-    "medium": (dict(width=160, height=96, keyint_min=4), 14, 9, "medium"),
-    "slower": (dict(width=160, height=96, keyint_min=4), 12, 8, "slower"),
-}
-
-
-def _params(P, kw, preset):
-    if preset is None:
-        return P.EncoderParams(**dict(_BASE, **kw))
-    # the preset at CRF 23 with AQ, MB-tree and adaptive B placement
-    return P.param_default_preset(preset).clone(
-        rc_method=P.RC_CRF, crf=23.0, aq_mode=1, mbtree=True, b_adapt=1,
-        **kw)
-
-
-@pytest.mark.parametrize("name", list(STREAMS))
-def test_lookahead_streams_match_reference_and_decode(name):
-    """The port's stream equals the reference's, with the same frame
-    types and QPs, and avdec decodes it to the port's recon of every
-    frame (keyed by display index)."""
-    kw, n, cut, preset = STREAMS[name]
-    tp, rp = _params(t_params, kw, preset), _params(r_params, kw, preset)
-    frames = _clip(n, tp.width, tp.height, cut)
-    port = Encoder(tp, device="cpu")
-    recons = {}
-    port.recon_hook = recons.__setitem__
-    stream = b"".join(port.encode(Frame420(*f)) for f in frames) \
-        + port.flush()
-    ref = RefEncoder(rp)
-    ref_stream = b"".join(ref.encode(RefFrame(*f)) for f in frames) \
-        + ref.flush()
-    types = [s.frame_type for s in port.stats]
-    assert stream == ref_stream, types
-    assert [(s.frame_type, s.qp) for s in port.stats] == \
-        [(s.frame_type, s.qp) for s in ref.stats]
-    dec = decode_annexb(stream, tp.width, tp.height)
-    assert len(dec) == n == len(recons)
-    for d, planes in enumerate(dec):
-        for p_rec, p_dec in zip((recons[d].y, recons[d].u, recons[d].v),
-                                planes):
-            hh, ww = p_dec.shape
-            np.testing.assert_array_equal(p_rec[:hh, :ww].numpy(), p_dec,
-                                          err_msg=f"{name}: display {d}")
-    if cut is not None and (kw.get("scenecut_threshold") or preset):
-        assert "IDR" in types[1:], types

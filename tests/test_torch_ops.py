@@ -14,6 +14,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _test_clock import per_test_clock  # noqa: E402,F401
 from x264_tpu.ops.device import entropy_pack as d_ep  # noqa: E402
 from x264_tpu.ops.device import header as d_hdr  # noqa: E402
 from x264_tpu.ops.device import mc as d_mc  # noqa: E402

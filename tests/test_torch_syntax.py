@@ -32,6 +32,7 @@ jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _test_clock import per_test_clock  # noqa: E402,F401
 from x264_tpu import params as r_params  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.models import inter_device, intra_device  # noqa: E402

@@ -34,6 +34,7 @@ jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _test_clock import per_test_clock  # noqa: E402,F401
 from x264_tpu.models import (b_frame_device, inter_device,  # noqa: E402
                              intra_device, residual_device)
 from x264_tpu.models.inter_frame import me_lambda  # noqa: E402

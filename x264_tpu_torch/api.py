@@ -30,9 +30,13 @@ buffer, NAL HRD buffering-period and pic-timing SEIs, periodic intra
 refresh (a moving I16 bar, ``kernels/pir_column``, with its
 recovery-point SEI), and the run-time entry points ``reconfig``,
 ``delayed_frames``, ``intra_refresh``, ``invalidate_reference`` and
-``encode_pipelined``; the fullpel-only search (``subpel`` 0, x264's
-``ultrafast``); and multi-slice frames (``slices`` > 1: bands of MB rows,
-each an I16 or P16 slice of its own, ``_submit_device_sliced``); and
+``encode_pipelined``; ``warm()``, which before the caller's clock starts
+encodes both entropy rungs of every frame core through a twin encoder
+(the kernel library's build and each I core's CUDA graph), and the
+module function ``encode_sequence``; the fullpel-only search
+(``subpel`` 0, x264's ``ultrafast``); and multi-slice frames (``slices``
+> 1: bands of MB rows, each an I16 or P16 slice of its own,
+``_submit_device_sliced``); and
 the host-syntax path (``_syn_path``: I4x4 with CAVLC, and the backends
 ``device_host_entropy`` and ``reference``), on which the device cores'
 syntax entries (``models/intra.encode_iframe_device``,
@@ -96,7 +100,7 @@ from x264_tpu_torch.state import CHROMA_QP_TABLE, PAD, me_lambda, sad_lambda
 from x264_tpu_torch.utils.yuv import Frame420, pad_to_mb
 
 __all__ = ["Encoder", "EncoderParams", "Frame420", "FrameStats",
-           "ReconFrame"]
+           "ReconFrame", "encode_sequence"]
 
 
 def _check_params(p: EncoderParams) -> None:
@@ -249,6 +253,72 @@ class Encoder:
         if self.p.zones:
             from x264_tpu_torch.params import parse_zones
             self._zones = parse_zones(self.p.zones)
+
+    _warmed = False
+
+    def _warm_on(self) -> bool:
+        """Whether ``warm()`` has work: where the reference starts its
+        warm-up thread at open (x264_tpu/api.py:95-98), on a card, off
+        the host-syntax path, on one slice and at 2000 MBs or more."""
+        return (self.device.type == "cuda" and self._use_device()
+                and not self._syn_path() and self.p.slices == 1
+                and self.p.mb_width * self.p.mb_height >= 2000)
+
+    def _warm_twin(self) -> None:
+        """Encode static textured frames through a throwaway twin on this
+        encoder's device, so that what the real stream pays once per
+        process or card is paid here: the kernel library's build, the C
+        coder's, the per-device tables, and each I core's CUDA graph
+        (``models/graph._GRAPHS``, keyed by device, shape and every static
+        argument, the entropy rung among them).  An IDR, a mini-GOP and a
+        tail with the ladder's floor pinned to the first rung (a frame
+        that overflows it re-runs at the second), then as many frames
+        with the floor at the last rung, the first an IDR, so that the
+        last rung's I core is captured whatever the content's levels
+        (the reference's second group has no IDR).  The twin has no
+        ``recon_hook`` and is never closed, so it writes no stats file;
+        it leaves nothing in ``self``."""
+        from x264_tpu_torch.params import TYPE_IDR
+        p = self.p
+        h, w = 16 * p.mb_height, 16 * p.mb_width
+        tw = Encoder(p, device=self.device)
+        # static content, not zeros: on an all-zero clip the lowres
+        # scenecut reads inter cost == intra cost and promotes every
+        # frame to IDR, so no P or B core would run
+        rng = np.random.default_rng(0)
+        z = Frame420(rng.integers(0, 256, (h, w)).astype(np.uint8),
+                     np.full((h // 2, w // 2), 128, np.uint8),
+                     np.full((h // 2, w // 2), 128, np.uint8))
+        # an IDR, a full mini-GOP, then a tail with the other B-core arity
+        n = max(1 + (p.bframes + 1) + p.bframes, 2)
+        for _ in range(n):
+            tw.encode(z)
+            tw._rung_floor = 0
+        tw.flush()
+        tw._rung_floor = tw._ladder(p.qp)[-1]
+        for i in range(n):
+            tw.encode(z, frame_type=TYPE_IDR if i == 0 else 0)
+        tw.flush()
+
+    def warm(self, timeout=None, full: bool = False) -> bool:
+        """Make every ladder rung of every frame core ready before the
+        caller's clock starts (bench and latency-sensitive callers):
+        True once the twin (``_warm_twin``) has run on this encoder, at
+        once after the first call; False where the reference starts no
+        warm-up (``_warm_on``).  A failure raises.
+
+        The warm-up runs here, in the caller's thread, and never at open:
+        a CUDA graph capture must not share the card with work the caller
+        enqueues meanwhile, and small encoders should not pay for it.  So
+        ``timeout`` and ``full``, kept for the reference's signature, shorten
+        nothing: the reference waits on its thread for the first rung, or
+        with ``full`` for both, and here both rungs are warm on return."""
+        if not self._warm_on():
+            return False
+        if not self._warmed:
+            self._warm_twin()
+            self._warmed = True
+        return True
 
     # -- x264_encoder_reconfig (encoder/encoder.c:1955) ----------------------
     RECONFIG_OK = frozenset((
@@ -1825,3 +1895,15 @@ class Encoder:
                 f" P:{100.0 * a['pmb'] / nmb:5.1f}%"
                 f" skip:{100.0 * a['smb'] / nmb:5.1f}%")
         return out
+
+
+def encode_sequence(frames, params: EncoderParams, device="cuda") -> bytes:
+    """The concatenated ``encode()`` bytes of ``frames`` through a new
+    encoder on ``device``, without ``flush()``, as the reference's
+    ``encode_sequence``: frames that B frames or the lookahead still hold
+    back are not in it."""
+    enc = Encoder(params, device=device)
+    out = b""
+    for fr in frames:
+        out += enc.encode(fr)
+    return out
