@@ -10,21 +10,15 @@ and subpel windows that never leave the padded plane.  Seeded numpy inputs; tole
 throughout).  The stream cases are grouped so that the cases that share
 the reference's compiled programs run in one test (one worker)."""
 
-import os
-import tempfile
-
 import numpy as np
 import pytest
 import torch
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _stream_bases import ODD  # noqa: E402
 from _test_clock import per_test_clock  # noqa: E402,F401
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.models import b_frame_device  # noqa: E402
@@ -273,7 +267,8 @@ STREAM_CASES = {
         "keyint6": (dict(keyint_max=6), 11, None),
     },
     "qp0": {"qp0": (dict(qp=0), 6, None)},
-    "odd": {"odd_350x286": (dict(width=350, height=286), 4, None)},
+    # an odd size: cropped right and bottom, padded MBs in every core
+    "odd": {"odd": (dict(width=ODD[0], height=ODD[1]), 4, None)},
 }
 
 

@@ -8,13 +8,14 @@ tolerance 0 (all integer arithmetic):
   and 30 bits);
 - ``pack_tokens_plain`` (the twin of ``csrc/bitpack.cu``) against
   ``ops/device/bitpack.pack_tokens``, with MBs past the word budget;
-- on a 64x48 frame's core outputs (the reference's I16, P16, P8x8 on two
+- on a 96x64 frame's core outputs (the reference's I16, P16, P8x8 on two
   weighted references with the 8x8 transform, and B cores, all CAVLC):
   ``residual_slots``, the header writers (``header_slots``,
   ``header_slots_parts``, ``header_slots_b``) and the port's core on the
   same inputs, ``host_blob`` included;
 - streams byte-identical to the reference and decoded by tools/avdec
-  (libavcodec) bit-exact to the port's recon, at 64x48 and 350x286:
+  (libavcodec) bit-exact to the port's recon, at 96x64 and the odd 90x58
+  (cropped, on 96x64's programs):
   I/P16 at QP 0, 26 and 51; I/P8x8 with the 8x8 transform and weightp=1
   on two references; I/B/P8x8 with bframes=2, full_recon off and on (the
   second with the 8x8 transform, which B frames do not select with
@@ -25,22 +26,16 @@ tolerance 0 (all integer arithmetic):
 
 Each test holds the cases that share the reference's compiled programs."""
 
-import os
-import tempfile
-
 import numpy as np
 import pytest
 import torch
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _stream_bases import MID, ODD  # noqa: E402
 from _test_clock import per_test_clock  # noqa: E402,F401
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.models import b_frame_device, inter_device  # noqa: E402
@@ -59,7 +54,7 @@ from x264_tpu_torch.ops import cavlc, header  # noqa: E402
 from x264_tpu_torch.params import RC_ABR  # noqa: E402
 from x264_tpu_torch.utils.yuv import Frame420  # noqa: E402
 
-W, H = 64, 48
+W, H = MID
 MBW, MBH = W // 16, H // 16
 N_WORDS = 64          # the encoder's first CAVLC rung
 
@@ -208,10 +203,10 @@ def test_residual_slots_random_fields_match_reference():
         _eq(pl, rl, f"lens {trial}")
 
 
-# ---- the slots and the cores on a 64x48 frame ----
+# ---- the slots and the cores on a 96x64 frame ----
 
 def _frames():
-    """Three 64x48 frames with motion at 8-px grain (so partitions are
+    """Three 96x64 frames with motion at 8-px grain (so partitions are
     chosen), the second with a gradient patch that only intra predicts
     well."""
     fr = [[np.array(p) for p in f] for f in split_motion_clip(W, H, 3)]
@@ -383,9 +378,9 @@ STREAM_GROUPS = {
     "abr": (W, H, [dict(rc_method=RC_ABR, bitrate=400)],
             lambda w, h: split_motion_clip(w, h, 5)),
     "overflow": (W, H, [dict(qp=0)], lambda w, h: _noise(w, h, 3)),
-    "p16_350x286": (350, 286, [{}],
+    "p16_odd": (*ODD, [{}],
                     lambda w, h: split_motion_clip(w, h, 3)),
-    "bframes_350x286": (350, 286, [dict(bframes=2, p8x8=True,
+    "bframes_odd": (*ODD, [dict(bframes=2, p8x8=True,
                                         full_recon=True,
                                         transform_8x8=True, weightp=1,
                                         ref_frames=2)],

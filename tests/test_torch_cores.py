@@ -1,7 +1,9 @@
 """The port's frame cores against x264_tpu's, key by key, including the
 CABAC ``host_blob``: ``i_frame_core`` (CABAC) and ``p_frame_core``
 (single reference, CABAC), the P core fed the same reference frame on
-both sides (``state.to_port``).  Tolerance 0."""
+both sides (``state.to_port``), on 6x4 MBs (96x64, where the
+reference's own tests compile both cores at these settings).
+Tolerance 0."""
 
 import numpy as np
 import pytest
@@ -17,7 +19,7 @@ from x264_tpu.models.inter_frame import sad_lambda  # noqa: E402
 from x264_tpu_torch.models import inter, intra  # noqa: E402
 from x264_tpu_torch.state import to_port  # noqa: E402
 
-MBW, MBH, LV_CAP = 5, 3, 96
+MBW, MBH, LV_CAP = 6, 4, 96
 
 
 def _frames(rng):

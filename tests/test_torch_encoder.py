@@ -1,8 +1,9 @@
 """The port's encoder (``x264_tpu_torch.api.Encoder``, device "cpu": the
 kernels' plain twins) against ``x264_tpu.api.Encoder`` on the I/P CABAC
 slice: byte-identical Annex-B streams at QP 0, 26 and 51 and at the odd
-350x286 size, under ABR and CRF, and a real decoder (tools/avdec,
-libavcodec) decoding the port's stream bit-exact to its reconstruction.
+90x58 size (cropped, on 96x64's programs), under ABR and CRF, and a real
+decoder (tools/avdec, libavcodec) decoding the port's stream bit-exact
+to its reconstruction.
 Each side gets its own package's ``EncoderParams`` with the same fields.
 Also: the port runs with both JAX and x264_tpu blocked and starts no
 thread."""
@@ -10,21 +11,17 @@ thread."""
 import os
 import subprocess
 import sys
-import tempfile
 import textwrap
 
 import numpy as np
 import pytest
 import torch
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 pytest.importorskip("jax")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _stream_bases import MID, ODD  # noqa: E402
 from _test_clock import per_test_clock  # noqa: E402,F401
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.params import EncoderParams as RefParams  # noqa: E402
@@ -75,7 +72,7 @@ def _encode(enc, frames):
 
 
 @pytest.mark.parametrize("w,h,qp", [(64, 48, 0), (64, 48, 26),
-                                    (64, 48, 51), (350, 286, 26)])
+                                    (64, 48, 51), (*ODD, 26)])
 def test_stream_matches_reference_and_decodes(w, h, qp):
     frames = _clip(w, h, 3)
     port_stream, recons = _encode(Encoder(_params(w, h, qp), device="cpu"),
@@ -97,16 +94,16 @@ def test_stream_matches_reference_and_decodes(w, h, qp):
 def test_rate_control_matches_reference(rc):
     """The port's copy of the ABR and CRF rate control picks the same
     frame QPs from the port's bit counts and costs as the reference's."""
-    frames = _clip(64, 48, 4)
-    assert _encode(Encoder(_params(64, 48, 26, **rc), device="cpu"),
+    frames = _clip(*MID, 4)
+    assert _encode(Encoder(_params(*MID, 26, **rc), device="cpu"),
                    frames)[0] == \
-        _encode(RefEncoder(_params(64, 48, 26, ref=True, **rc)), frames)[0]
+        _encode(RefEncoder(_params(*MID, 26, ref=True, **rc)), frames)[0]
 
 
 def test_scenecut_promotes_like_reference():
     """With scenecut on, a frame unlike its reference is re-encoded as
     an IDR by the post-encode rule, in the port as in the reference."""
-    w, h = 64, 48
+    w, h = MID
     frames = _clip(w, h, 2)
     rng = np.random.default_rng(11)
     frames.append(Frame420(rng.integers(0, 256, (h, w), dtype=np.uint8),
@@ -215,7 +212,7 @@ def test_open_settings_match_reference_and_decode(group):
     """subpel=1, dct_decimate=False, a chroma QP offset, deblock offsets
     and deblock off: the port's streams equal the reference's on I, P16,
     P8x8 and B frames, and avdec decodes them to the port's recon."""
-    w, h = 64, 48
+    w, h = MID
     for kw, n in ((dict(), 4), (dict(bframes=2, p8x8=True, me_range=8,
                                      full_recon=True), 7)):
         kw = dict(kw, **SETTINGS_GROUPS[group])

@@ -10,20 +10,16 @@ import inspect
 import os
 import subprocess
 import sys
-import tempfile
 import textwrap
 
 import numpy as np
 import pytest
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 pytest.importorskip("jax")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _stream_bases import MID, ODD  # noqa: E402
 from _test_clock import per_test_clock  # noqa: E402,F401
 import x264_tpu.params as r_params  # noqa: E402
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
@@ -285,7 +281,7 @@ def test_lambda_and_mv_bits_equal_reference():
 PARAMS = [
     dict(cabac=True),
     dict(cabac=True, p8x8=True, me_range=8),
-    dict(width=350, height=286, cabac=True, qp=40, deblock_alpha=-2,
+    dict(width=ODD[0], height=ODD[1], cabac=True, qp=40, deblock_alpha=-2,
          deblock_beta=3, chroma_qp_offset=2),
     dict(cabac=True, rc_method=r_params.RC_CRF, crf=20.0, keyint_max=60,
          sar_width=16, sar_height=11, fullrange=True),
@@ -499,7 +495,7 @@ def test_port_never_imports_the_reference_package():
     assert not {f: b for f, b in bad.items() if b}
 
 
-def _clip(n, w=64, h=48):
+def _clip(n, w=MID[0], h=MID[1]):
     rng = np.random.default_rng(7)
     tex = rng.integers(0, 256, (h + 2 * n, w + 3 * n)).astype(np.uint8)
     return [(np.ascontiguousarray(tex[t:t + h, 2 * t:2 * t + w]),
@@ -516,7 +512,7 @@ def test_two_pass_matches_reference(tmp_path):
     for side, (P, E, F) in dict(
             port=(t_params, lambda p: Encoder(p, device="cpu"), Frame420),
             ref=(r_params, RefEncoder, RefFrame)).items():
-        kw = dict(width=64, height=48, cabac=True, bframes=0,
+        kw = dict(width=MID[0], height=MID[1], cabac=True, bframes=0,
                   scenecut_threshold=0, rc_method=P.RC_ABR, bitrate=400)
         stats = str(tmp_path / f"{side}.stats")
         enc = E(P.EncoderParams(stats_write=stats, **kw))
@@ -536,7 +532,7 @@ def test_host_paths_match_reference():
     for side, (P, E, F) in dict(
             port=(t_params, lambda p: Encoder(p, device="cpu"), Frame420),
             ref=(r_params, RefEncoder, RefFrame)).items():
-        enc = E(P.EncoderParams(width=64, height=48, cabac=True,
+        enc = E(P.EncoderParams(width=MID[0], height=MID[1], cabac=True,
                                 bframes=0, scenecut_threshold=0,
                                 zones="0,1,q=30/2,3,b=0.5"))
         stream = b"".join([enc.encode(F(*frames[0])),

@@ -16,28 +16,24 @@ tolerance 0 (all integer arithmetic):
   decoded by tools/avdec (libavcodec) bit-exact to the port's recon:
   I/P16 under CQP, ABR and a scenecut IDR (bframes=0), I/P8x8 with the
   8x8 transform and trellis, bench.py's whole config (bframes=2,
-  full_recon off, P8x8, the 8x8 transform, trellis, weightp 1), and
-  350x286.
+  full_recon off, P8x8, the 8x8 transform, trellis, weightp 1, at
+  bench.py's me_range 16), and the odd 90x58 (cropped, on 96x64's
+  programs), all at 96x64.
 
 Each test holds the cases that share the reference's compiled programs."""
 
 import itertools
-import os
-import tempfile
 
 import numpy as np
 import pytest
 import torch
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _stream_bases import MID, ODD  # noqa: E402
 from _test_clock import per_test_clock  # noqa: E402,F401
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.models import intra_device  # noqa: E402
@@ -282,16 +278,19 @@ STREAM_GROUPS = {
             ("abr", dict(rc_method=RC_ABR, bitrate=300), 4, None),
             ("scenecut", dict(scenecut_threshold=40, keyint_min=1), 3, 2)],
     "p8x8_tools": [("p8x8", dict(TOOLS, p8x8=True), 3, None)],
+    # bench.py's me_range 16 (the reference's own tests hold that GOP's
+    # cores at 64x48 too)
     "bench_gop": [("bench", dict(TOOLS, p8x8=True, bframes=2,
-                                 full_recon=False, weightp=1), 7, None)],
-    "odd_350x286": [("odd", dict(width=350, height=286), 2, None)],
+                                 full_recon=False, weightp=1, me_range=16),
+                   7, None)],
+    "odd": [("odd", dict(width=ODD[0], height=ODD[1]), 2, None)],
 }
 
 
 @pytest.mark.parametrize("group", list(STREAM_GROUPS))
 def test_i4_streams_match_reference_and_decode(group):
     for name, kw, n, cut in STREAM_GROUPS[group]:
-        w, h = kw.get("width", 64), kw.get("height", 48)
+        w, h = kw.get("width", MID[0]), kw.get("height", MID[1])
         kw = {k: v for k, v in kw.items() if k not in ("width", "height")}
         frames = _frames(w, h, n, cut)
         port = Encoder(_params(w, h, **kw), device="cpu")

@@ -465,6 +465,26 @@ extern "C" int pir_column_threads(void** p, const void* tab, int pir_col,
 """
 
 
+@pytest.fixture
+def two_cores():
+    """The test's thread on two of the process's cores, and so every
+    thread the emulated kernel starts (a new thread takes its creator's
+    cores); the process's cores come back after the test.  A CTA is up to
+    a thousand threads that meet at barriers: let onto every core they
+    crowd out the other xdist workers for the length of the test, and on
+    two they take no longer (these tests alone on an 8-core machine:
+    28.0 s and 118 CPU-seconds on all cores, 26.6 s and 40 on two).  Each
+    worker takes its own two cores."""
+    keep = os.sched_getaffinity(0)
+    cpus = sorted(keep)
+    k = int(os.environ.get("PYTEST_XDIST_WORKER", "gw0").lstrip("gw") or 0)
+    os.sched_setaffinity(0, {cpus[(2 * k + i) % len(cpus)] for i in (0, 1)})
+    try:
+        yield
+    finally:
+        os.sched_setaffinity(0, keep)
+
+
 @pytest.fixture(scope="module")
 def pir_threads(tmp_path_factory):
     """csrc/pir_column.cu's kernel built with g++, a thread per CUDA
@@ -491,7 +511,7 @@ def pir_threads(tmp_path_factory):
 
 
 @pytest.mark.parametrize("seed", range(4))
-def test_pir_column_source_runs_as_its_twin(pir_threads, seed):
+def test_pir_column_source_runs_as_its_twin(pir_threads, two_cores, seed):
     """Random frames of 1-6 x 1-4 MBs, QPs 0-51 per MB, bars of 1-3
     columns anywhere (masked columns past the edge included), flat and
     noisy content, then a bar of 5 or 14 columns on a frame wider than
@@ -718,7 +738,8 @@ def _mb_fields(rng, n: int, kind: str) -> list:
 
 
 @pytest.mark.parametrize("kind", ["ones", "small", "large", "escape"])
-def test_cavlc_blocks_source_runs_as_its_twin(cavlc_threads, kind):
+def test_cavlc_blocks_source_runs_as_its_twin(cavlc_threads, two_cores,
+                                             kind):
     """Frames of 1-6 x 1-4 MBs (a CTA's 4 MBs split across rows, and a
     last CTA part empty), random levels with I16 and other MBs, every
     cbp_luma and cbp_chroma, counts 0-16 across MB borders: the kernel's
@@ -775,7 +796,8 @@ def _token_rows(rng, n: int, s: int, n_words: int):
 
 
 @pytest.mark.parametrize("n_words", [1, 4, 64, 416])
-def test_bitpack_source_runs_as_its_twin(bitpack_threads, n_words):
+def test_bitpack_source_runs_as_its_twin(bitpack_threads, two_cores,
+                                         n_words):
     """Frames of 1-24 MBs (the last packer's 4 MBs full or part empty);
     header grids of 0-22 slots (the residual row's 16-byte place shifts
     the header's), residual grids of 0, 8 and 972 slots, 0-4 fields; MBs
@@ -841,7 +863,8 @@ def _block_sums(lib, blob, n_words: int):
 
 
 @pytest.mark.parametrize("n,n_words", [(1030, 2), (2600, 5)])
-def test_bitplace_source_past_one_block(bitpack_threads, n, n_words):
+def test_bitplace_source_past_one_block(bitpack_threads, two_cores, n,
+                                        n_words):
     """Past 256 MBs the placement's first launch sums several blocks and
     each CTA of the second adds the sums of the blocks before it and the
     nbits of its own block's earlier MBs: on a blob made by the twin,

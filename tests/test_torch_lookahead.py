@@ -11,17 +11,10 @@ pair, a single B, CAVLC), the scenecut with B frames, ``b_adapt=1`` at
 bframes 2 and 3, CRF + MB-tree at bframes 0 and 2, and the medium and
 slower presets under CRF with AQ, MB-tree and ``b_adapt``."""
 
-import os
-import tempfile
-
 import numpy as np
 import pytest
 import torch
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
@@ -94,7 +87,7 @@ _CRF = dict(rc_method=r_params.RC_CRF, crf=30.0)
 STREAMS = {
     # the two presets take the longest: the first and the last, so that
     # xdist hands them out early and, likely, to two workers
-    "medium": (dict(width=160, height=96, keyint_min=4), 14, 9, "medium"),
+    "medium": (dict(keyint_min=4), 14, 9, "medium"),
     "aq1_cqp": (dict(aq_mode=1), 4, None, None),
     "aq2_cqp": (dict(aq_mode=2), 4, None, None),
     "aq3_cqp": (dict(aq_mode=3, aq_strength=1.4), 4, None, None),
@@ -113,7 +106,7 @@ STREAMS = {
     "mbtree_b0": (dict(mbtree=True, rc_lookahead=4, **_CRF), 8, None, None),
     "mbtree_b2": (dict(mbtree=True, rc_lookahead=3, bframes=2, **_CRF), 9,
                   None, None),
-    "slower": (dict(width=160, height=96, keyint_min=4), 12, 8, "slower"),
+    "slower": (dict(keyint_min=4), 12, 8, "slower"),
 }
 
 
@@ -122,8 +115,8 @@ def _params(P, kw, preset):
         return P.EncoderParams(**dict(_BASE, **kw))
     # the preset at CRF 23 with AQ, MB-tree and adaptive B placement
     return P.param_default_preset(preset).clone(
-        rc_method=P.RC_CRF, crf=23.0, aq_mode=1, mbtree=True, b_adapt=1,
-        **kw)
+        width=_BASE["width"], height=_BASE["height"], rc_method=P.RC_CRF,
+        crf=23.0, aq_mode=1, mbtree=True, b_adapt=1, **kw)
 
 
 @pytest.mark.parametrize("name", list(STREAMS))

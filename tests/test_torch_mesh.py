@@ -14,16 +14,10 @@ A case that compiles a program of the reference is a test of its own,
 and the streams that share the reference's compiles are one test: split
 over xdist workers, each would compile them again."""
 
-import os
-import tempfile
-
 import numpy as np
 import pytest
 import torch
 
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
@@ -140,9 +134,10 @@ def test_step_matches_reference_step(subpel, entropy):
 # ---- streams ----
 
 def _params(P, **kw):
-    """superfast's analysis (range 8, subpel 1) with CAVLC at QP 26 on
-    four slices."""
-    base = dict(width=W, height=H, qp=26, me_range=8, subpel=1,
+    """tests/test_sliced_mesh.py's analysis (range 16, subpel 2), so that
+    the reference's band programs compiled there serve here, with CAVLC
+    at QP 26 on four slices."""
+    base = dict(width=W, height=H, qp=26, me_range=16, subpel=2,
                 cabac=False, slices=4, keyint_max=250, fps_num=25)
     base.update(kw)
     return P.EncoderParams(**base)

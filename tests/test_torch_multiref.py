@@ -10,8 +10,10 @@ on the CPU with tolerance 0 (all integer arithmetic):
   ``apply_weights_jnp``, the te() ref costs, and the slice header's
   pred_weight_table for neutral and non-neutral weights at K = 1-3;
 - streams byte-identical to the reference and decoded by tools/avdec
-  (libavcodec) bit-exact to the port's recon, on chip_smoke.py's
-  ``fade_clip`` (tests/test_weightp.py's fading pan, whose left half
+  (libavcodec) bit-exact to the port's recon, at 96x64 and range 16
+  (tests/test_cabac_ext.py's multi-reference settings, so that its
+  compiled P cores serve here), on chip_smoke.py's ``fade_clip``
+  (tests/test_weightp.py's fading pan, whose left half
   flashes another texture now and then, so that the frame after a flash
   finds its match two frames back): (a) P16 with ref_frames=3 and
   weightp=1, (b) P8x8 with the 8x8 transform, trellis, ref_frames=2 and
@@ -26,22 +28,17 @@ Each stream group holds the cases that share the reference's compiled
 programs."""
 
 import functools
-import os
-import tempfile
 
 import numpy as np
 import pytest
 import torch
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _stream_bases import MID  # noqa: E402
 from _test_clock import per_test_clock  # noqa: E402,F401
 import x264_tpu.bitstream.bits as r_bits  # noqa: E402
 import x264_tpu.bitstream.headers as r_headers  # noqa: E402
@@ -287,7 +284,8 @@ def test_multiref_ops_match_reference(op_inputs, case):
 # ---- streams ----
 
 def _params(ref=False, **kw):
-    base = dict(width=64, height=48, qp=26, me_range=8, subpel=2, cabac=True,
+    base = dict(width=MID[0], height=MID[1], qp=26, me_range=16, subpel=2,
+                cabac=True,
                 deblock=True, bframes=0, keyint_max=250, scenecut_threshold=0,
                 backend="device", weightp=1)
     base.update(kw)
@@ -310,7 +308,7 @@ STREAM_GROUPS = {
 @pytest.mark.parametrize("group", list(STREAM_GROUPS))
 def test_multiref_streams_match_reference_and_decode(group, monkeypatch):
     kw, clip_kw = STREAM_GROUPS[group]
-    frames = [Frame420(*f) for f in fade_clip(64, 48, **clip_kw)]
+    frames = [Frame420(*f) for f in fade_clip(*MID, **clip_kw)]
     n = len(frames)
     port = Encoder(_params(**kw), device="cpu")
     wts, refs, hist = [], [], []
@@ -348,7 +346,7 @@ def test_multiref_streams_match_reference_and_decode(group, monkeypatch):
     assert stream == want + ref.flush()
     assert hist == ref_hist
 
-    dec = decode_annexb(stream, 64, 48)
+    dec = decode_annexb(stream, *MID)
     assert len(dec) == n == len(recons)
     for d in range(n):
         for p_rec, p_dec in zip((recons[d].y, recons[d].u, recons[d].v),

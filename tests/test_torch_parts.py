@@ -8,21 +8,15 @@ tools/avdec (libavcodec).  Same seeded numpy inputs; tolerance 0 (integer
 arithmetic throughout); me_range <= 8 wherever the JAX partition search
 runs, to keep its CPU loop short."""
 
-import os
-import tempfile
-
 import numpy as np
 import pytest
 import torch
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _stream_bases import ODD  # noqa: E402
 from _test_clock import per_test_clock  # noqa: E402,F401
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.models import inter_device, intra_device  # noqa: E402
@@ -238,7 +232,7 @@ def _encode(enc, frames):
 
 
 @pytest.mark.parametrize("w,h,qp,n", [(96, 64, 0, 3), (96, 64, 26, 4),
-                                      (96, 64, 51, 3), (350, 286, 26, 3)])
+                                      (96, 64, 51, 3), (*ODD, 26, 3)])
 def test_p8x8_stream_matches_reference_and_decodes(w, h, qp, n):
     frames = split_motion_frames(w, h, n)
     kw = dict(width=w, height=h, qp=qp, keyint_max=250, deblock=True,

@@ -24,16 +24,11 @@ the CABAC family's test, whose streams use superfast's analysis."""
 import os
 import subprocess
 import sys
-import tempfile
 
 import numpy as np
 import pytest
 import torch
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401

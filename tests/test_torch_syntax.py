@@ -17,17 +17,10 @@ queued, which the port refuses where it happens; and
 with I4x4 + CAVLC and with the host-entropy backend, which the
 reference codes on its fast path.  Tolerance 0 throughout."""
 
-import os
-import tempfile
-
 import numpy as np
 import pytest
 import torch
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 jnp = pytest.importorskip("jax.numpy")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
@@ -201,7 +194,8 @@ STREAMS = {
     "i4_cavlc_qp14": (dict(qp=14), 4, None),
     "i4_cavlc_qp26": (dict(qp=26), 4, None),
     "i4_cavlc_qp40": (dict(qp=40), 4, None),
-    "i4_cavlc_aq": (dict(qp=26, aq_mode=1), 4, None),
+    # at range 16, where tests/test_e2e.py compiles the CAVLC P core
+    "i4_cavlc_aq": (dict(qp=26, aq_mode=1, me_range=16), 4, None),
     # the host-entropy backend: the syntax path's scenecut promotes the
     # cut's P frame to an IDR (keyint_min 2), under each coder
     "host_entropy_cabac_cut": (dict(backend="device_host_entropy",
@@ -233,13 +227,13 @@ def test_syntax_streams_match_reference_and_decode(name):
 
 def test_fastdecode_preset_matches_reference_and_decodes():
     """x264's medium preset with tune fastdecode (CAVLC, I4x4, no
-    deblock, P16 anchors, B frames) at CRF 23 with AQ, MB-tree and
-    b_adapt=1: the port's stream equals the reference's and decodes to
-    its recon."""
+    deblock, P16 anchors, B frames, the preset's range 16) at CRF 23
+    with AQ, MB-tree and b_adapt=1: the port's stream equals the
+    reference's and decodes to its recon."""
     def params(P):
         return P.param_default_preset("medium", "fastdecode").clone(
             width=W, height=H, rc_method=P.RC_CRF, crf=23.0, aq_mode=1,
-            mbtree=True, b_adapt=1, me_range=8, keyint_min=3)
+            mbtree=True, b_adapt=1, keyint_min=3)
     tp, rp = params(t_params), params(r_params)
     assert not tp.cabac and tp.i4x4 and not tp.deblock and tp.bframes
     port, types = _check((tp, rp), _clip(8), "fastdecode")

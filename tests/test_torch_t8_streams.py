@@ -3,25 +3,20 @@
 ``x264_tpu.api.Encoder``, byte-identical, and tools/avdec (libavcodec)
 decoding the port's stream bit-exact to its recon, keyed by display
 index.  I/P16 at QP 0, 26 and 51, I/P8x8, bframes 1-3 with full_recon on
-and off, the 8x8 transform alone and trellis alone, all at 64x48.  The
-cases are grouped so that those that share the reference's compiled
-programs (QP and the trellis tables are traced arguments; the tools,
-partitions and B cores are not) run in one test."""
-
-import os
-import tempfile
+and off, the 8x8 transform alone and trellis alone, all at 96x64 and
+range 16 (tests/test_trellis.py's, so that the cores it compiles serve
+here).  The cases are grouped so that those that share the reference's
+compiled programs (QP and the trellis tables are traced arguments; the
+tools, partitions and B cores are not) run in one test."""
 
 import numpy as np
 import pytest
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 pytest.importorskip("jax")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _stream_bases import MID  # noqa: E402
 from _test_clock import per_test_clock  # noqa: E402,F401
 from x264_tpu.api import Encoder as RefEncoder  # noqa: E402
 from x264_tpu.params import EncoderParams as RefParams  # noqa: E402
@@ -29,7 +24,7 @@ from x264_tpu.utils.oracle import decode_annexb  # noqa: E402
 from x264_tpu_torch.api import Encoder, EncoderParams  # noqa: E402
 from x264_tpu_torch.utils.yuv import Frame420  # noqa: E402
 
-W, H = 64, 48
+W, H = MID
 TOOLS = dict(transform_8x8=True, trellis=1)
 
 # group -> [(name, settings, frames)]; one group shares its compiles
@@ -70,7 +65,7 @@ def _frames(n, seed=5):
 
 
 def _params(ref=False, **kw):
-    base = dict(width=W, height=H, qp=26, me_range=8, subpel=2, cabac=True,
+    base = dict(width=W, height=H, qp=26, me_range=16, subpel=2, cabac=True,
                 deblock=True, bframes=0, ref_frames=1, keyint_max=250,
                 scenecut_threshold=0, backend="device")
     base.update(kw)

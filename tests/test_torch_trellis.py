@@ -19,16 +19,11 @@ and float32 arithmetic that must round where XLA's rounds):
 import inspect
 import os
 import re
-import tempfile
 
 import numpy as np
 import pytest
 import torch
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 

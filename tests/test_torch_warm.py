@@ -7,20 +7,16 @@ as a fresh encoder's."""
 
 import inspect
 import os
-import tempfile
 
 import numpy as np
 import pytest
 import torch
 
-# a compile cache per xdist worker: the shared one has crashed a worker
-os.environ.setdefault("X264_TPU_JAX_CACHE", os.path.join(
-    tempfile.gettempdir(),
-    f"x264_tpu_jax_{os.environ.get('PYTEST_XDIST_WORKER', 'main')}"))
 pytest.importorskip("jax")
 
 from _jax_maps import free_jax_executables  # noqa: E402,F401
 import _one_thread  # noqa: E402,F401
+from _stream_bases import MID, ODD  # noqa: E402
 from _test_clock import per_test_clock  # noqa: E402,F401
 import x264_tpu.api as ref_api  # noqa: E402
 from x264_tpu.params import EncoderParams as RefParams  # noqa: E402
@@ -53,15 +49,17 @@ _BASE = dict(qp=26, subpel=2, deblock=True, ref_frames=1, keyint_max=250,
 # the settings of other port test files, so that the reference's programs
 # compiled for them serve here too: test_torch_encoder.py (CABAC),
 # test_torch_bframes.py's full_recon_off case (CABAC, B frames) and
-# test_torch_cavlc.py's p16, p16_350x286 and bframes groups (CAVLC)
+# test_torch_cavlc.py's p16, p16_odd and bframes groups (CAVLC)
 CONFIGS = {
-    "cabac": dict(width=64, height=48, me_range=16, cabac=True, bframes=0),
+    "cabac": dict(width=MID[0], height=MID[1], me_range=16, cabac=True,
+                  bframes=0),
     "cabac_b": dict(width=96, height=64, me_range=8, cabac=True, bframes=2,
                     full_recon=False),
-    "cavlc": dict(width=64, height=48, me_range=8, cabac=False, bframes=0),
-    "cavlc_b": dict(width=64, height=48, me_range=8, cabac=False,
+    "cavlc": dict(width=MID[0], height=MID[1], me_range=8, cabac=False,
+                  bframes=0),
+    "cavlc_b": dict(width=MID[0], height=MID[1], me_range=8, cabac=False,
                     bframes=2, p8x8=True, full_recon=False),
-    "cavlc_odd": dict(width=350, height=286, me_range=8, cabac=False,
+    "cavlc_odd": dict(width=ODD[0], height=ODD[1], me_range=8, cabac=False,
                       bframes=0),
 }
 
